@@ -1,0 +1,436 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+
+1. environment: the card's name and power limit (``nvidia-smi``);
+2. build: compiles the Hopper kernels of ``src/repro_torch/kernels/csrc``
+   and prints nvcc's ``-Xptxas -v`` report for each;
+3. kernel parity: each kernel against its plain torch version on the same
+   CUDA tensors, on random and near-match pairs at n=150, eth=6, sat=32,
+   max_ops=302 (65,536 / 16,384 / 8,192 instances) and in a ragged case
+   (n=37, eth=4); equality must be exact.  Times each kernel and its
+   plain version with CUDA events;
+4. end to end: a 64 Mb synthetic reference (GRCh38 cut to what the flat
+   host-side index build handles inside this run), the port's
+   ``build_index``, 131,072 reads on both strands mapped through
+   ``Mapper.map`` on the compacted and the fused engines.  Checks that
+   every kernel launched on each engine, that the engines agree, that the
+   first chunk mapped on the plain torch backend is identical, and that
+   position+strand accuracy is at least 0.95;
+5. main-path kernels: a second run of each engine keeps a copy of every
+   kernel input; each kernel is held against its plain version and timed
+   on the first chunk's inputs, and every launch of a run is timed again
+   on its own inputs to give the kernels' device time per run.
+
+The last lines are the kernels JSON line (phase 5's numbers, with each
+kernel's bound computed from those inputs) and the contract line
+``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
+result, when no CUDA device is present or anything fails.  Imports
+nothing of JAX or of the ``repro`` package.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+# main-path kernel shapes (MapperConfig defaults) and instance counts
+N, ETH, SAT, MAX_OPS = 150, 6, 32, 302
+R_LINEAR, R_AFFINE, R_TRACEBACK = 65_536, 16_384, 8_192
+# the card's peaks (H100 SXM): HBM rate from NVIDIA's data sheet.  The
+# int32 rate is not in the data sheet: its 67 TFLOP/s of float32 counts an
+# FMA as two ops on 128 float32 lanes per SM; Hopper has 64 int32 lanes
+# per SM (white paper), so 64 x 132 SMs x 1.98 GHz = 16.7 Tops/s.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# int32 operations that the recurrences need, in the steady state:
+#   linear, per band cell: the mismatch compare, diag+sub, up+1, left+1,
+#     three mins (saturation at eth+1 included);
+#   affine distance, per band cell: M1 and M2 two adds and two mins each,
+#     D the sub add, three mins, the match compare and its select;
+#   direction byte, per band cell: two compares and two selects for D's
+#     choice, one compare each for M1 and M2, two shift-adds to pack;
+#   traceback walk, per step: two for the cell's address, three to take
+#     the bits apart, six for the op, the next row, diagonal and state,
+#     two for the op row's address, three for the step count and the
+#     loop test.
+# The masks of the first eth rows and the clamps the scan makes redundant
+# are left out: the kernels run them, the recurrence does not need them.
+LIN_OPS_PER_CELL = 7
+AFF_OPS_PER_CELL = 14
+DIR_OPS_PER_CELL = 8
+WALK_OPS_PER_STEP = 16
+
+GENOME_BASES = 64_000_000
+N_READS = 131_072
+CHUNK = 16_384
+ACCURACY_BAR = 0.95
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def pair_batch(rng, R, n, eth):
+    """Random and near-match (read, window) pairs: the generator of the
+    reference's kernel tests — the first half are the read embedded in
+    its window with up to three substitutions."""
+    s1 = rng.integers(0, 4, (R, n)).astype(np.uint8)
+    s2 = rng.integers(0, 4, (R, n + 2 * eth)).astype(np.uint8)
+    h = R // 2
+    s2[:h, eth : eth + n] = s1[:h]
+    n_sub = rng.integers(0, 4, h)
+    for e in range(3):
+        rows = np.flatnonzero(n_sub > e)
+        cols = eth + rng.integers(0, n, len(rows))
+        s2[rows, cols] = rng.integers(0, 4, len(rows))
+    return s1, s2
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_env():
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
+        f"cuda {torch.version.cuda}")
+    log(f"device: {torch.cuda.get_device_name(0)}")
+    return smi
+
+
+def phase_build():
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    info = build.build()
+    log(f"build: {time.perf_counter() - t0:.2f} s wall, "
+        f"nvcc {build.nvcc_path()}")
+    for name, d in info.items():
+        log(f"--- {name}: {d['seconds']:.2f} s, nvcc -Xptxas -v report:")
+        log(d["log"].strip() or "(already built)")
+
+
+def _compare(name, got, want):
+    import torch
+    err = 0
+    for g, w in zip(got, want):
+        if g.shape != w.shape:
+            raise AssertionError(f"{name}: shape {tuple(g.shape)} != "
+                                 f"{tuple(w.shape)}")
+        err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
+                           .abs().max()) if g.numel() else 0)
+    if err:
+        raise AssertionError(f"{name}: kernel differs from its plain "
+                             f"version, max |diff| = {err}")
+    return err
+
+
+def _kernels():
+    """Each kernel's wrapper, plain version and provenance; every callable
+    takes (s1, s2_window, eth, max_ops)."""
+    from repro_torch.core.affine_wf import (banded_affine, banded_affine_dist,
+                                            traceback)
+    from repro_torch.core.linear_wf import banded_wf
+    from repro_torch.kernels import ops
+
+    def plain_tb(a, b, eth, max_ops):
+        de, dm, dirs = banded_affine(a, b, eth=eth, sat=SAT)
+        o, c = traceback(dirs, eth, max_ops)
+        return de, dm, o, c
+
+    return {
+        "linear_wf": dict(
+            R=R_LINEAR, reps=50,
+            run=lambda a, b, eth, mo: ops.linear_wf(a, b, eth=eth),
+            plain=lambda a, b, eth, mo: banded_wf(a, b, eth=eth),
+            source="src/repro_torch/kernels/csrc/linear_wf.cu",
+            replaces="src/repro/kernels/linear_wf.py:76"),
+        "affine_wf_dist": dict(
+            R=R_AFFINE, reps=50,
+            run=lambda a, b, eth, mo: ops.affine_wf_dist(a, b, eth=eth,
+                                                         sat=SAT),
+            plain=lambda a, b, eth, mo: banded_affine_dist(a, b, eth=eth,
+                                                           sat=SAT),
+            source="src/repro_torch/kernels/csrc/affine_wf.cu",
+            replaces="src/repro/kernels/affine_wf.py:179"),
+        "affine_traceback": dict(
+            R=R_TRACEBACK, reps=20,
+            run=lambda a, b, eth, mo: ops.affine_traceback(
+                a, b, eth=eth, sat=SAT, max_ops=mo),
+            plain=plain_tb,
+            source="src/repro_torch/kernels/csrc/traceback.cu",
+            replaces="src/repro/kernels/traceback.py:108"),
+    }
+
+
+def bound(name, R, n, eth, max_ops, steps=0):
+    """(bound_ms, bound_by): the larger of the recurrence's int32
+    operations over the int32 rate and the bytes read and written once
+    over the HBM rate.  ``steps``: the traceback's walk lengths summed."""
+    cells = R * n * (2 * eth + 1)
+    n_bytes = R * (2 * n + 2 * eth + 8)
+    if name == "linear_wf":
+        n_ops = LIN_OPS_PER_CELL * cells
+    elif name == "affine_wf_dist":
+        n_ops = AFF_OPS_PER_CELL * cells
+    else:
+        n_ops = ((AFF_OPS_PER_CELL + DIR_OPS_PER_CELL) * cells
+                 + WALK_OPS_PER_STEP * steps)
+        n_bytes += R * (4 * max_ops + 4)
+    t_ops = n_ops / INT32_OPS_PER_S * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def phase_parity():
+    """Each kernel against its plain version on generated pairs."""
+    import torch
+    rng = np.random.default_rng(11)
+    dev = torch.device("cuda")
+    for name, k in _kernels().items():
+        # ragged: R off every block size, short reads, another band; the
+        # traceback also with a max_ops that wraps
+        cases = [(1000, 37, 4, 2 * 37 + 2), (k["R"], N, ETH, MAX_OPS)]
+        if name == "affine_traceback":
+            cases.insert(1, (1000, 37, 4, 40))
+        for R, n, eth, mo in cases:
+            s1, s2 = pair_batch(rng, R, n, eth)
+            a, b = torch.from_numpy(s1).to(dev), torch.from_numpy(s2).to(dev)
+            got = k["run"](a, b, eth, mo)
+            torch.cuda.synchronize()
+            _compare(f"{name} R={R} n={n} eth={eth}", got,
+                     k["plain"](a, b, eth, mo))
+            log(f"parity {name}: R={R} n={n} eth={eth} max_ops={mo}: "
+                f"bit-identical (tolerance 0: integer outputs)")
+        R = k["R"]
+        ms = cuda_ms(lambda: k["run"](a, b, ETH, MAX_OPS), k["reps"], 3)
+        plain_ms = cuda_ms(lambda: k["plain"](a, b, ETH, MAX_OPS), 2, 1)
+        steps = int(got[3].sum()) if name == "affine_traceback" else 0
+        b_ms, b_by = bound(name, R, N, ETH, MAX_OPS, steps)
+        log(f"timing {name} (generated pairs): R={R}: {ms:.4f} ms/call "
+            f"({R / ms * 1e3:,.0f} instances/s), plain {plain_ms:.2f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound")
+
+
+class KernelInputs:
+    """Keeps a copy of the inputs of every kernel launch made inside it, by
+    wrapping the three wrappers of ``repro_torch.kernels.ops`` that
+    ``core.wf_backend`` calls; the wrappers and their launch counters
+    are unchanged."""
+
+    def __init__(self):
+        self.calls = {"linear_wf": [], "affine_wf_dist": [],
+                      "affine_traceback": []}
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self._saved = {name: getattr(ops, name) for name in self.calls}
+        for name, fn in self._saved.items():
+            setattr(ops, name, self._keep(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        for name, fn in self._saved.items():
+            setattr(ops, name, fn)
+
+    def _keep(self, name, fn):
+        def wrapped(s1, s2_window, **kw):
+            if kw.get("eth") != ETH or kw.get("sat", SAT) != SAT:
+                raise AssertionError(f"{name} called with {kw}, not the "
+                                     f"main path's eth={ETH}, sat={SAT}")
+            if s1.is_cuda:
+                self.calls[name].append((s1.clone(), s2_window.clone(),
+                                         kw.get("max_ops", MAX_OPS)))
+            return fn(s1, s2_window, **kw)
+        return wrapped
+
+
+def phase_e2e():
+    import torch
+    from repro_torch.core.index import build_index
+    from repro_torch.core.mapper import Mapper
+    from repro_torch.core.pipeline import MapperConfig
+    from repro_torch.data.genome import make_reference, sample_reads
+    from repro_torch.kernels import ops
+
+    log(f"end to end: reference of {GENOME_BASES:,} bases — GRCh38 "
+        f"(3.1 Gb) is cut to 64 Mb because the flat index build runs on "
+        f"the host inside this run's time limit; full-genome scale waits "
+        f"for the sharded index")
+    t0 = time.perf_counter()
+    ref = make_reference(GENOME_BASES, seed=0, repeat_frac=0.02)
+    t1 = time.perf_counter()
+    idx = build_index(ref)
+    t2 = time.perf_counter()
+    log(f"reference {t1 - t0:.2f} s; build_index {t2 - t1:.2f} s: "
+        f"{len(idx.uniq_kmers):,} minimizers, {len(idx.positions):,} "
+        f"occurrences, segments {idx.segments.nbytes / 1e9:.3f} GB")
+    rs = sample_reads(ref, N_READS, seed=1, both_strands=True)
+    log(f"sample_reads: {N_READS:,} reads in "
+        f"{time.perf_counter() - t2:.2f} s")
+
+    fields = ("position", "distance", "distance2", "mapped", "strand", "ops",
+              "op_count", "n_candidates")
+    results, runs, cfgs = {}, {}, {}
+    for engine in ("compacted", "fused"):
+        cfg = MapperConfig.from_index(idx, both_strands=True,
+                                      chunk_reads=CHUNK, engine=engine,
+                                      cigar_mode="eager")
+        mapper = Mapper(idx, cfg)
+        mapper.map(rs.reads[:CHUNK])       # warm-up: library load, caches
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = mapper.map(rs.reads)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        if min(launches.values()) < 1:
+            raise AssertionError(f"{engine}: a kernel never launched on the "
+                                 f"main path: {launches}")
+        log(f"{engine}: {N_READS:,} reads in {dt:.3f} s = "
+            f"{N_READS / dt:,.0f} reads/s; launches {launches}; "
+            f"{res.stats['n_chunks']} chunks; candidates "
+            f"{res.stats.candidates:,}, survivors {res.stats.survivors:,}, "
+            f"affine instances {res.stats.affine_instances:,}; peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        mapper.close()
+        results[engine], cfgs[engine] = res, cfg
+        runs[engine] = dict(wall_s=dt, launches=launches)
+    for engine, cfg in cfgs.items():
+        # the same run again, keeping every kernel's inputs (not timed)
+        mapper = Mapper(idx, cfg)
+        with KernelInputs() as kept:
+            again = mapper.map(rs.reads)
+        mapper.close()
+        if not np.array_equal(again.position, results[engine].position):
+            raise AssertionError(f"{engine}: a second run differs")
+        runs[engine]["calls"] = kept.calls
+
+    a, b = results["compacted"], results["fused"]
+    for f in fields:
+        if not np.array_equal(getattr(a, f), getattr(b, f)):
+            raise AssertionError(f"compacted and fused differ in {f}")
+    log("compacted == fused on every shared field")
+
+    cfg_t = MapperConfig.from_index(idx, both_strands=True,
+                                    chunk_reads=CHUNK, wf_backend="torch")
+    t0 = time.perf_counter()
+    plain = Mapper(idx, cfg_t).map(rs.reads[:CHUNK])
+    log(f"first chunk on the plain torch backend: "
+        f"{time.perf_counter() - t0:.2f} s")
+    for f in fields + ("linear_dist",):
+        if not np.array_equal(getattr(plain, f), getattr(a, f)[:CHUNK]):
+            raise AssertionError(f"kernel path and torch path differ in {f}")
+    log("kernel path == torch path on the first chunk")
+
+    ok = ((np.abs(a.position - rs.true_pos) <= ETH)
+          & (a.strand == rs.strand))
+    acc = float(ok.mean())
+    log(f"accuracy (position within eth, strand right): {acc:.5f}")
+    if acc < ACCURACY_BAR:
+        raise AssertionError(f"accuracy {acc} below {ACCURACY_BAR}")
+
+    cfg_s = MapperConfig.from_index(idx, both_strands=True,
+                                    chunk_reads=CHUNK, stream=False)
+    res_s = Mapper(idx, cfg_s).map(rs.reads)
+    times = res_s.stats["stage_times_s"]
+    log("stage_times_s (compacted, stream=False): "
+        + json.dumps({k: round(v, 4) for k, v in times.items()}))
+    if not np.array_equal(res_s.position, a.position):
+        raise AssertionError("stream=False differs from stream=True")
+    return runs
+
+
+def phase_mainpath_kernels(runs):
+    """Each kernel on the inputs the main path gave it: parity and times on
+    the compacted engine's first chunk (the JSON row), and every launch
+    of each engine's run timed again on its own inputs."""
+    import torch
+    rows = {}
+    for name, k in _kernels().items():
+        for engine, run in runs.items():
+            calls = run["calls"][name]
+            per_call = [cuda_ms(lambda: k["run"](s1, s2, ETH, mo), 5, 1)
+                        for s1, s2, mo in calls]
+            total = sum(per_call)
+            run.setdefault("kernel_ms", {})[name] = total
+            log(f"main path {engine} {name}: {len(calls)} launches, "
+                f"instances {[c[0].shape[0] for c in calls]}, device time "
+                f"{total:.3f} ms = {total / 1e3 / run['wall_s']:.2%} of the "
+                f"run's {run['wall_s']:.3f} s wall")
+        s1, s2, mo = runs["compacted"]["calls"][name][0]
+        R, n = s1.shape
+        got = k["run"](s1, s2, ETH, mo)
+        torch.cuda.synchronize()
+        err = _compare(f"{name} main-path R={R}", got,
+                       k["plain"](s1, s2, ETH, mo))
+        ms = cuda_ms(lambda: k["run"](s1, s2, ETH, mo), 20, 3)
+        plain_ms = cuda_ms(lambda: k["plain"](s1, s2, ETH, mo), 1, 1)
+        steps = int(got[3].sum()) if name == "affine_traceback" else 0
+        b_ms, b_by = bound(name, R, n, ETH, mo, steps)
+        rows[name] = dict(
+            name=name, route="cuda", source=k["source"],
+            replaces=k["replaces"], launches=runs["compacted"]["launches"][name],
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None, instances=int(R),
+            launches_fused=runs["fused"]["launches"][name],
+            run_ms={e: r["kernel_ms"][name] for e, r in runs.items()})
+        log(f"main path {name}: first compacted chunk, R={R}: bit-identical "
+            f"to the plain version; {ms:.4f} ms/call "
+            f"({R / ms * 1e3:,.0f} instances/s), plain {plain_ms:.2f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound")
+    for engine, run in runs.items():
+        total = sum(run["kernel_ms"].values())
+        log(f"main path {engine}: kernels {total:.3f} ms of "
+            f"{run['wall_s'] * 1e3:.3f} ms wall "
+            f"({total / 1e3 / run['wall_s']:.2%})")
+    return rows
+
+
+def main() -> int:
+    import torch
+    smi = phase_env()
+    phase_build()
+    phase_parity()
+    runs = phase_e2e()
+    rows = phase_mainpath_kernels(runs)
+    log(smi)
+    print(json.dumps({"kernels": list(rows.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,338 @@
+"""The ``Mapper`` session — torch twin of ``repro.core.mapper`` for
+``topology="single"`` on a flat ``GenomeIndex``.
+
+  ``Mapper(index, cfg, device=...)`` — places the index on the device
+      once and keeps a plan cache (with hit/miss counters) of per-chunk
+      executables.
+  ``Mapper.plan(spec)`` — the ``MappingPlan`` a run would execute (chunk
+      sizes, lane-capacity ceilings) before anything runs.
+  ``Mapper.run(plan, reads)`` / ``Mapper.map(reads)`` / ``map_async``.
+
+The session runs on the CUDA card unless ``device`` names another
+device; with no GPU and no device given it raises.  Not ported yet: the
+padded engine, the mesh topology, sharded indexes, paired-end mapping,
+the serving batcher and the observability hooks.
+"""
+from __future__ import annotations
+
+import dataclasses
+from concurrent.futures import Future, ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from . import streaming
+from .device import resolve_device
+from .index import GenomeIndex
+from .pipeline import (LazyTraceback, MapperConfig, MappingResult,
+                       _ChunkPipeline, _merge_stats)
+
+TOPOLOGIES = ("single",)
+
+__all__ = ["Mapper", "MapperStats", "MappingPlan", "TOPOLOGIES",
+           "split_result"]
+
+_PER_READ_FIELDS = ("position", "distance", "distance2", "mapped", "strand",
+                    "ops", "op_count", "linear_dist", "n_candidates",
+                    "failed")
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to repro_torch yet "
+                               f"(ROADMAP.md, Queue 1 item {item})")
+
+
+def split_result(res: MappingResult, n: int,
+                 ) -> tuple[MappingResult, MappingResult]:
+    """Split one stacked ``MappingResult`` into ``(first n, rest)``; both
+    halves share ``stats``, and a lazy traceback holder is sliced, not
+    materialized."""
+    lt = object.__getattribute__(res, "lazy_tb")
+
+    def half(lo, hi):
+        def raw(f):
+            v = object.__getattribute__(res, f)
+            return v[lo:hi] if v is not None else None
+        return MappingResult(**{f: raw(f) for f in _PER_READ_FIELDS},
+                             stats=res.stats,
+                             lazy_tb=lt[lo:hi] if lt is not None else None)
+    return half(0, n), half(n, len(res.position))
+
+
+@dataclasses.dataclass
+class MapperStats:
+    """Per-run statistics (``repro.core.mapper.MapperStats``'s schema).
+    ``extra`` holds the per-path keys (``candidates_valid``,
+    ``stage_times_s``, ...) and backs dict-style access."""
+    topology: str
+    engine: str
+    reads: int                     # real reads mapped (padding excluded)
+    candidates: int                # seeded candidates
+    survivors: int                 # filter survivors admitted to affine
+    affine_instances: int          # affine WF instances actually executed
+    padded_affine_instances: int   # what the padded reference would run
+    dropped_send: int = 0          # mesh only
+    dropped_affine: int = 0        # mesh only
+    reverse_best: int = 0          # dual-strand runs: reads whose best
+    #                                alignment used the reverse complement
+    plan_cache_hits: int = 0       # session cumulative, sampled at run time
+    plan_cache_misses: int = 0
+    retries: int = 0               # resilience layer (not ported yet)
+    failed_reads: int = 0
+    extra: dict = dataclasses.field(default_factory=dict)
+
+    def __getitem__(self, key):
+        return self.extra[key]
+
+    def __contains__(self, key):
+        return key in self.extra
+
+    def get(self, key, default=None):
+        return self.extra.get(key, default)
+
+    def keys(self):
+        return self.extra.keys()
+
+    def as_dict(self) -> dict:
+        return dict(self.extra)
+
+
+@dataclasses.dataclass(frozen=True)
+class MappingPlan:
+    """What a ``Mapper.run`` will execute, decided before any dispatch:
+    ``chunk`` is the chunk quantum every chunk is padded to,
+    ``chunk_sizes`` the real per-chunk read counts, ``lin_cap_max`` /
+    ``aff_cap_max`` the ceilings of the measured per-chunk capacities."""
+    topology: str
+    engine: str
+    n_reads: int
+    chunk: int
+    chunk_sizes: tuple
+    lin_cap_max: int = 0
+    aff_cap_max: int = 0
+    both_strands: bool = False
+
+    @property
+    def n_chunks(self) -> int:
+        return len(self.chunk_sizes)
+
+    @property
+    def key(self) -> tuple:
+        """Plan-cache key: plans sharing a key share one executable."""
+        return ("single", self.engine, self.chunk)
+
+
+def _host_positions(pos):
+    """Result-boundary positions: unsigned positions become int64 with
+    the all-ones sentinel rewritten to -1 (device positions here are
+    int64 already, so they pass through)."""
+    if pos is None or pos.dtype.kind != "u":
+        return pos
+    big = np.iinfo(pos.dtype).max
+    out = pos.astype(np.int64)
+    out[pos == big] = -1
+    return out
+
+
+def _reduce_strands(res: MappingResult, n: int) -> MappingResult:
+    """Fold a stacked fwd-then-rc result of 2n reads to the per-read best:
+    lower affine distance wins, ties keep forward; the runner-up is the
+    winner strand's second locus or the loser strand's best."""
+    rev_wins = res.distance[n:] < res.distance[:n]
+
+    def pick(a):
+        if a is None:
+            return None
+        m = rev_wins.reshape((-1,) + (1,) * (a.ndim - 1))
+        return np.where(m, a[n:], a[:n])
+
+    mapped = pick(res.mapped)
+    stats = res.stats
+    if isinstance(stats, MapperStats):
+        stats = dataclasses.replace(
+            stats, reads=n, reverse_best=int(np.sum(rev_wins & mapped)),
+            extra={**stats.extra, "both_strands": True})
+    d2 = None
+    if res.distance2 is not None:
+        lose_d1 = np.where(rev_wins, res.distance[:n], res.distance[n:])
+        d2 = np.minimum(pick(res.distance2), lose_d1).astype(
+            res.distance2.dtype)
+    return MappingResult(
+        position=pick(res.position), distance=pick(res.distance),
+        distance2=d2, mapped=mapped, strand=rev_wins.astype(np.int8),
+        ops=pick(res.ops), op_count=pick(res.op_count),
+        linear_dist=pick(res.linear_dist),
+        n_candidates=pick(res.n_candidates), stats=stats)
+
+
+class Mapper:
+    """Read-mapping session: placed index + plan cache + executor.
+
+    Parameters
+    ----------
+    index : GenomeIndex
+        A flat index of this package (``build_index`` or
+        ``GenomeIndex.from_arrays``).
+    cfg : MapperConfig, optional
+        Defaults to ``MapperConfig.from_index(index)``.
+    topology : "single"
+        The only topology ported so far.
+    device : torch device, optional
+        Where the index lives and the stages run.  None means the CUDA
+        card; with no GPU present that raises, and ``device="cpu"`` runs
+        the kernels' plain versions on the CPU.
+    """
+
+    def __init__(self, index: GenomeIndex, cfg: MapperConfig | None = None,
+                 *, topology: str = "single", device=None):
+        if topology != "single":
+            if topology == "mesh":
+                raise _not_ported('topology="mesh"', "9")
+            raise ValueError(f"unknown topology {topology!r}; "
+                             f"expected one of {TOPOLOGIES}")
+        if not isinstance(index, GenomeIndex):
+            raise _not_ported(
+                f"mapping over a {type(index).__name__} (the port maps its "
+                f"own flat GenomeIndex: build_index or "
+                f"GenomeIndex.from_arrays; sharded indexes)", "7")
+        self.cfg = cfg or MapperConfig.from_index(index)
+        if self.cfg.engine == "padded":
+            raise _not_ported('engine="padded"', "3")
+        self.topology = topology
+        self.device = resolve_device(device)
+        self.index = index
+        self._plan_cache: dict[tuple, _ChunkPipeline] = {}
+        self.plan_cache_hits = 0
+        self.plan_cache_misses = 0
+        self._pool: ThreadPoolExecutor | None = None
+        dev = self.device
+        self._dev = tuple(torch.as_tensor(np.asarray(a, dtype=dt),
+                                          device=dev)
+                          for a, dt in ((index.uniq_kmers, np.int64),
+                                        (index.offsets, np.int64),
+                                        (index.positions, np.int64),
+                                        (index.segments, np.uint8)))
+
+    # ------------------------------------------------------------- planning
+
+    def plan(self, reads_spec, *, chunk: int | None = None) -> MappingPlan:
+        """The execution plan for a batch (a read count or a reads array);
+        ``chunk`` overrides ``cfg.chunk_reads`` for this plan.  With
+        ``both_strands`` each chunk carries its reads' forward and
+        reverse-complement rows, so capacities are sized for 2*chunk."""
+        n = (int(reads_spec) if isinstance(reads_spec, (int, np.integer))
+             else len(reads_spec))
+        cfg = self.cfg
+        c = chunk or cfg.chunk_reads or max(n, 1)
+        sizes = tuple(min(c, n - i) for i in range(0, n, c))
+        rows = 2 * c if cfg.both_strands else c
+        return MappingPlan(topology="single", engine=cfg.engine, n_reads=n,
+                           chunk=c, chunk_sizes=sizes,
+                           lin_cap_max=rows * cfg.max_minis * cfg.max_pls,
+                           aff_cap_max=rows * cfg.max_minis,
+                           both_strands=cfg.both_strands)
+
+    def _executable(self, plan: MappingPlan) -> _ChunkPipeline:
+        """Plan-cache lookup, counting hits and misses."""
+        entry = self._plan_cache.get(plan.key)
+        if entry is not None:
+            self.plan_cache_hits += 1
+            return entry
+        self.plan_cache_misses += 1
+        entry = self._plan_cache[plan.key] = _ChunkPipeline(
+            self._dev, self.cfg, self.device)
+        return entry
+
+    # ------------------------------------------------------------ execution
+
+    def map(self, reads: np.ndarray) -> MappingResult:
+        """Plan + run one read batch."""
+        reads = np.asarray(reads)
+        return self.run(self.plan(len(reads)), reads)
+
+    def map_pairs(self, reads1, reads2):
+        raise _not_ported("Mapper.map_pairs", "6")
+
+    def serve(self, *args, **kwargs):
+        raise _not_ported("Mapper.serve", "8")
+
+    def map_async(self, reads: np.ndarray) -> Future:
+        """Submit a batch to the session worker thread; returns a Future
+        of the ``MappingResult``.  Submissions run in order."""
+        reads = np.asarray(reads)
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="mapper-session")
+        return self._pool.submit(self.map, reads)
+
+    def close(self):
+        """Shut down the ``map_async`` worker (no-op if never used)."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+    def run(self, plan: MappingPlan, reads: np.ndarray) -> MappingResult:
+        """Execute ``reads`` through ``plan``'s cached executable.
+
+        ``len(reads)`` may be smaller than the plan's batch: chunks are
+        padded to the plan's quantum and results trimmed.  On a
+        ``both_strands`` plan every chunk maps its reads' forward and
+        reverse-complement encodings and folds them on the device.
+        """
+        reads = np.asarray(reads)
+        n = len(reads)
+        cfg = self.cfg
+        pipe = self._executable(plan)
+        items = [(reads[c0 : c0 + plan.chunk], plan.chunk)
+                 for c0 in range(0, n, plan.chunk)]
+        if cfg.stream:
+            times = {} if cfg.profile else None
+            fetched = streaming.stream_map(items, pipe.phase1, pipe.phase2,
+                                           pipe.fetch, times=times)
+        else:
+            times = {}
+            fetched = streaming.sync_map(items, pipe.phase1, pipe.phase2,
+                                         pipe.fetch, times=times)
+        parts = [out for out, _ in fetched]
+        raw = _merge_stats([st for _, st in fetched])
+        raw["stream"] = cfg.stream
+        if cfg.both_strands:
+            raw["both_strands"] = True
+        if times is not None:
+            raw["stage_times_s"] = dict(times)
+
+        def cat(k):
+            if k not in parts[0]:
+                return None
+            if len(parts) > 1:
+                return np.concatenate([p[k] for p in parts])
+            return parts[0][k].copy()   # caller-owned, like a concatenation
+
+        mapped = cat("mapped")
+        lazy = None
+        if cfg.cigar_mode == "lazy":
+            lazy = LazyTraceback(self._dev[3], cfg, cat("_tb_reads"),
+                                 cat("_tb_occ"), cat("_tb_mpos"), mapped)
+        stats = MapperStats(
+            topology="single", engine=cfg.engine, reads=n,
+            candidates=raw["candidates_valid"], survivors=raw["survivors"],
+            affine_instances=raw["affine_dist_instances"],
+            padded_affine_instances=raw["padded_affine_instances"],
+            reverse_best=raw.get("reverse_best", 0),
+            plan_cache_hits=self.plan_cache_hits,
+            plan_cache_misses=self.plan_cache_misses, extra=raw)
+        return MappingResult(position=_host_positions(cat("position")),
+                             distance=cat("distance"),
+                             distance2=cat("distance2"),
+                             mapped=mapped, strand=cat("strand"),
+                             ops=cat("ops"), op_count=cat("op_count"),
+                             linear_dist=cat("linear_dist"),
+                             n_candidates=cat("n_candidates"), stats=stats,
+                             lazy_tb=lazy)

@@ -1,0 +1,134 @@
+// Shared pieces of the banded Wagner-Fischer kernels for Hopper (sm_90a).
+//
+// One thread owns one WF instance (a read of n bases against a reference
+// window of n + 2*ETH bases).  The 2*ETH+1 band cells of the current row
+// live in registers: ETH is a template parameter, every loop over the
+// band is unrolled, so the arrays below never touch local memory.
+//
+// The recurrences reproduce the int8 arithmetic of the reference
+// (repro.core.linear_wf.banded_wf, repro.core.affine_wf._banded_affine_impl)
+// in int32 registers.  No intermediate value exceeds sat + 42 <= 127
+// (the wrappers reject sat > 85), so int32 and int8 give the same bits.
+#pragma once
+
+#include <cstdint>
+#include <mutex>
+#include <cuda_runtime.h>
+
+namespace wf {
+
+constexpr int OP_MATCH = 0, OP_SUB = 1, OP_INS = 2, OP_DEL = 3, OP_NONE = 4;
+
+// Copy a block's input rows, which are contiguous in device memory, into
+// shared memory with all threads: neighbouring threads read neighbouring
+// bytes, where a thread reading its own 150-byte row would stride.
+__device__ __forceinline__ void stage_rows(uint8_t* dst,
+                                           const uint8_t* __restrict__ src,
+                                           long long nbytes) {
+  for (long long x = threadIdx.x; x < nbytes; x += blockDim.x) dst[x] = src[x];
+}
+
+// Banded affine (Gotoh) forward pass for one instance.  a: the read (n
+// bytes), b: the window (n + 2*ETH bytes).  With EMIT, the packed
+// direction byte of cell (i-1, d) goes to dirs[((i-1)*BAND + d) * stride].
+template <int ETH, bool EMIT>
+__device__ __forceinline__ void affine_band(const uint8_t* a, const uint8_t* b,
+                                            int n, int sat, uint8_t* dirs,
+                                            int stride, int& dist_end,
+                                            int& dist_min) {
+  constexpr int BAND = 2 * ETH + 1;
+  const int big = sat + 40;  // off-band neighbour, as in the reference
+  int D[BAND], M1[BAND], ch[BAND];
+#pragma unroll
+  for (int d = 0; d < BAND; ++d) {
+    const int j0 = d - ETH;
+    D[d] = j0 < 0 ? sat : min(j0 == 0 ? 0 : 1 + j0, sat);
+    M1[d] = sat;
+  }
+#pragma unroll
+  for (int d = 0; d + 1 < BAND; ++d) ch[d + 1] = b[d];
+
+  for (int i = 1; i <= n; ++i) {
+    // window chars of row i are b[i-1 .. i-1+BAND): slide by one
+#pragma unroll
+    for (int d = 0; d + 1 < BAND; ++d) ch[d] = ch[d + 1];
+    ch[BAND - 1] = b[i - 1 + BAND - 1];
+    const int c1 = a[i - 1];
+
+    // vertical gaps read the previous row only
+    int m1n[BAND], dm1[BAND];
+#pragma unroll
+    for (int d = 0; d < BAND; ++d) {
+      const int e = (d + 1 < BAND ? M1[d + 1] : big) + 1;  // raw
+      const int o = (d + 1 < BAND ? D[d + 1] : big) + 2;   // raw
+      m1n[d] = (i + d - ETH >= 0) ? min(min(e, o), sat) : sat;
+      dm1[d] = o < e;
+    }
+    // the in-row M2/D scan, left to right across the band
+    int dl = big, ml = big;
+#pragma unroll
+    for (int d = 0; d < BAND; ++d) {
+      const int jj = i + d - ETH;
+      const int m2e = ml + 1, m2o = dl + 2;  // raw
+      const int m2 = jj <= 0 ? sat : min(min(m2e, m2o), sat);
+      const int dg = D[d];
+      const int sub = dg + 1;
+      const int dmin = min(min(sub, m1n[d]), m2);
+      const bool mt = c1 == ch[d];
+      int dval = mt ? dg : min(dmin, sat);
+      if (jj == 0) dval = m1n[d];
+      if (jj < 0) dval = sat;
+      if (EMIT) {
+        int dd = mt ? 0 : (dmin == sub ? 1 : (dmin == m1n[d] ? 2 : 3));
+        if (jj == 0) dd = 2;
+        int byte = dd | (dm1[d] << 2) | ((m2o < m2e) << 3);
+        if (jj < 0) byte = 0;
+        dirs[((i - 1) * BAND + d) * stride] = (uint8_t)byte;
+      }
+      D[d] = dval;
+      dl = dval;
+      ml = m2;
+    }
+#pragma unroll
+    for (int d = 0; d < BAND; ++d) M1[d] = m1n[d];
+  }
+  int mn = D[0];
+#pragma unroll
+  for (int d = 1; d < BAND; ++d) mn = min(mn, D[d]);
+  dist_end = D[ETH];
+  dist_min = mn;
+}
+
+// Launch on the caller's current device and stream, and report the launch
+// status: a launch refused for its shared memory never runs, and only
+// cudaGetLastError tells.  Above the default 48 KB a kernel needs its
+// dynamic shared memory limit raised; that is done once per kernel
+// instance and device, when a launch first asks for more than the limit
+// set so far, rather than on every launch.
+constexpr int kMaxDevices = 64;
+constexpr int kDefaultSmem = 48 * 1024;
+
+template <auto Kernel, typename... Args>
+int launch(int R, int threads, int smem, void* stream, Args... args) {
+  static int smem_set[kMaxDevices] = {};
+  static std::mutex mu;
+  if (smem > kDefaultSmem) {
+    int device = 0;
+    cudaError_t e = cudaGetDevice(&device);
+    if (e != cudaSuccess) return (int)e;
+    if (device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+    std::lock_guard<std::mutex> hold(mu);
+    if (smem > smem_set[device]) {
+      e = cudaFuncSetAttribute(Kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+      if (e != cudaSuccess) return (int)e;
+      smem_set[device] = smem;
+    }
+  }
+  const int blocks = (R + threads - 1) / threads;
+  Kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wf

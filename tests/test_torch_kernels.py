@@ -1,0 +1,212 @@
+"""The port's kernel wrappers (``repro_torch.kernels.ops``) on CPU tensors,
+where they run the kernels' plain torch versions, against the reference's
+Pallas kernels in interpret mode (``repro.kernels.ops``) and its jnp
+versions.  The mapper is integer arithmetic: equality is exact."""
+import ctypes
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import affine_wf as jaff
+from repro.kernels import ops as jops
+from repro_torch.core import affine_wf as taff
+from repro_torch.core import wf_backend as twfb
+from repro_torch.kernels import build as tbuild
+from repro_torch.kernels import ops as tops
+
+ETH, SAT = 6, 32
+
+
+def _pair_batch(rng, R, n, eth):
+    """Random and near-match pairs (the reference kernel tests' generator)."""
+    s1 = rng.integers(0, 4, (R, n)).astype(np.uint8)
+    s2 = rng.integers(0, 4, (R, n + 2 * eth)).astype(np.uint8)
+    s2[: R // 2, eth : eth + n] = s1[: R // 2]
+    for r in range(R // 2):
+        for _ in range(int(rng.integers(0, 4))):
+            s2[r, eth + int(rng.integers(0, n))] = rng.integers(0, 4)
+    return s1, s2
+
+
+def _edited_pair(r, n, n_edits):
+    """Read + window with ``n_edits`` substitutions/indels: many edits walk
+    the band edges and make adjacent gap runs (the reference traceback
+    tests' generator)."""
+    s1 = r.integers(0, 4, n).astype(np.uint8)
+    lst = list(np.concatenate([r.integers(0, 4, ETH), s1,
+                               r.integers(0, 4, ETH)]))
+    for _ in range(n_edits):
+        p = int(r.integers(ETH, ETH + n - 2))
+        t = int(r.integers(0, 3))
+        if t == 0:
+            lst[p] = int(r.integers(0, 4))
+        elif t == 1:
+            lst.insert(p, int(r.integers(0, 4)))
+        else:
+            del lst[p]
+    win = np.array((lst + [0] * (n + 2 * ETH))[: n + 2 * ETH], dtype=np.uint8)
+    return s1, win
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _eq(got, want, what):
+    for g, w, name in zip(got, want, ("0", "1", "2", "3")):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w),
+                                      err_msg=f"{what}[{name}]")
+
+
+@pytest.mark.parametrize("R,n,eth", [
+    (33, 24, 6), (64, 40, 6), (128, 50, 4), (16, 30, 8), (21, 24, 6),
+])
+def test_linear_wf_matches_pallas(R, n, eth):
+    s1, s2 = _pair_batch(np.random.default_rng(R * n + eth), R, n, eth)
+    want = jops.linear_wf(jnp.array(s1), jnp.array(s2), eth=eth,
+                          block_r=16 if R < 32 else 32)
+    got = tops.linear_wf(_t(s1), _t(s2), eth=eth)
+    assert got[0].dtype == torch.int32
+    _eq([g.numpy() for g in got], want, "linear_wf")
+
+
+@pytest.mark.parametrize("R,n,eth,sat", [
+    (17, 24, 6, 32), (32, 40, 4, 16), (64, 30, 6, 32),
+])
+def test_affine_wf_dist_matches_pallas(R, n, eth, sat):
+    s1, s2 = _pair_batch(np.random.default_rng(R + n), R, n, eth)
+    want = jops.affine_wf_dist(jnp.array(s1), jnp.array(s2), eth=eth,
+                               sat=sat, block_r=32)
+    got = tops.affine_wf_dist(_t(s1), _t(s2), eth=eth, sat=sat)
+    _eq([g.numpy() for g in got], want, "affine_wf_dist")
+
+
+@pytest.mark.parametrize("R,n,eth,sat", [
+    (17, 24, 6, 32), (32, 40, 4, 16),
+])
+def test_affine_direction_bytes_match_pallas(R, n, eth, sat):
+    """The plain forward pass's direction bytes (what the fused kernel
+    keeps in shared memory) against the Pallas dirs-emitting kernel."""
+    s1, s2 = _pair_batch(np.random.default_rng(R * 3 + n), R, n, eth)
+    want = jops.affine_wf(jnp.array(s1), jnp.array(s2), eth=eth, sat=sat,
+                          block_r=32)
+    got = taff.banded_affine(_t(s1), _t(s2), eth=eth, sat=sat)
+    _eq([g.numpy() for g in got], want, "banded_affine")
+
+
+def _traceback_cases():
+    r = np.random.default_rng(7)
+    edited = [_edited_pair(r, 24, e) for e in (0, 1, 2, 3, 4, 5, 6, 8)]
+    near = _pair_batch(np.random.default_rng(3), 10, 24, ETH)
+    n = 12
+    origin = np.array([0, 1, 2, 3] * 5, dtype=np.uint8)
+    edge = np.full(ETH, 4, np.uint8)
+    exact = origin[:n]
+    gap_read = np.concatenate([origin[:4], [3, 3], origin[4:10]]).astype(
+        np.uint8)
+    win = np.concatenate([edge, origin[:n], edge])
+    degenerate = (np.stack([exact, gap_read]), np.stack([win, win]))
+    return {
+        "band_edges": (np.stack([a for a, _ in edited]),
+                       np.stack([b for _, b in edited])),
+        "random_and_near": near,
+        "all_match_and_adjacent_gaps": degenerate,
+    }
+
+
+_TB = _traceback_cases()
+
+
+@pytest.mark.parametrize("case", sorted(_TB))
+@pytest.mark.parametrize("wrap", [False, True])
+def test_affine_traceback_matches_pallas(case, wrap):
+    """Fused affine + traceback: distances, END-aligned ops and counts,
+    also with a ``max_ops`` shorter than the walks (later ops overwrite
+    earlier ones modulo ``max_ops``)."""
+    s1, s2 = _TB[case]
+    n = s1.shape[1]
+    max_ops = 9 if wrap else 2 * n + 2
+    want = jops.affine_traceback(jnp.array(s1), jnp.array(s2), eth=ETH,
+                                 sat=SAT, max_ops=max_ops, block_r=8)
+    got = tops.affine_traceback(_t(s1), _t(s2), eth=ETH, sat=SAT,
+                                max_ops=max_ops)
+    _eq([g.numpy() for g in got], want, f"affine_traceback[{case}]")
+    # and the jnp reference pair (banded_affine + batched walk)
+    de, dm, dirs = jaff.banded_affine(jnp.array(s1), jnp.array(s2), eth=ETH,
+                                      sat=SAT)
+    ops_, cnt = jaff.traceback(dirs, ETH, max_ops)
+    _eq([g.numpy() for g in got], (de, dm, ops_, cnt), "jnp traceback")
+
+
+def test_all_match_and_gap_runs_decode():
+    """The degenerate batch walks as the reference's own test expects: a
+    straight diagonal, and a 2-insertion run next to a 2-deletion run."""
+    s1, s2 = _TB["all_match_and_adjacent_gaps"]
+    n = s1.shape[1]
+    de, _, ops_, cnt = twfb.affine_traceback(_t(s1), _t(s2), eth=ETH, sat=SAT,
+                                             max_ops=2 * n + 2)
+    ops_, cnt = ops_.numpy(), cnt.numpy()
+    assert int(de[0]) == 0 and int(cnt[0]) == n
+    assert (ops_[0, -n:] == taff.OP_MATCH).all()
+    walk = [int(o) for o in ops_[1] if o != taff.OP_NONE]
+    assert int(de[1]) == 6 and len(walk) == int(cnt[1])
+    text = "".join("=XID"[o] for o in walk)
+    assert "II" in text and "DD" in text
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_wf_backend_leading_dims(backend):
+    """Both backends take arbitrary leading batch dims and agree."""
+    s1, s2 = _pair_batch(np.random.default_rng(5), 12, 20, ETH)
+    a, b = _t(s1).reshape(3, 4, 20), _t(s2).reshape(3, 4, 32)
+    de, dm = twfb.linear_wf_dist(a, b, eth=ETH, backend=backend)
+    ae, am = twfb.affine_wf_dist(a, b, eth=ETH, sat=SAT, backend=backend)
+    te, tm, ops_, cnt = twfb.affine_traceback(a, b, eth=ETH, sat=SAT,
+                                              max_ops=42, backend=backend)
+    assert de.shape == ae.shape == cnt.shape == (3, 4)
+    assert ops_.shape == (3, 4, 42)
+    want = jops.linear_wf(jnp.array(s1), jnp.array(s2), eth=ETH, block_r=16)
+    np.testing.assert_array_equal(de.reshape(-1).numpy(), want[0])
+    np.testing.assert_array_equal(ae.numpy(), te.numpy())
+    np.testing.assert_array_equal(am.numpy(), tm.numpy())
+
+
+def test_wrappers_reject_bad_input():
+    s1 = torch.zeros((4, 10), dtype=torch.uint8)
+    s2 = torch.zeros((4, 22), dtype=torch.uint8)
+    with pytest.raises(TypeError):
+        tops.linear_wf(s1.to(torch.int8), s2, eth=ETH)
+    with pytest.raises(ValueError):
+        tops.affine_wf_dist(s1, s2[:, :-1], eth=ETH)
+    with pytest.raises(ValueError):
+        tops.affine_traceback(s1, s2.t().contiguous().t(), eth=ETH,
+                              max_ops=22)
+    with pytest.raises(ValueError):
+        tops.affine_traceback(s1, s2, eth=ETH, max_ops=0)
+    with pytest.raises(ValueError):
+        twfb.linear_wf_dist(s1, s2, eth=ETH, backend="pallas")
+    # no launch happened on the CPU: the counters count kernels only
+    assert tops.traceback_threads(150, 6) == 64
+    with pytest.raises(ValueError):
+        tops.traceback_threads(1000, 8)
+
+
+@pytest.mark.parametrize("fn", sorted(tbuild.ENTRIES))
+def test_ctypes_signature_matches_source(fn):
+    """The ctypes argument list of each C entry point matches its
+    ``extern "C"`` declaration in ``csrc/``: pointers where the source
+    takes pointers, ints where it takes ints.  A mismatch would only show
+    as a bad launch on the card."""
+    lib, argtypes = tbuild.ENTRIES[fn]
+    src = (tbuild.CSRC / tbuild.SOURCES[lib]).read_text()
+    m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", src)
+    assert m, f"{fn} not declared in {tbuild.SOURCES[lib]}"
+    params = [p.strip() for p in m.group(1).split(",")]
+    kinds = ["ptr" if "*" in p else "int" for p in params]
+    assert all(p.startswith("int ") for p, k in zip(params, kinds)
+               if k == "int"), params
+    want = ["ptr" if t is ctypes.c_void_p else "int" for t in argtypes]
+    assert kinds == want

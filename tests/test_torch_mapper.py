@@ -1,0 +1,178 @@
+"""``repro_torch``'s ``Mapper`` end to end against ``repro``'s (jnp
+backend) on a 20 kb genome: every ``MappingResult`` field and the
+``MapperStats`` counts, over both engines, both strand modes, all three
+``cigar_mode``s and chunk sizes of 1, odd and larger than the batch.
+The port runs on the CPU here, where its kernel wrappers take their
+plain versions."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core.index import build_index as jbuild
+from repro.core.mapper import Mapper as JMapper
+from repro.core.mapper import _reduce_strands as j_reduce_strands
+from repro.core.mapper import split_result as j_split_result
+from repro.core.pipeline import MapperConfig as JConfig
+from repro.data.genome import make_reference, sample_reads
+from repro_torch.core import mapper as tmapper
+from repro_torch.core.index import GenomeIndex
+from repro_torch.core.mapper import Mapper
+from repro_torch.core.pipeline import MapperConfig
+from repro_torch.io.cigar import cigars_from_result
+
+FIELDS = ("position", "distance", "distance2", "mapped", "strand", "ops",
+          "op_count", "n_candidates", "linear_dist")
+STAT_FIELDS = ("reads", "candidates", "survivors", "affine_instances",
+               "padded_affine_instances", "reverse_best")
+
+
+@pytest.fixture(scope="module")
+def world():
+    ref = make_reference(20_000, seed=0, repeat_frac=0.02)
+    jidx = jbuild(ref)
+    tidx = GenomeIndex.from_arrays(jidx.uniq_kmers, jidx.offsets,
+                                   jidx.positions, jidx.segments,
+                                   read_len=jidx.read_len, k=jidx.k,
+                                   w=jidx.w, eth=jidx.eth)
+    rs = sample_reads(ref, 10, seed=3, both_strands=True)
+    junk = np.random.default_rng(5).integers(0, 4, (3, 150)).astype(np.uint8)
+    return jidx, tidx, rs, np.concatenate([rs.reads, junk])
+
+
+def map_both(world, **cfg):
+    jidx, tidx, _, reads = world
+    want = JMapper(jidx, JConfig.from_index(jidx, **cfg)).map(reads)
+    got = Mapper(tidx, MapperConfig.from_index(tidx, **cfg),
+                 device="cpu").map(reads)
+    return got, want
+
+
+def assert_same(got, want):
+    for f in FIELDS:
+        a, b = getattr(got, f), getattr(want, f)
+        if b is None:
+            assert a is None, f
+            continue
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    for f in STAT_FIELDS:
+        assert getattr(got.stats, f) == getattr(want.stats, f), f
+    for k in want.stats.keys():
+        if k != "stage_times_s":
+            assert got.stats[k] == want.stats[k], k
+    assert set(got.stats.get("stage_times_s", {})) == \
+        set(want.stats.get("stage_times_s", {}))
+
+
+# (both_strands, cigar_mode, chunk_reads, stream): every cigar mode, both
+# strand modes, chunks of 1, odd and larger than the batch, both schedules
+CASES = [
+    (True, "eager", None, True),
+    (True, "lazy", 5, True),
+    (False, "off", 1, True),
+    (False, "eager", 64, False),
+]
+
+
+@pytest.mark.parametrize("both_strands,cigar_mode,chunk,stream", CASES)
+def test_compacted_engine_matches_reference(world, both_strands, cigar_mode,
+                                            chunk, stream):
+    got, want = map_both(world, engine="compacted", both_strands=both_strands,
+                         cigar_mode=cigar_mode, chunk_reads=chunk,
+                         stream=stream)
+    assert_same(got, want)
+
+
+def test_mapping_is_accurate_and_cigars_decode(world):
+    _, tidx, rs, reads = world
+    res = Mapper(tidx, MapperConfig.from_index(tidx, both_strands=True),
+                 device="cpu").map(reads)
+    n = len(rs.reads)
+    ok = (np.abs(res.position[:n] - rs.true_pos) <= 6) & \
+        (res.strand[:n] == rs.strand)
+    assert ok.all()
+    assert not res.mapped[n:].any() and (res.position[n:] == -1).all()
+    cig = cigars_from_result(res.ops, res.op_count)
+    assert all(c != "*" for c in cig[:n]) and all(c == "*" for c in cig[n:])
+
+
+def test_session_api(world):
+    """Plan, plan-cache counters, map_async and the not-yet-ported paths."""
+    _, tidx, _, reads = world
+    m = Mapper(tidx, MapperConfig.from_index(tidx, chunk_reads=4),
+               device="cpu")
+    plan = m.plan(len(reads))
+    assert plan.chunk_sizes == (4, 4, 4, 1) and plan.n_chunks == 4
+    assert plan.lin_cap_max == 4 * 16 * 32 and plan.aff_cap_max == 64
+    a = m.run(plan, reads)
+    with m:
+        b = m.map_async(reads).result(timeout=120)
+    assert (m.plan_cache_misses, m.plan_cache_hits) == (1, 1)
+    assert b.stats.plan_cache_hits == 1
+    np.testing.assert_array_equal(a.position, b.position)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        m.map_pairs(reads, reads)
+    with pytest.raises(NotImplementedError):
+        Mapper(tidx, MapperConfig.from_index(tidx, engine="padded"),
+               device="cpu")
+    with pytest.raises(NotImplementedError):
+        Mapper(tidx, topology="mesh", device="cpu")
+    with pytest.raises(NotImplementedError, match="from_arrays"):
+        Mapper(world[0], device="cpu")     # the reference's own index
+    with pytest.raises(ValueError, match="wf_backend"):
+        MapperConfig(wf_backend="pallas")
+    with pytest.raises(ValueError, match="lin_block_r"):
+        MapperConfig(lin_block_r=96)
+
+
+def test_profiled_stream_records_stage_offsets(world):
+    _, tidx, _, reads = world
+    res = Mapper(tidx, MapperConfig.from_index(tidx, profile=True,
+                                               chunk_reads=8),
+                 device="cpu").map(reads)
+    assert set(res.stats["stage_times_s"]) == {"seed", "linear", "affine",
+                                               "traceback", "d2h"}
+
+
+def test_mapper_without_device_needs_a_gpu(world, monkeypatch):
+    _, tidx, _, _ = world
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Mapper(tidx)
+    from repro_torch.core.index import build_index
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        build_index(np.zeros(1000, np.uint8))
+
+
+def test_torch_backend_matches_default(world):
+    _, tidx, _, reads = world
+    cfgs = [MapperConfig.from_index(tidx, wf_backend=b, both_strands=True)
+            for b in ("cuda", "torch")]
+    a, b = (Mapper(tidx, c, device="cpu").map(reads) for c in cfgs)
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+
+
+def test_split_and_reduce_strands_match_reference(world):
+    """The host-side result helpers on a stacked fwd-then-rc result."""
+    jidx, tidx, rs, _ = world
+    from repro_torch.core.encoding import revcomp
+    reads = np.concatenate([rs.reads[:6], revcomp(rs.reads[:6])])
+    want = JMapper(jidx).map(reads)
+    got = Mapper(tidx, device="cpu").map(reads)
+    n = 6
+    for g, w in zip(tmapper.split_result(got, n),
+                    j_split_result(want, n)):
+        for f in FIELDS:
+            a, b = getattr(g, f), getattr(w, f)
+            assert (a is None) == (b is None), f
+            if b is not None:
+                np.testing.assert_array_equal(a, b, err_msg=f)
+    rg = tmapper._reduce_strands(got, n)
+    rw = j_reduce_strands(dataclasses.replace(want), n)
+    for f in FIELDS:
+        a, b = getattr(rg, f), getattr(rw, f)
+        if b is not None:
+            np.testing.assert_array_equal(a, b, err_msg=f)
+    assert rg.stats.reverse_best == rw.stats.reverse_best

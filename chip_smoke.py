@@ -9,10 +9,13 @@ Phases, each fatal on failure:
 2. build: compiles the Hopper kernels of ``src/repro_torch/kernels/csrc``
    and prints nvcc's ``-Xptxas -v`` report for each;
 3. kernel parity: each kernel against its plain torch version on the same
-   CUDA tensors, on random and near-match pairs at n=150, eth=6, sat=32,
-   max_ops=302 (65,536 / 16,384 / 8,192 instances) and in a ragged case
-   (n=37, eth=4); equality must be exact.  Times each kernel and its
-   plain version with CUDA events;
+   CUDA tensors: the WF kernels on random and near-match pairs at n=150,
+   eth=6, sat=32, max_ops=302 (65,536 linear, 16,384 affine distance and
+   affine with direction planes, 8,192 traceback instances) and in a
+   ragged case (n=37, eth=4); the minimizer scan on 65,536 random reads
+   of 150 bases (k=12, w=30) and a ragged 1,000 reads of 80 (k=8, w=16).
+   Equality must be exact.  Times each kernel and its plain version with
+   CUDA events;
 4. end to end: a 64 Mb synthetic reference (GRCh38 cut to what the flat
    host-side index build handles inside this run), the port's
    ``build_index``, 131,072 reads on both strands mapped through
@@ -20,21 +23,44 @@ Phases, each fatal on failure:
    every kernel launched on each engine, that the engines agree, that the
    first chunk mapped on the plain torch backend is identical, and that
    position+strand accuracy is at least 0.95;
-5. main-path kernels: a second run of each engine keeps a copy of every
-   kernel input; each kernel is held against its plain version and timed
-   on the first chunk's inputs, and every launch of a run is timed again
-   on its own inputs to give the kernels' device time per run.
+5. padded engine: the first 16,384 reads, one batch of 32,768 rows
+   (both strands) through ``Mapper(engine="padded")``.  Checks that it
+   launched the linear and the dirs-emitting affine kernel and neither
+   of the other two, that it equals the compacted engine on every
+   result field, and that on the first 2,048 reads the plain torch
+   backend gives the same; reads/s;
+6. minimizer scan: ``ops.minimizer_scan`` on the forward and reverse-
+   complement encodings of the 131,072 reads (262,144 rows: what seeding
+   sees), held against its plain version;
+7. ``map_fastq``: the reference written as a two-contig FASTA (with a run
+   of N) and the reads as a FASTQ with the port's writers, then
+   ``repro_torch.launch.map_fastq.main`` in-process on each engine with
+   ``--chunk-reads 16384``.  Checks that each engine's kernels launched,
+   that the three SAMs are equal line for line apart from ``@PG``, that
+   ``validate_sam`` passes, and that position+strand accuracy read back
+   from the SAM is at least 0.95; reads/s with and without the index
+   build;
+8. main-path kernels: a second run of each engine keeps a copy of every
+   WF kernel input; each kernel is held against its plain version and
+   timed on the first batch's inputs (the compacted engine's first
+   chunk; the padded batch for the affine kernel with direction planes),
+   and every launch of a run is timed again on its own inputs to give
+   the kernels' device time per run.
 
-The last lines are the kernels JSON line (phase 5's numbers, with each
-kernel's bound computed from those inputs) and the contract line
-``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
-result, when no CUDA device is present or anything fails.  Imports
-nothing of JAX or of the ``repro`` package.
+Each phase prints its seconds.  The last lines are the kernels JSON line
+(phases 6 and 8, with each kernel's bound computed from its inputs) and
+the contract line ``{"ok": true, "device": {...}}``.  Exits non-zero,
+printing no result, when no CUDA device is present or anything fails.
+Imports nothing of JAX or of the ``repro`` package.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -46,7 +72,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # main-path kernel shapes (MapperConfig defaults) and instance counts
 N, ETH, SAT, MAX_OPS = 150, 6, 32, 302
+K, W = 12, 30
 R_LINEAR, R_AFFINE, R_TRACEBACK = 65_536, 16_384, 8_192
+R_MINI = 65_536
 # the card's peaks (H100 SXM): HBM rate from NVIDIA's data sheet.  The
 # int32 rate is not in the data sheet: its 67 TFLOP/s of float32 counts an
 # FMA as two ops on 128 float32 lanes per SM; Hopper has 64 int32 lanes
@@ -63,18 +91,34 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 #   traceback walk, per step: two for the cell's address, three to take
 #     the bits apart, six for the op, the next row, diagonal and state,
 #     two for the op row's address, three for the step count and the
-#     loop test.
+#     loop test;
+#   minimizers, per k-mer: a rolling 2-bit code (shift, or, mask) and the
+#     hash (three xor-shift pairs and two multiplies); per window: a van
+#     Herk / Gil-Werman sliding minimum, three (value, position) min steps
+#     of a compare and two selects.
 # The masks of the first eth rows and the clamps the scan makes redundant
 # are left out: the kernels run them, the recurrence does not need them.
 LIN_OPS_PER_CELL = 7
 AFF_OPS_PER_CELL = 14
 DIR_OPS_PER_CELL = 8
 WALK_OPS_PER_STEP = 16
+MINI_OPS_PER_KMER = 3 + 8
+MINI_OPS_PER_WINDOW = 3 * 3
 
 GENOME_BASES = 64_000_000
 N_READS = 131_072
 CHUNK = 16_384
+PLAIN_CHECK_READS = 2_048
 ACCURACY_BAR = 0.95
+FIELDS = ("position", "distance", "distance2", "mapped", "strand", "ops",
+          "op_count", "n_candidates")
+# kernels each engine launches, and those it must not
+ENGINE_KERNELS = {
+    "compacted": ("linear_wf", "affine_wf_dist", "affine_traceback"),
+    "fused": ("linear_wf", "affine_wf_dist", "affine_traceback"),
+    "padded": ("linear_wf", "affine_wf"),
+}
+WF_KERNELS = ("linear_wf", "affine_wf_dist", "affine_wf", "affine_traceback")
 
 
 def log(msg: str) -> None:
@@ -152,8 +196,9 @@ def _compare(name, got, want):
 
 
 def _kernels():
-    """Each kernel's wrapper, plain version and provenance; every callable
-    takes (s1, s2_window, eth, max_ops)."""
+    """Each WF kernel's wrapper, plain version, provenance and the engine
+    whose run gives its main-path row; every callable takes (s1,
+    s2_window, eth, max_ops)."""
     from repro_torch.core.affine_wf import (banded_affine, banded_affine_dist,
                                             traceback)
     from repro_torch.core.linear_wf import banded_wf
@@ -170,7 +215,8 @@ def _kernels():
             run=lambda a, b, eth, mo: ops.linear_wf(a, b, eth=eth),
             plain=lambda a, b, eth, mo: banded_wf(a, b, eth=eth),
             source="src/repro_torch/kernels/csrc/linear_wf.cu",
-            replaces="src/repro/kernels/linear_wf.py:76"),
+            replaces="src/repro/kernels/linear_wf.py:76",
+            engine="compacted"),
         "affine_wf_dist": dict(
             R=R_AFFINE, reps=50,
             run=lambda a, b, eth, mo: ops.affine_wf_dist(a, b, eth=eth,
@@ -178,14 +224,24 @@ def _kernels():
             plain=lambda a, b, eth, mo: banded_affine_dist(a, b, eth=eth,
                                                            sat=SAT),
             source="src/repro_torch/kernels/csrc/affine_wf.cu",
-            replaces="src/repro/kernels/affine_wf.py:179"),
+            replaces="src/repro/kernels/affine_wf.py:179",
+            engine="compacted"),
+        "affine_wf": dict(
+            R=R_AFFINE, reps=20,
+            run=lambda a, b, eth, mo: ops.affine_wf(a, b, eth=eth, sat=SAT),
+            plain=lambda a, b, eth, mo: banded_affine(a, b, eth=eth,
+                                                      sat=SAT),
+            source="src/repro_torch/kernels/csrc/affine_wf.cu",
+            replaces="src/repro/kernels/affine_wf.py:149",
+            engine="padded"),
         "affine_traceback": dict(
             R=R_TRACEBACK, reps=20,
             run=lambda a, b, eth, mo: ops.affine_traceback(
                 a, b, eth=eth, sat=SAT, max_ops=mo),
             plain=plain_tb,
             source="src/repro_torch/kernels/csrc/traceback.cu",
-            replaces="src/repro/kernels/traceback.py:108"),
+            replaces="src/repro/kernels/traceback.py:108",
+            engine="compacted"),
     }
 
 
@@ -199,6 +255,9 @@ def bound(name, R, n, eth, max_ops, steps=0):
         n_ops = LIN_OPS_PER_CELL * cells
     elif name == "affine_wf_dist":
         n_ops = AFF_OPS_PER_CELL * cells
+    elif name == "affine_wf":
+        n_ops = (AFF_OPS_PER_CELL + DIR_OPS_PER_CELL) * cells
+        n_bytes += cells                  # one direction byte per cell
     else:
         n_ops = ((AFF_OPS_PER_CELL + DIR_OPS_PER_CELL) * cells
                  + WALK_OPS_PER_STEP * steps)
@@ -209,8 +268,50 @@ def bound(name, R, n, eth, max_ops, steps=0):
                                  else "bytes")
 
 
+def minimizer_bound(R, L, k, w):
+    """(bound_ms, bound_by) of the minimizer scan: the operations listed
+    above over the int32 rate against L bytes in and two int64s out per
+    window over the HBM rate."""
+    n_kmers = L - k + 1
+    n_win = n_kmers - w + 1
+    n_ops = R * (MINI_OPS_PER_KMER * n_kmers + MINI_OPS_PER_WINDOW * n_win)
+    n_bytes = R * (L + 16 * n_win)
+    t_ops = n_ops / INT32_OPS_PER_S * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def _minimizer_plain(seqs, k, w):
+    from repro_torch.core.minimizers import minimizers
+    h, _, p = minimizers(seqs, k=k, w=w)
+    return h, p
+
+
+def phase_minimizer_parity():
+    """The minimizer scan against its plain version on random reads."""
+    import torch
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(12)
+    for R, L, k, w in ((1000, 80, 8, 16), (R_MINI, N, K, W)):
+        seqs = torch.from_numpy(rng.integers(0, 4, (R, L)).astype(
+            np.uint8)).cuda()
+        got = ops.minimizer_scan(seqs, k=k, w=w)
+        torch.cuda.synchronize()
+        _compare(f"minimizer_scan R={R} L={L} k={k} w={w}", got,
+                 _minimizer_plain(seqs, k, w))
+        log(f"parity minimizer_scan: R={R} L={L} k={k} w={w}: "
+            f"bit-identical (tolerance 0: integer outputs)")
+    ms = cuda_ms(lambda: ops.minimizer_scan(seqs, k=K, w=W), 50, 3)
+    plain_ms = cuda_ms(lambda: _minimizer_plain(seqs, K, W), 2, 1)
+    b_ms, b_by = minimizer_bound(R_MINI, N, K, W)
+    log(f"timing minimizer_scan (random reads): R={R_MINI}: {ms:.4f} "
+        f"ms/call, plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"{b_ms / ms:.1%} of bound")
+
+
 def phase_parity():
-    """Each kernel against its plain version on generated pairs."""
+    """Each WF kernel against its plain version on generated pairs."""
     import torch
     rng = np.random.default_rng(11)
     dev = torch.device("cuda")
@@ -237,17 +338,20 @@ def phase_parity():
         log(f"timing {name} (generated pairs): R={R}: {ms:.4f} ms/call "
             f"({R / ms * 1e3:,.0f} instances/s), plain {plain_ms:.2f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound")
+        if name == "affine_wf":
+            log(f"timing affine_wf: a contiguous (R, n, band) copy of the "
+                f"direction planes, which the wrapper does not make: "
+                f"{cuda_ms(lambda: got[2].contiguous(), 20, 2):.4f} ms")
 
 
 class KernelInputs:
     """Keeps a copy of the inputs of every kernel launch made inside it, by
-    wrapping the three wrappers of ``repro_torch.kernels.ops`` that
+    wrapping the four WF wrappers of ``repro_torch.kernels.ops`` that
     ``core.wf_backend`` calls; the wrappers and their launch counters
     are unchanged."""
 
     def __init__(self):
-        self.calls = {"linear_wf": [], "affine_wf_dist": [],
-                      "affine_traceback": []}
+        self.calls = {name: [] for name in WF_KERNELS}
 
     def __enter__(self):
         from repro_torch.kernels import ops
@@ -271,6 +375,14 @@ class KernelInputs:
                                          kw.get("max_ops", MAX_OPS)))
             return fn(s1, s2_window, **kw)
         return wrapped
+
+
+def _check_launches(what, engine, launches):
+    """Each kernel of ``engine`` launched, and no other WF kernel."""
+    for name in WF_KERNELS:
+        if (launches[name] > 0) != (name in ENGINE_KERNELS[engine]):
+            raise AssertionError(f"{what}: {engine} launched {name} "
+                                 f"{launches[name]} times: {launches}")
 
 
 def phase_e2e():
@@ -297,8 +409,6 @@ def phase_e2e():
     log(f"sample_reads: {N_READS:,} reads in "
         f"{time.perf_counter() - t2:.2f} s")
 
-    fields = ("position", "distance", "distance2", "mapped", "strand", "ops",
-              "op_count", "n_candidates")
     results, runs, cfgs = {}, {}, {}
     for engine in ("compacted", "fused"):
         cfg = MapperConfig.from_index(idx, both_strands=True,
@@ -314,9 +424,7 @@ def phase_e2e():
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)
-        if min(launches.values()) < 1:
-            raise AssertionError(f"{engine}: a kernel never launched on the "
-                                 f"main path: {launches}")
+        _check_launches("Mapper.map", engine, launches)
         log(f"{engine}: {N_READS:,} reads in {dt:.3f} s = "
             f"{N_READS / dt:,.0f} reads/s; launches {launches}; "
             f"{res.stats['n_chunks']} chunks; candidates "
@@ -337,7 +445,7 @@ def phase_e2e():
         runs[engine]["calls"] = kept.calls
 
     a, b = results["compacted"], results["fused"]
-    for f in fields:
+    for f in FIELDS:
         if not np.array_equal(getattr(a, f), getattr(b, f)):
             raise AssertionError(f"compacted and fused differ in {f}")
     log("compacted == fused on every shared field")
@@ -348,7 +456,7 @@ def phase_e2e():
     plain = Mapper(idx, cfg_t).map(rs.reads[:CHUNK])
     log(f"first chunk on the plain torch backend: "
         f"{time.perf_counter() - t0:.2f} s")
-    for f in fields + ("linear_dist",):
+    for f in FIELDS + ("linear_dist",):
         if not np.array_equal(getattr(plain, f), getattr(a, f)[:CHUNK]):
             raise AssertionError(f"kernel path and torch path differ in {f}")
     log("kernel path == torch path on the first chunk")
@@ -368,18 +476,194 @@ def phase_e2e():
         + json.dumps({k: round(v, 4) for k, v in times.items()}))
     if not np.array_equal(res_s.position, a.position):
         raise AssertionError("stream=False differs from stream=True")
-    return runs
+    return runs, ref, idx, rs, a
+
+
+def phase_padded(idx, rs, compacted):
+    """The padded engine on the first chunk's reads: one batch of 2*CHUNK
+    rows, against the compacted engine and the plain torch backend."""
+    import torch
+    from repro_torch.core.mapper import Mapper
+    from repro_torch.core.pipeline import MapperConfig
+    from repro_torch.kernels import ops
+
+    reads = rs.reads[:CHUNK]
+    cfg = MapperConfig.from_index(idx, both_strands=True, engine="padded")
+    mapper = Mapper(idx, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()    # index, phase 4's kept inputs
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = mapper.map(reads)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    _check_launches("Mapper.map", "padded", launches)
+    log(f"padded: {CHUNK:,} reads ({2 * CHUNK:,} rows) in {dt:.3f} s = "
+        f"{CHUNK / dt:,.0f} reads/s (first batch: nothing of it ran "
+        f"before); launches {launches}; peak device memory "
+        f"{(torch.cuda.max_memory_allocated() - held) / 1e9:.3f} GB above "
+        f"the {held / 1e9:.3f} GB held before the run")
+    for f in FIELDS + ("linear_dist",):
+        if not np.array_equal(getattr(res, f), getattr(compacted, f)[:CHUNK]):
+            raise AssertionError(f"padded and compacted differ in {f}")
+    log("padded == compacted on every result field")
+    cfg_t = MapperConfig.from_index(idx, both_strands=True, engine="padded",
+                                    wf_backend="torch")
+    t0 = time.perf_counter()
+    plain = Mapper(idx, cfg_t).map(reads[:PLAIN_CHECK_READS])
+    log(f"padded, first {PLAIN_CHECK_READS:,} reads on the plain torch "
+        f"backend: {time.perf_counter() - t0:.2f} s")
+    for f in FIELDS + ("linear_dist",):
+        if not np.array_equal(getattr(plain, f),
+                              getattr(res, f)[:PLAIN_CHECK_READS]):
+            raise AssertionError(f"padded: kernel path and torch path "
+                                 f"differ in {f}")
+    log("padded: kernel path == torch path")
+    with KernelInputs() as kept:
+        again = mapper.map(reads)
+    if not np.array_equal(again.position, res.position):
+        raise AssertionError("padded: a second run differs")
+    return dict(wall_s=dt, launches=launches, calls=kept.calls)
+
+
+def phase_minimizer_mainpath(rs):
+    """``ops.minimizer_scan`` on what seeding sees: every read's forward
+    and reverse-complement encodings.  -> the kernel's JSON row."""
+    import torch
+    from repro_torch.core.encoding import revcomp
+    from repro_torch.kernels import ops
+
+    seqs = torch.from_numpy(np.concatenate([rs.reads, revcomp(rs.reads)])
+                            ).cuda()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    got = ops.minimizer_scan(seqs, k=K, w=W)
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES["minimizer_scan"]
+    if launches != 1:
+        raise AssertionError(f"minimizer_scan launched {launches} times")
+    err = _compare(f"minimizer_scan main path R={len(seqs)}", got,
+                   _minimizer_plain(seqs, K, W))
+    ms = cuda_ms(lambda: ops.minimizer_scan(seqs, k=K, w=W), 20, 3)
+    plain_ms = cuda_ms(lambda: _minimizer_plain(seqs, K, W), 1, 1)
+    R, L = seqs.shape
+    b_ms, b_by = minimizer_bound(R, L, K, W)
+    log(f"main path minimizer_scan: R={R:,} reads of {L}: bit-identical to "
+        f"the plain version; {ms:.4f} ms/call ({R / ms * 1e3:,.0f} reads/s)"
+        f", plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"{b_ms / ms:.1%} of bound")
+    return dict(name="minimizer_scan", route="cuda",
+                source="src/repro_torch/kernels/csrc/minimizer.cu",
+                replaces="src/repro/kernels/minimizer.py:59",
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                instances=int(R))
+
+
+def _sam_accuracy(text, truth):
+    """Share of records on the right contig, POS within eth and the right
+    FLAG 0x10, read back from the SAM."""
+    ok = 0
+    for ln in text.splitlines():
+        if ln.startswith("@"):
+            continue
+        f = ln.split("\t", 4)
+        contig, pos0, strand = truth[int(f[0][4:])]
+        flag = int(f[1])
+        ok += (not flag & 0x4 and f[2] == contig
+               and abs(int(f[3]) - 1 - pos0) <= ETH
+               and bool(flag & 0x10) == bool(strand))
+    return ok / len(truth)
+
+
+def phase_map_fastq(ref, rs):
+    """``map_fastq`` in-process on each engine, from FASTA and FASTQ files
+    written by the port's writers; -> {engine: launches}."""
+    import torch
+    from repro_torch.data.genome import write_fasta, write_fastq
+    from repro_torch.io.sam import validate_sam
+    from repro_torch.kernels import ops
+    from repro_torch.launch import map_fastq
+
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        half = GENOME_BASES // 2
+        chr1 = ref[:half].copy()
+        chr1[1_000_000:1_000_200] = 4          # a run of N
+        fa, fq = os.path.join(work, "ref.fa"), os.path.join(work, "reads.fq")
+        t0 = time.perf_counter()
+        write_fasta(fa, [("chr1", chr1), ("chr2", ref[half:])])
+        write_fastq(fq, rs.reads, rs.quals,
+                    [f"read{i}" for i in range(N_READS)])
+        log(f"map_fastq: wrote {GENOME_BASES:,} bases as two contigs and "
+            f"{N_READS:,} reads in {time.perf_counter() - t0:.2f} s")
+        truth = [("chr1", int(p), int(s)) if p < half else
+                 ("chr2", int(p) - half, int(s))
+                 for p, s in zip(rs.true_pos, rs.strand)]
+        bodies, launches = {}, {}
+        for engine in ("compacted", "fused", "padded"):
+            out = os.path.join(work, f"{engine}.sam")
+            err = io.StringIO()
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(err):
+                rc = map_fastq.main([fa, fq, "-o", out, "--engine", engine,
+                                     "--chunk-reads", str(CHUNK)])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches[engine] = dict(ops.LAUNCHES)
+            if rc != 0:
+                raise AssertionError(f"map_fastq --engine {engine}: exit "
+                                     f"{rc}\n{err.getvalue()}")
+            _check_launches("map_fastq", engine, launches[engine])
+            done = [ln for ln in err.getvalue().splitlines()
+                    if ln.startswith("done:")][0]
+            m = re.search(r"; (\d+) reads/s mapping", done)
+            with open(out) as f:
+                text = f.read()
+            bodies[engine] = [ln for ln in text.splitlines()
+                              if not ln.startswith("@PG")]
+            acc = _sam_accuracy(text, truth)
+            log(f"map_fastq --engine {engine}: {dt:.2f} s wall = "
+                f"{N_READS / dt:,.0f} reads/s with the FASTA load and "
+                f"index build, {int(m.group(1)):,} reads/s mapping and SAM "
+                f"without them; accuracy from the SAM {acc:.5f}; launches "
+                f"{launches[engine]}")
+            log(f"  {done}")
+            if acc < ACCURACY_BAR:
+                raise AssertionError(f"map_fastq {engine}: accuracy {acc} "
+                                     f"below {ACCURACY_BAR}")
+        for engine in ("fused", "padded"):
+            if bodies[engine] != bodies["compacted"]:
+                raise AssertionError(f"map_fastq: the {engine} SAM differs "
+                                     f"from the compacted one")
+        stats = validate_sam("\n".join(bodies["compacted"]),
+                             expect_reads=N_READS)
+        log(f"map_fastq: the three SAMs are equal apart from @PG; "
+            f"validate_sam passed: {stats['n_mapped']:,} mapped, "
+            f"{stats['n_reverse']:,} reverse")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
 
 
 def phase_mainpath_kernels(runs):
-    """Each kernel on the inputs the main path gave it: parity and times on
-    the compacted engine's first chunk (the JSON row), and every launch
-    of each engine's run timed again on its own inputs."""
+    """Each WF kernel on the inputs the main path gave it: parity and times
+    on the first batch of its engine (the compacted engine's first chunk;
+    the padded batch for the kernel only the padded engine runs), and
+    every launch of each engine's run timed again on its own inputs."""
     import torch
     rows = {}
     for name, k in _kernels().items():
         for engine, run in runs.items():
             calls = run["calls"][name]
+            if not calls:
+                continue
             per_call = [cuda_ms(lambda: k["run"](s1, s2, ETH, mo), 5, 1)
                         for s1, s2, mo in calls]
             total = sum(per_call)
@@ -388,7 +672,8 @@ def phase_mainpath_kernels(runs):
                 f"instances {[c[0].shape[0] for c in calls]}, device time "
                 f"{total:.3f} ms = {total / 1e3 / run['wall_s']:.2%} of the "
                 f"run's {run['wall_s']:.3f} s wall")
-        s1, s2, mo = runs["compacted"]["calls"][name][0]
+        main = runs[k["engine"]]
+        s1, s2, mo = main["calls"][name][0]
         R, n = s1.shape
         got = k["run"](s1, s2, ETH, mo)
         torch.cuda.synchronize()
@@ -400,15 +685,22 @@ def phase_mainpath_kernels(runs):
         b_ms, b_by = bound(name, R, n, ETH, mo, steps)
         rows[name] = dict(
             name=name, route="cuda", source=k["source"],
-            replaces=k["replaces"], launches=runs["compacted"]["launches"][name],
+            replaces=k["replaces"], launches=main["launches"][name],
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=None, instances=int(R),
-            launches_fused=runs["fused"]["launches"][name],
-            run_ms={e: r["kernel_ms"][name] for e, r in runs.items()})
-        log(f"main path {name}: first compacted chunk, R={R}: bit-identical "
-            f"to the plain version; {ms:.4f} ms/call "
+            engine=k["engine"],
+            launches_by_engine={e: r["launches"][name]
+                                for e, r in runs.items()},
+            run_ms={e: r["kernel_ms"][name] for e, r in runs.items()
+                    if name in r.get("kernel_ms", {})})
+        extra = ""
+        if name == "affine_wf":
+            extra = (f"; a contiguous copy of its direction planes "
+                     f"{cuda_ms(lambda: got[2].contiguous(), 20, 2):.4f} ms")
+        log(f"main path {name}: first {k['engine']} batch, R={R}: "
+            f"bit-identical to the plain version; {ms:.4f} ms/call "
             f"({R / ms * 1e3:,.0f} instances/s), plain {plain_ms:.2f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound")
+            f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound{extra}")
     for engine, run in runs.items():
         total = sum(run["kernel_ms"].values())
         log(f"main path {engine}: kernels {total:.3f} ms of "
@@ -419,11 +711,34 @@ def phase_mainpath_kernels(runs):
 
 def main() -> int:
     import torch
+    t_all = time.perf_counter()
+    t0 = t_all
+
+    def phase_done(name):
+        nonlocal t0
+        now = time.perf_counter()
+        log(f"== phase {name}: {now - t0:.2f} s")
+        t0 = now
+
     smi = phase_env()
+    phase_done("1 environment")
     phase_build()
+    phase_done("2 build")
     phase_parity()
-    runs = phase_e2e()
+    phase_minimizer_parity()
+    phase_done("3 kernel parity")
+    runs, ref, idx, rs, compacted = phase_e2e()
+    phase_done("4 end to end")
+    runs["padded"] = phase_padded(idx, rs, compacted)
+    phase_done("5 padded engine")
+    mini_row = phase_minimizer_mainpath(rs)
+    phase_done("6 minimizer scan")
+    phase_map_fastq(ref, rs)
+    phase_done("7 map_fastq")
     rows = phase_mainpath_kernels(runs)
+    rows["minimizer_scan"] = mini_row
+    phase_done("8 main-path kernels")
+    log(f"total {time.perf_counter() - t_all:.2f} s")
     log(smi)
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -67,6 +67,25 @@ class GenomeIndex:
         """Segment extent on each side of the minimizer start."""
         return self.read_len + self.eth - self.k
 
+    def storage_bytes(self) -> dict:
+        """Footprint accounting, mirroring the paper's 800MB -> 13.3GB
+        note and ``repro.core.index.GenomeIndex.storage_bytes``: segments
+        counted 2-bit packed per base (``ceil(seg_len/4)`` bytes per
+        occurrence row) plus a 1-bit-per-base sentinel mask, and the hash
+        table with its CSR offsets and positions at this index's own
+        dtypes (int64 offsets and positions here)."""
+        n_occ = len(self.positions)
+        seg_bytes = n_occ * ((self.seg_len + 3) // 4
+                             + (self.seg_len + 7) // 8)
+        hash_table = (self.uniq_kmers.nbytes + self.offsets.nbytes
+                      + self.positions.nbytes)
+        return {
+            "hash_table_bytes": hash_table,
+            "materialized_segments_bytes": seg_bytes,
+            "total_bytes": hash_table + seg_bytes,
+            "blowup": seg_bytes / max(hash_table, 1),
+        }
+
     @classmethod
     def from_arrays(cls, uniq_kmers, offsets, positions, segments, *,
                     read_len: int, k: int, w: int, eth: int) -> "GenomeIndex":

@@ -10,8 +10,8 @@
 
 The session runs on the CUDA card unless ``device`` names another
 device; with no GPU and no device given it raises.  Not ported yet: the
-padded engine, the mesh topology, sharded indexes, paired-end mapping,
-the serving batcher and the observability hooks.
+mesh topology, sharded indexes, paired-end mapping, the serving batcher
+and the observability hooks.
 """
 from __future__ import annotations
 
@@ -23,14 +23,15 @@ import torch
 
 from . import streaming
 from .device import resolve_device
+from .encoding import revcomp
 from .index import GenomeIndex
 from .pipeline import (LazyTraceback, MapperConfig, MappingResult,
-                       _ChunkPipeline, _merge_stats)
+                       _ChunkPipeline, _merge_stats, map_reads_padded)
 
 TOPOLOGIES = ("single",)
 
 __all__ = ["Mapper", "MapperStats", "MappingPlan", "TOPOLOGIES",
-           "split_result"]
+           "accumulate_stats", "split_result"]
 
 _PER_READ_FIELDS = ("position", "distance", "distance2", "mapped", "strand",
                     "ops", "op_count", "linear_dist", "n_candidates",
@@ -97,12 +98,25 @@ class MapperStats:
         return dict(self.extra)
 
 
+def accumulate_stats(totals: dict, stats, fields=None) -> dict:
+    """Sum ``MapperStats`` fields into a running ``totals`` dict (the
+    launchers' per-batch accumulation).  ``fields`` defaults to
+    ``totals``'s own keys; a non-``MapperStats`` stats (padded engine:
+    None) is a no-op."""
+    if isinstance(stats, MapperStats):
+        for k in (fields if fields is not None else tuple(totals)):
+            totals[k] = totals.get(k, 0) + getattr(stats, k)
+    return totals
+
+
 @dataclasses.dataclass(frozen=True)
 class MappingPlan:
     """What a ``Mapper.run`` will execute, decided before any dispatch:
     ``chunk`` is the chunk quantum every chunk is padded to,
     ``chunk_sizes`` the real per-chunk read counts, ``lin_cap_max`` /
-    ``aff_cap_max`` the ceilings of the measured per-chunk capacities."""
+    ``aff_cap_max`` the ceilings of the measured per-chunk capacities.
+    The padded engine runs one unchunked batch of ``chunk`` rows (2n with
+    ``both_strands``)."""
     topology: str
     engine: str
     n_reads: int
@@ -119,6 +133,8 @@ class MappingPlan:
     @property
     def key(self) -> tuple:
         """Plan-cache key: plans sharing a key share one executable."""
+        if self.engine == "padded":
+            return ("single", "padded", self.n_reads)
         return ("single", self.engine, self.chunk)
 
 
@@ -196,8 +212,6 @@ class Mapper:
                 f"own flat GenomeIndex: build_index or "
                 f"GenomeIndex.from_arrays; sharded indexes)", "7")
         self.cfg = cfg or MapperConfig.from_index(index)
-        if self.cfg.engine == "padded":
-            raise _not_ported('engine="padded"', "3")
         self.topology = topology
         self.device = resolve_device(device)
         self.index = index
@@ -223,6 +237,11 @@ class Mapper:
         n = (int(reads_spec) if isinstance(reads_spec, (int, np.integer))
              else len(reads_spec))
         cfg = self.cfg
+        if cfg.engine == "padded":
+            eff = 2 * n if cfg.both_strands else n
+            return MappingPlan(topology="single", engine="padded", n_reads=n,
+                               chunk=max(eff, 1), chunk_sizes=(eff,),
+                               both_strands=cfg.both_strands)
         c = chunk or cfg.chunk_reads or max(n, 1)
         sizes = tuple(min(c, n - i) for i in range(0, n, c))
         rows = 2 * c if cfg.both_strands else c
@@ -232,15 +251,17 @@ class Mapper:
                            aff_cap_max=rows * cfg.max_minis,
                            both_strands=cfg.both_strands)
 
-    def _executable(self, plan: MappingPlan) -> _ChunkPipeline:
-        """Plan-cache lookup, counting hits and misses."""
+    def _executable(self, plan: MappingPlan):
+        """Plan-cache lookup, counting hits and misses: the chunk pipeline
+        of the compacted and fused engines, or the padded engine."""
         entry = self._plan_cache.get(plan.key)
         if entry is not None:
             self.plan_cache_hits += 1
             return entry
         self.plan_cache_misses += 1
-        entry = self._plan_cache[plan.key] = _ChunkPipeline(
-            self._dev, self.cfg, self.device)
+        entry = self._plan_cache[plan.key] = (
+            map_reads_padded if plan.engine == "padded"
+            else _ChunkPipeline(self._dev, self.cfg, self.device))
         return entry
 
     # ------------------------------------------------------------ execution
@@ -265,6 +286,11 @@ class Mapper:
                 max_workers=1, thread_name_prefix="mapper-session")
         return self._pool.submit(self.map, reads)
 
+    def index_storage(self) -> dict:
+        """Footprint accounting of the session's index
+        (``GenomeIndex.storage_bytes``)."""
+        return self.index.storage_bytes()
+
     def close(self):
         """Shut down the ``map_async`` worker (no-op if never used)."""
         if self._pool is not None:
@@ -284,9 +310,17 @@ class Mapper:
         ``len(reads)`` may be smaller than the plan's batch: chunks are
         padded to the plan's quantum and results trimmed.  On a
         ``both_strands`` plan every chunk maps its reads' forward and
-        reverse-complement encodings and folds them on the device.
+        reverse-complement encodings and folds them on the device; the
+        padded engine maps one stacked fwd-then-rc batch and reduces it
+        on the host (``_reduce_strands``), with the same result.
         """
         reads = np.asarray(reads)
+        if plan.engine == "padded":
+            n_real = len(reads)
+            if plan.both_strands:
+                reads = np.concatenate([reads, revcomp(reads)])
+            res = self._run_padded(plan, reads)
+            return _reduce_strands(res, n_real) if plan.both_strands else res
         n = len(reads)
         cfg = self.cfg
         pipe = self._executable(plan)
@@ -336,3 +370,20 @@ class Mapper:
                              linear_dist=cat("linear_dist"),
                              n_candidates=cat("n_candidates"), stats=stats,
                              lazy_tb=lazy)
+
+    def _run_padded(self, plan: MappingPlan,
+                    reads: np.ndarray) -> MappingResult:
+        """One batch through the padded engine; ``stats`` is None, as on
+        the reference's padded engine."""
+        fn = self._executable(plan)
+        dev_reads = torch.from_numpy(
+            np.ascontiguousarray(reads, dtype=np.uint8)).to(self.device)
+        out = fn(*self._dev, dev_reads, self.cfg)
+        host = {k: v.cpu().numpy() for k, v in out.items()}
+        return MappingResult(position=host["position"],
+                             distance=host["distance"],
+                             distance2=host["distance2"],
+                             mapped=host["mapped"], ops=host["ops"],
+                             op_count=host["op_count"],
+                             linear_dist=host["linear_dist"],
+                             n_candidates=host["n_candidates"], stats=None)

@@ -1,5 +1,5 @@
 """End-to-end read mapping (paper Secs. V-B .. V-E), single device — torch
-twin of the compacted and fused engines of ``repro.core.pipeline``.
+twin of ``repro.core.pipeline``'s three engines.
 
 Stages (numbers = the circled steps of paper Fig. 6):
   (1)(2) seeding     — minimizer lookup, candidate PLs       (seeding.py)
@@ -13,8 +13,13 @@ Stages (numbers = the circled steps of paper Fig. 6):
 ``block_r``-aligned buckets whose sizes the host reads between stages
 (``.item()`` syncs); ``engine="fused"`` bounds the affine bucket from the
 candidate count alone and runs the back half without a second sync.
-Both give the same results as each other and as the reference, bit for
-bit.  The padded reference engine is not ported yet.
+``engine="padded"`` (``map_reads_padded``) is the reference engine: the
+linear WF over every (R, M, P) slot, valid or not, and the
+dirs-emitting affine WF over every (R, M) winner.  All three give the
+same results as each other and as the reference, bit for bit.
+
+``oracle_map`` is the exhaustive banded-WF scan the accuracy tests use as
+ground truth; ``map_reads`` is the deprecated one-shot wrapper.
 
 Device positions are int64: the winner sentinel is the int64 max and
 unmapped reads carry -1.
@@ -23,16 +28,20 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 
 import numpy as np
 import torch
 
 from . import streaming
 from . import wf_backend as wfb
+from .affine_wf import traceback
 from .compaction import bucket_capacity, compact_indices, scatter_to
+from .device import resolve_device
 from .encoding import OP_NONE, revcomp
-from .filtering import collapse_candidates, gather_windows
-from .index import validate_geometry
+from .filtering import collapse_candidates, gather_windows, linear_wf_filter
+from .index import GenomeIndex, validate_geometry
+from .linear_wf import banded_wf
 from .seeding import SeedParams, seed_reads
 
 
@@ -252,6 +261,23 @@ def _affine_stage(segments, positions, reads, occ_idx, mini_pos, best_pl,
     ae = torch.where(slot_ok, ae, sat).to(torch.int32)
     aff_end = scatter_to(R * M, slots, slot_ok, ae, sat).reshape(R, M)
 
+    best_aff, mapped, position, best_m, distance2, cand_occ = _reduce(
+        aff_end, occ_idx, best_pl, mini_pos, positions, lin_end_full, cfg)
+    r = torch.arange(R, device=dev)
+    occ_w = cand_occ[r, best_m]
+    mpos_w = mini_pos[r, best_m]
+    return best_aff, mapped, position, best_m, distance2, occ_w, mpos_w
+
+
+def _reduce(aff_end, occ_idx, best_pl, mini_pos, positions, lin_end,
+            cfg: MapperConfig):
+    """(7) the per-read winner over the (R, M) affine distances: min
+    distance, ties -> leftmost position (then the first minimizer), and
+    the runner-up distance.  Returns (best_aff, mapped, position, best_m,
+    distance2, cand_occ) with ``cand_occ`` each (read, minimizer)'s
+    occurrence row."""
+    M = cfg.max_minis
+    sat = cfg.sat_affine
     cand_occ = occ_idx.gather(2, best_pl[..., None])[:, :, 0]
     cand_pos, cand_ok = _cand_positions(positions, cand_occ, mini_pos)
     best_aff = aff_end.amin(dim=-1)
@@ -259,19 +285,68 @@ def _affine_stage(segments, positions, reads, occ_idx, mini_pos, best_pl,
     is_best = aff_end == best_aff[:, None]
     pos_key = torch.where(is_best & cand_ok, cand_pos, _POS_BIG)
     position = pos_key.amin(dim=-1)
-    m_ar = torch.arange(M, device=dev)
+    m_ar = torch.arange(M, device=aff_end.device)
     best_m = torch.argmin(torch.where(pos_key == position[:, None], m_ar, M),
                           dim=-1)
     position = torch.where(mapped & (position < _POS_BIG), position, -1)
     distance2 = _runner_up_distance(aff_end, cand_pos, cand_ok, position,
                                     cfg.eth, sat)
-    distance2 = _co_optimal_runner_up(lin_end_full, occ_idx, mini_pos,
+    distance2 = _co_optimal_runner_up(lin_end, occ_idx, mini_pos,
                                       positions, position, best_m,
                                       best_aff, distance2, cfg)
-    r = torch.arange(R, device=dev)
-    occ_w = cand_occ[r, best_m]
-    mpos_w = mini_pos[r, best_m]
-    return best_aff, mapped, position, best_m, distance2, occ_w, mpos_w
+    return best_aff, mapped, position, best_m, distance2, cand_occ
+
+
+def map_reads_padded(uniq_kmers, offsets, positions, segments, reads,
+                     cfg: MapperConfig):
+    """The padded reference engine (``repro.core.pipeline.map_reads_jax``):
+    every (R, M, P) slot, valid or not, goes through the linear WF, every
+    (R, M) winner through the dirs-emitting affine WF, and the plain
+    traceback walks the winning minimizer's direction planes.  Index
+    tensors on the reads' device; reads (R, rl) uint8.  Returns a dict of
+    per-read tensors."""
+    R = reads.shape[0]
+    M, n, eth = cfg.max_minis, cfg.read_len, cfg.eth
+    sat = cfg.sat_affine
+    seeds = seed_reads(uniq_kmers, offsets, reads, cfg.seed_params)
+    occ_idx, occ_valid = seeds["occ_idx"], seeds["occ_valid"]
+    mini_pos = seeds["mini_pos"]
+
+    # (3) linear WF over every candidate
+    windows = gather_windows(segments, occ_idx, mini_pos[..., None],
+                             read_len=n, k=cfg.k, eth=eth)   # (R, M, P, wlen)
+    lin_end, _ = linear_wf_filter(reads, windows, occ_valid, eth=eth,
+                                  backend=cfg.wf_backend)
+
+    # (4) min extraction per (read, minimizer); filter threshold
+    best_pl, _, pass_filter = collapse_candidates(lin_end,
+                                                  cfg.filter_threshold)
+
+    # (5)+(6) affine WF on the per-minimizer winners
+    wlen = windows.shape[-1]
+    sel_win = windows.gather(
+        2, best_pl[..., None, None].expand(R, M, 1, wlen))[:, :, 0]
+    del windows     # the batch's largest tensor: free it before the
+    #                 direction planes are allocated
+    s1 = reads[:, None, :].expand(R, M, n)
+    aff_end, _, dirs = wfb.affine_wf_dirs(s1, sel_win, eth=eth, sat=sat,
+                                          backend=cfg.wf_backend)
+    aff_end = torch.where(pass_filter, aff_end, sat)
+
+    # (7) best minimizer per read
+    best_aff, mapped, position, best_m, distance2, _ = _reduce(
+        aff_end, occ_idx, best_pl, mini_pos, positions, lin_end, cfg)
+
+    # traceback for the winning instance only
+    sel_dirs = dirs[torch.arange(R, device=reads.device), best_m]
+    max_ops = cfg.max_ops or 2 * n + 2
+    ops, op_count = traceback(sel_dirs, eth, max_ops)
+    ops = torch.where(mapped[:, None], ops, OP_NONE)
+    op_count = torch.where(mapped, op_count, 0)
+    return dict(position=position, distance=best_aff, distance2=distance2,
+                mapped=mapped, ops=ops, op_count=op_count,
+                linear_dist=lin_end,
+                n_candidates=occ_valid.sum(dim=(1, 2)).to(torch.int32))
 
 
 def _winner_traceback(segments, reads, occ, mpos, mapped,
@@ -594,3 +669,61 @@ def _merge_stats(parts: list[dict]) -> dict:
         1.0 - out["survivors"] / max(out["candidates_valid"], 1))
     out["n_chunks"] = len(parts)
     return out
+
+
+def map_reads(index: GenomeIndex, reads: np.ndarray,
+              cfg: MapperConfig | None = None, *,
+              device=None) -> MappingResult:
+    """Host-friendly wrapper: numpy index + reads -> MappingResult.
+
+    .. deprecated::
+        Use :class:`repro_torch.core.mapper.Mapper` —
+        ``Mapper(index, cfg, device=device).map(reads)`` is the
+        bit-identical replacement and keeps the index placed on the
+        device across calls (this shim builds a fresh one-shot session
+        each time).
+    """
+    warnings.warn(
+        "map_reads is deprecated; use repro_torch.core.mapper.Mapper — "
+        "Mapper(index, cfg).map(reads) is the bit-identical replacement "
+        "(and reuses device placement across calls)",
+        DeprecationWarning, stacklevel=2)
+    from .mapper import Mapper
+    return Mapper(index, cfg, device=device).map(reads)
+
+
+def oracle_map(ref: np.ndarray, reads: np.ndarray, eth: int = 6,
+               chunk: int = 4096, *, device=None):
+    """Exhaustive banded-WF scan over every reference position (BWA-MEM
+    stand-in ground truth for accuracy tests).  O(G * R) — small inputs
+    only.  Runs the plain ``banded_wf`` on ``device`` (the card unless
+    asked otherwise).
+
+    Returns ``(best_p, best_d)``: per-read best position (ties ->
+    leftmost) and its banded-WF distance, each (R,) int64.
+    """
+    dev = resolve_device(device)
+    reads = np.asarray(reads, dtype=np.uint8)
+    R, rl = reads.shape
+    G = len(ref)
+    pad = np.full(G + 2 * eth + rl, 4, dtype=np.uint8)
+    pad[eth : eth + G] = ref
+    n_pos = G - rl + 1
+    best_d = np.full(R, 10 ** 9, dtype=np.int64)
+    best_p = np.full(R, -1, dtype=np.int64)
+    win = rl + 2 * eth
+    view = np.lib.stride_tricks.sliding_window_view(pad, win)
+    s1 = torch.from_numpy(reads).to(dev)
+    for c0 in range(0, n_pos, chunk):
+        c1 = min(c0 + chunk, n_pos)
+        wins = torch.from_numpy(np.ascontiguousarray(view[c0:c1])).to(dev)
+        C = c1 - c0
+        d_end, _ = banded_wf(s1[:, None, :].expand(R, C, rl),
+                             wins[None].expand(R, C, win), eth=eth)
+        d = d_end.cpu().numpy()
+        m = d.argmin(axis=1)
+        dm = d[np.arange(R), m]
+        better = dm < best_d
+        best_d[better] = dm[better]
+        best_p[better] = c0 + m[better]
+    return best_p, best_d

@@ -54,6 +54,20 @@ def affine_wf_dist(s1: torch.Tensor, s2_window: torch.Tensor, *, eth: int,
     return de.reshape(lead), dm.reshape(lead)
 
 
+def affine_wf_dirs(s1: torch.Tensor, s2_window: torch.Tensor, *, eth: int,
+                   sat: int, backend: str = "cuda"):
+    """Banded affine WF with packed direction planes (the padded engine's
+    pass).  Returns (dist_end, dist_min, dirs (..., n, 2*eth+1) uint8)."""
+    _check(backend)
+    if backend == "torch":
+        return banded_affine(s1, s2_window, eth=eth, sat=sat)
+    lead = s1.shape[:-1]
+    n = s1.shape[-1]
+    de, dm, dirs = ops.affine_wf(*_rows(s1, s2_window), eth=eth, sat=sat)
+    return (de.reshape(lead), dm.reshape(lead),
+            dirs.reshape(lead + (n, 2 * eth + 1)))
+
+
 def affine_traceback(s1: torch.Tensor, s2_window: torch.Tensor, *, eth: int,
                      sat: int, max_ops: int, backend: str = "cuda"):
     """Banded affine WF + traceback in one pass (the winners-only pass).

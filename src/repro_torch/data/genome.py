@@ -1,6 +1,7 @@
 """Synthetic genome + Illumina-like read simulator (ground truth attached)
 — a copy of ``repro.data.genome``'s single-end part, so the same seed
-gives the same reference and the same reads in both packages.
+gives the same reference and the same reads in both packages — and the
+FASTA/FASTQ writers that are the round-trip partners of ``repro_torch.io``.
 
 A uniform-random reference (optionally with repeated segments, which
 exercise high-frequency minimizers) and reads sampled with
@@ -15,7 +16,7 @@ import dataclasses
 
 import numpy as np
 
-from ..core.encoding import revcomp
+from ..core.encoding import decode_to_str, revcomp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,3 +94,55 @@ def sample_reads(ref: np.ndarray, n_reads: int, read_len: int = 150,
     quals = (qrng.integers(30, 41, (n_reads, read_len)) + 33).astype(np.uint8)
     return ReadSet(reads=reads, true_pos=pos, n_errors=n_err, strand=strand,
                    quals=quals)
+
+
+# --------------------------------------------------------------------------
+# Standard-format writers (round-trip partners of repro_torch.io's parsers)
+# --------------------------------------------------------------------------
+
+def write_fasta(path_or_handle, contigs, width: int = 70) -> None:
+    """Write contigs as FASTA.
+
+    ``contigs`` is a single codes array (one record named ``ref``) or a
+    list of ``(name, codes)`` pairs.  Lines wrap at ``width`` bases.
+    """
+    from ..io.fasta import _open
+    if isinstance(contigs, np.ndarray):
+        contigs = [("ref", contigs)]
+    f, owned = _open(path_or_handle, "w")
+    try:
+        for name, codes in contigs:
+            f.write(f">{name}\n")
+            line = decode_to_str(codes)
+            for i in range(0, len(line), width):
+                f.write(line[i : i + width] + "\n")
+    finally:
+        if owned:
+            f.close()
+
+
+def write_fastq(path_or_handle, reads, quals: np.ndarray | None = None,
+                names: list[str] | None = None) -> None:
+    """Write reads as 4-line FASTQ records (gzip-transparent: a path
+    ending in ``.gz`` writes a compressed stream).
+
+    ``reads`` is a ``ReadSet`` (qualities taken from it) or an
+    ``(R, rl)`` codes array.  Missing qualities default to ``I``
+    (phred 40); missing names to ``read<i>``.
+    """
+    from ..io.fasta import _open
+    if isinstance(reads, ReadSet):
+        quals = reads.quals if quals is None else quals
+        reads = reads.reads
+    reads = np.asarray(reads)
+    if quals is None:
+        quals = np.full(reads.shape, ord("I"), dtype=np.uint8)
+    f, owned = _open(path_or_handle, "w")
+    try:
+        for i in range(len(reads)):
+            name = names[i] if names is not None else f"read{i}"
+            f.write(f"@{name}\n{decode_to_str(reads[i])}\n+\n"
+                    f"{np.asarray(quals[i]).tobytes().decode('ascii')}\n")
+    finally:
+        if owned:
+            f.close()

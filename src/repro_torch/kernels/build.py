@@ -23,7 +23,7 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_ROOT = Path(__file__).parent / "_build"
 # library name -> source file
 SOURCES = {"linear_wf": "linear_wf.cu", "affine_wf": "affine_wf.cu",
-           "traceback": "traceback.cu"}
+           "traceback": "traceback.cu", "minimizer": "minimizer.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -32,8 +32,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRIES = {
     "linear_wf_launch": ("linear_wf", [_P, _P, _P] + [_I] * 5 + [_P]),
     "affine_wf_dist_launch": ("affine_wf", [_P, _P, _P] + [_I] * 6 + [_P]),
+    "affine_wf_launch": ("affine_wf", [_P] * 4 + [_I] * 6 + [_P]),
     "affine_traceback_launch": ("traceback",
                                 [_P] * 5 + [_I] * 7 + [_P]),
+    "minimizer_launch": ("minimizer", [_P] * 3 + [_I] * 7 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -30,11 +30,12 @@ __device__ __forceinline__ void stage_rows(uint8_t* dst,
 
 // Banded affine (Gotoh) forward pass for one instance.  a: the read (n
 // bytes), b: the window (n + 2*ETH bytes).  With EMIT, the packed
-// direction byte of cell (i-1, d) goes to dirs[((i-1)*BAND + d) * stride].
+// direction byte of cell (i-1, d) goes to dirs[((i-1)*BAND + d) * stride]
+// (64-bit: a padded batch's plane passes 2^31 bytes).
 template <int ETH, bool EMIT>
 __device__ __forceinline__ void affine_band(const uint8_t* a, const uint8_t* b,
                                             int n, int sat, uint8_t* dirs,
-                                            int stride, int& dist_end,
+                                            long long stride, int& dist_end,
                                             int& dist_min) {
   constexpr int BAND = 2 * ETH + 1;
   const int big = sat + 40;  // off-band neighbour, as in the reference
@@ -83,7 +84,7 @@ __device__ __forceinline__ void affine_band(const uint8_t* a, const uint8_t* b,
         if (jj == 0) dd = 2;
         int byte = dd | (dm1[d] << 2) | ((m2o < m2e) << 3);
         if (jj < 0) byte = 0;
-        dirs[((i - 1) * BAND + d) * stride] = (uint8_t)byte;
+        dirs[((long long)(i - 1) * BAND + d) * stride] = (uint8_t)byte;
       }
       D[d] = dval;
       dl = dval;

@@ -1,8 +1,9 @@
 """Wrappers of the Hopper kernels, with their launch counters.
 
-Each wrapper takes the natural row layout — reads ``s1`` (R, n) and
-windows ``s2_window`` (R, n + 2*eth), both uint8 and contiguous — checks
-it, and then:
+Each WF wrapper takes the natural row layout — reads ``s1`` (R, n) and
+windows ``s2_window`` (R, n + 2*eth), both uint8 and contiguous — and
+``minimizer_scan`` sequences (R, L) uint8.  Each checks its input, and
+then:
 
   * on CUDA tensors launches its kernel on the tensor's device and that
     device's current stream (building the library at first use), and
@@ -20,13 +21,18 @@ import torch
 
 from ..core.affine_wf import banded_affine, banded_affine_dist, traceback
 from ..core.linear_wf import banded_wf
+from ..core.minimizers import minimizers
 from . import build
 
-LAUNCHES = {"linear_wf": 0, "affine_wf_dist": 0, "affine_traceback": 0}
+LAUNCHES = {"linear_wf": 0, "affine_wf_dist": 0, "affine_wf": 0,
+            "affine_traceback": 0, "minimizer_scan": 0}
 SUPPORTED_ETH = (4, 6, 8)   # template instances compiled into csrc/
 MAX_SAT = 85                # above it the reference's int8 values wrap
 SMEM_LIMIT = 232_448        # dynamic shared memory a Hopper block may use
-THREADS = 128               # linear / affine-distance block size
+THREADS = 128               # linear / affine block size
+SMEM_DEFAULT = 48 * 1024    # shared memory a block gets without opting in
+MINI_THREADS = 256          # minimizer block size
+MINI_WINDOWS = 1024         # windows a minimizer block aims to cover
 
 
 def reset_launch_counts() -> None:
@@ -50,13 +56,21 @@ def _check(s1: torch.Tensor, s2_window: torch.Tensor, eth: int) -> None:
                          f"{s2_window.device}")
 
 
+def _is_cuda(t: torch.Tensor) -> bool:
+    """False for a CPU tensor (plain version), True for a CUDA tensor;
+    raises for any other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {t.device}")
+    return True
+
+
 def _on_card(s1: torch.Tensor, eth: int, sat: int | None = None) -> bool:
     """False for CPU tensors (plain version); True for CUDA tensors the
     kernels take; raises for anything else."""
-    if s1.device.type == "cpu":
+    if not _is_cuda(s1):
         return False
-    if s1.device.type != "cuda":
-        raise ValueError(f"no kernel for device {s1.device}")
     if eth not in SUPPORTED_ETH:
         raise ValueError(f"eth={eth} has no compiled kernel instance; "
                          f"supported: {SUPPORTED_ETH}")
@@ -110,6 +124,78 @@ def affine_wf_dist(s1: torch.Tensor, s2_window: torch.Tensor, *,
         _raise_on(rc, "affine_wf_dist")
         LAUNCHES["affine_wf_dist"] += 1
     return out[0], out[1]
+
+
+def affine_wf(s1: torch.Tensor, s2_window: torch.Tensor, *, eth: int = 6,
+              sat: int = 32):
+    """Banded affine WF with its packed direction planes.  -> (dist_end
+    (R,), dist_min (R,)) int32 and dirs (R, n, 2*eth+1) uint8.
+
+    The kernel writes the planes in the Pallas kernel's (n * band, R)
+    layout, where a warp's stores coalesce; ``dirs`` is an (R, n, band)
+    view of that buffer (strides (1, band*R, R)), not a transposed copy.
+    """
+    _check(s1, s2_window, eth)
+    if not _on_card(s1, eth, sat):
+        return banded_affine(s1, s2_window, eth=eth, sat=sat)
+    R, n = s1.shape
+    band = 2 * eth + 1
+    dev = s1.device
+    dists = torch.empty((2, R), dtype=torch.int32, device=dev)
+    # every byte is written by the kernel (0 left of column 0): no fill
+    planes = torch.empty((n * band, R), dtype=torch.uint8, device=dev)
+    if R:
+        smem = THREADS * (2 * n + 2 * eth)
+        with torch.cuda.device(dev):
+            rc = build.entry("affine_wf_launch")(
+                s1.data_ptr(), s2_window.data_ptr(), dists.data_ptr(),
+                planes.data_ptr(), R, n, eth, sat, THREADS, smem,
+                _stream(s1))
+        _raise_on(rc, "affine_wf")
+        LAUNCHES["affine_wf"] += 1
+    return dists[0], dists[1], planes.t().reshape(R, n, band)
+
+
+def minimizer_scan(seqs: torch.Tensor, *, k: int = 12, w: int = 30):
+    """Window minimizers of every row of ``seqs`` (R, L) uint8 base codes.
+    -> (hashes (R, n_win), positions (R, n_win)), both int64, n_win =
+    L - (w + k - 1) + 1: the smallest hash32 of w consecutive k-mer codes
+    (uint32 values held in int64) and the k-mer start of its leftmost
+    occurrence, as ``core.minimizers.minimizers`` gives them."""
+    if seqs.dtype != torch.uint8:
+        raise TypeError(f"seqs must be uint8, got {seqs.dtype}")
+    if seqs.dim() != 2 or not seqs.is_contiguous():
+        raise ValueError(f"seqs must be a contiguous 2-D tensor, got shape "
+                         f"{tuple(seqs.shape)}")
+    if not 1 <= k <= 16:
+        raise ValueError(f"k={k}: k-mer codes must fit 32 bits (1..16)")
+    if w < 1:
+        raise ValueError(f"w={w} must be >= 1")
+    R, L = seqs.shape
+    if L < w + k - 1:
+        raise ValueError(f"L={L} is shorter than one window of w={w} "
+                         f"k-mers of k={k} ({w + k - 1} bases)")
+    if not _is_cuda(seqs):
+        hashes, _, pos = minimizers(seqs, k=k, w=w)
+        return hashes, pos
+    n_kmers = L - k + 1
+    n_win = n_kmers - w + 1
+    per_read = 4 * n_kmers + L        # hashes + bases in shared memory
+    if per_read > SMEM_DEFAULT:
+        raise ValueError(f"L={L}: one read's {per_read} B of hashes and "
+                         f"bases exceed a block's {SMEM_DEFAULT} B")
+    rpb = max(1, min(SMEM_DEFAULT // per_read, -(-MINI_WINDOWS // n_win)))
+    dev = seqs.device
+    hashes = torch.empty((R, n_win), dtype=torch.int64, device=dev)
+    pos = torch.empty((R, n_win), dtype=torch.int64, device=dev)
+    if R:
+        with torch.cuda.device(dev):
+            rc = build.entry("minimizer_launch")(
+                seqs.data_ptr(), hashes.data_ptr(), pos.data_ptr(), R, L, k,
+                w, rpb, MINI_THREADS, rpb * per_read, _stream(seqs))
+        _raise_on(rc, "minimizer_scan")
+        LAUNCHES["minimizer_scan"] += 1
+    return hashes, pos
 
 
 def traceback_threads(n: int, eth: int) -> int:

@@ -1,0 +1,275 @@
+"""FASTA + FASTQ -> SAM, end-to-end over the ``Mapper`` session — the
+single-end, single-topology part of ``repro.launch.map_fastq``.
+
+    PYTHONPATH=src python -m repro_torch.launch.map_fastq ref.fa reads.fq \
+        -o out.sam                      # on the CUDA card
+    PYTHONPATH=src python -m repro_torch.launch.map_fastq ref.fa reads.fq \
+        -o out.sam --device cpu         # kernels' plain versions on the CPU
+
+A (multi-contig) FASTA reference is indexed in memory, FASTQ reads
+stream through the session in ``--chunk-reads`` batches — each chunk
+mapped on **both strands** (``--single-strand`` disables) on the
+``--engine compacted|fused|padded`` — and spec-valid SAM comes out, line
+for line the reference's apart from ``@PG``.  Plain and ``.gz`` FASTQ
+parse identically.  Single-end records carry FLAG 0x4/0x10 and MAPQ 255.
+
+The command line is the reference's, with these differences:
+
+* ``--wf-backend`` takes ``cuda|torch`` (default ``cuda``);
+* ``--device`` picks the torch device (default: the CUDA card; with no
+  GPU and no ``--device`` the run fails rather than drop to the CPU);
+* flags whose machinery is not ported yet exit non-zero naming their
+  ``ROADMAP.md`` item;
+* ``--on-error permissive`` quarantines malformed FASTQ records exactly
+  as the reference's parser does, but does not wrap the session in the
+  reference's ``ResilientMapper`` (not ported): a healthy run writes the
+  same SAM, and an engine fault fails the run.
+
+Progress and the closing stats lines go to stderr, so ``-o -`` pipes
+clean SAM to stdout.  ``main(argv)`` runs in-process.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+# the reference's flags whose machinery is not ported yet: parsed as the
+# reference parses them, then refused naming their ROADMAP.md Queue 1
+# item.  flag -> (argparse keywords, item)
+_NOT_PORTED = {
+    "--index-dir": (dict(default=None), 7),
+    "--index-budget-mb": (dict(type=float, default=None), 7),
+    "--prefetch": (dict(action="store_true"), 7),
+    "--r1": (dict(default=None), 6),
+    "--r2": (dict(default=None), 6),
+    "--interleaved": (dict(action="store_true"), 6),
+    "--shards": (dict(type=int, default=None), 9),
+    "--inject": (dict(default=None), 8),
+    "--watchdog": (dict(type=float, default=None), 8),
+    "--trace-out": (dict(default=None), 8),
+    "--metrics-out": (dict(default=None), 8),
+    "--log-json": (dict(action="store_true"), 8),
+}
+
+
+def _say(msg: str) -> None:
+    print(msg, file=sys.stderr)
+
+
+def _refuse_not_ported(ap: argparse.ArgumentParser, args) -> None:
+    for flag, (_, item) in _NOT_PORTED.items():
+        dest = flag[2:].replace("-", "_")
+        if getattr(args, dest) != ap.get_default(dest):
+            raise SystemExit(
+                f"map_fastq: {flag} is not ported to repro_torch yet "
+                f"(ROADMAP.md, Queue 1 item {item})")
+    if args.topology != "single":
+        raise SystemExit("map_fastq: --topology mesh is not ported to "
+                         "repro_torch yet (ROADMAP.md, Queue 1 item 9)")
+
+
+def _print_mapper_stats(mapper, totals: dict, file=None) -> None:
+    """Closing stats lines of a single-topology run (the single-topology
+    part of ``repro.launch.serve._print_mapper_stats``): the unified
+    MapperStats accounting, the session plan-cache counters and the
+    index footprint."""
+    print(f"filter/affine [single]: {totals['survivors']} "
+          f"survivors -> {totals['affine_instances']} affine instances "
+          f"(of {totals['padded_affine_instances']} padded), dropped "
+          f"send={totals['dropped_send']} affine={totals['dropped_affine']}",
+          file=file)
+    print(f"plan cache: {mapper.plan_cache_hits} hits / "
+          f"{mapper.plan_cache_misses} misses "
+          f"(same-size batches reuse compiled executables after warm-up)",
+          file=file)
+    stor = mapper.index_storage()
+    print(f"index storage: {stor['total_bytes']} B "
+          f"(hash {stor['hash_table_bytes']} B + segments "
+          f"{stor['materialized_segments_bytes']} B, blowup "
+          f"{stor['blowup']:.1f}x)", file=file)
+
+
+def run(args) -> int:
+    from ..core.device import resolve_device
+    from ..core.index import build_index
+    from ..core.mapper import Mapper, accumulate_stats
+    from ..core.pipeline import MapperConfig
+    from ..io.fasta import ReferenceMap, load_reference
+    from ..io.fastq import FastqStream
+    from ..io.sam import emit_alignments, sam_header
+
+    t0 = time.perf_counter()
+    device = resolve_device(args.device)   # no GPU and no --device: raise
+    stream = FastqStream(args.reads, read_len=args.read_len,
+                         chunk_reads=args.chunk_reads,
+                         on_error=args.on_error, rejects=args.rejects)
+    rl = stream.read_len
+    # spacer >= one alignment window: no read can map across a boundary
+    rejected_contigs: list = []
+    ref, contigs = load_reference(args.reference, spacer=rl + 2 * args.eth,
+                                  on_error=args.on_error,
+                                  rejected=rejected_contigs)
+    for cname, why in rejected_contigs:
+        _say(f"map_fastq: skipped contig {cname!r}: {why}")
+    refmap = ReferenceMap(contigs)
+    idx = build_index(ref, read_len=rl, k=args.k, w=args.w, eth=args.eth,
+                      device=device)
+    cfg = MapperConfig.from_index(
+        idx, engine=args.engine, wf_backend=args.wf_backend,
+        chunk_reads=args.chunk_reads, stream=not args.no_stream,
+        both_strands=not args.single_strand)
+    mapper = Mapper(idx, cfg, device=device)
+    _say(f"map_fastq: {len(contigs)} contig(s), {len(ref)} indexed bases "
+         f"(in-memory index), read_len={rl}, topology={mapper.topology}, "
+         f"paired=False, both_strands={cfg.both_strands}, "
+         f"engine={cfg.engine}, wf_backend={cfg.wf_backend}, "
+         f"device={mapper.device}")
+
+    # resume-safe atomic output: SAM accumulates in a .partial segment
+    # and lands on the final path in one os.replace only after a clean
+    # finish — an interrupted run can never leave a truncated file that
+    # looks complete
+    partial = None if args.output == "-" else args.output + ".partial"
+    out = sys.stdout if partial is None else open(partial, "w")
+    totals = dict(reads=0, mapped=0, reverse_best=0, survivors=0,
+                  affine_instances=0, padded_affine_instances=0,
+                  dropped_send=0, dropped_affine=0)
+    saw_stats = False
+    t_map = None
+    try:
+        for line in sam_header(contigs, command_line=args.command_line):
+            out.write(line + "\n")
+        t_map = time.perf_counter()
+        for i, chunk in enumerate(stream):
+            res = mapper.map(chunk.reads)
+            for rec in emit_alignments(res, chunk.names, chunk.reads,
+                                       chunk.quals, refmap, seqs=chunk.seqs):
+                out.write(rec + "\n")
+            n_new = len(chunk)
+            n_mapped = int(res.mapped.sum())
+            if res.strand is not None:  # from the result, not stats: the
+                #                         padded engine has stats=None
+                totals["reverse_best"] += int((res.strand
+                                               & res.mapped).sum())
+            totals["reads"] += n_new
+            totals["mapped"] += n_mapped
+            if res.stats is not None:
+                saw_stats = True
+                accumulate_stats(totals, res.stats, fields=(
+                    "survivors", "affine_instances",
+                    "padded_affine_instances", "dropped_send",
+                    "dropped_affine"))
+            out.flush()  # each chunk's records land in the .partial segment
+            rate = totals["reads"] / max(time.perf_counter() - t_map, 1e-9)
+            _say(f"chunk {i}: {n_new} reads, "
+                 f"mapped {n_mapped / max(n_new, 1):.3f} "
+                 f"(cumulative {totals['reads']} reads, {rate:.0f} reads/s)")
+        complete = True
+    except BaseException:
+        complete = False
+        raise
+    finally:
+        if out is not sys.stdout:
+            out.close()
+        if partial is not None:
+            if complete:  # atomic landing: complete output or none
+                os.replace(partial, args.output)
+            else:
+                _say(f"map_fastq: run did not complete; partial SAM left "
+                     f"at {partial}")
+        mapper.close()
+
+    t_end = time.perf_counter()
+    dt = t_end - t0
+    skipped = (f", skipped {stream.n_skipped} short" if stream.n_skipped
+               else "") + (f", truncated {stream.n_truncated} long"
+                           if stream.n_truncated else "")
+    _say(f"done: {totals['reads']} reads in {dt:.1f}s "
+         f"({totals['reads'] / max(dt, 1e-9):.0f} reads/s incl. index "
+         f"build; {totals['reads'] / max(t_end - t_map, 1e-9):.0f} reads/s "
+         f"mapping and SAM), mapped {totals['mapped']} "
+         f"({totals['reverse_best']} reverse-strand){skipped}")
+    if stream.n_rejected:
+        where = f" -> {args.rejects}" if args.rejects else ""
+        _say(f"quarantined: {stream.n_rejected} malformed record(s) "
+             f"{dict(stream.reject_reasons)}{where}")
+    if saw_stats:
+        _print_mapper_stats(mapper, totals, file=sys.stderr)
+    else:  # padded reference engine: no instance accounting to report
+        _say(f"plan cache: {mapper.plan_cache_hits} hits / "
+             f"{mapper.plan_cache_misses} misses")
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="repro_torch.launch.map_fastq",
+        description="Map a FASTQ read set against a FASTA reference; "
+                    "emit SAM.")
+    ap.add_argument("reference", nargs="?", default=None,
+                    help="FASTA reference (multi-contig ok; N -> "
+                         "never-matching sentinel)")
+    ap.add_argument("reads", nargs="?", default=None,
+                    help="FASTQ reads (4-line records; .gz ok), single-end")
+    ap.add_argument("-o", "--output", default="-",
+                    help="output SAM path ('-' = stdout; progress goes to "
+                         "stderr either way)")
+    ap.add_argument("--device", default=None,
+                    help="torch device to run on (default: the CUDA card; "
+                         "'cpu' runs the kernels' plain versions)")
+    ap.add_argument("--topology", default="single",
+                    choices=("single", "mesh"))
+    ap.add_argument("--chunk-reads", type=int, default=1024,
+                    help="FASTQ batch size == engine streaming chunk")
+    ap.add_argument("--read-len", type=int, default=None,
+                    help="fixed read length (default: first FASTQ record)")
+    ap.add_argument("--single-strand", action="store_true",
+                    help="forward strand only (reverse-strand reads will "
+                         "not map)")
+    ap.add_argument("--engine", default="compacted",
+                    choices=("compacted", "fused", "padded"))
+    ap.add_argument("--wf-backend", default="cuda", choices=("cuda", "torch"))
+    ap.add_argument("--no-stream", action="store_true",
+                    help="synchronous debug path (per-stage timings)")
+    ap.add_argument("--on-error", default="strict",
+                    choices=("strict", "permissive"),
+                    help="malformed-input policy: strict raises with "
+                         "file:line context; permissive quarantines bad "
+                         "records (counted; see --rejects) and keeps "
+                         "mapping")
+    ap.add_argument("--rejects", default=None,
+                    help="permissive mode: write quarantined raw FASTQ "
+                         "records to this file (.gz ok)")
+    ap.add_argument("--k", type=int, default=12)
+    ap.add_argument("--w", type=int, default=30)
+    ap.add_argument("--eth", type=int, default=6)
+    for flag, (kw, item) in _NOT_PORTED.items():
+        ap.add_argument(flag, **kw, help=f"not ported yet (ROADMAP.md, "
+                                         f"Queue 1 item {item})")
+    return ap
+
+
+def main(argv=None) -> int:
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    args.command_line = " ".join(
+        sys.argv if argv is None else ["repro_torch.launch.map_fastq",
+                                       *argv])
+    _refuse_not_ported(ap, args)
+    if args.reference is None or args.reads is None:
+        raise SystemExit("map_fastq: a FASTA reference and a FASTQ read "
+                         "file (positional) are required")
+    try:
+        return run(args)
+    except BrokenPipeError:
+        # `map_fastq ... -o - | head` closing the pipe is not an error;
+        # detach stdout so interpreter shutdown doesn't re-raise
+        devnull = os.open(os.devnull, os.O_WRONLY)
+        os.dup2(devnull, sys.stdout.fileno())
+        return 141  # 128 + SIGPIPE, the conventional exit status
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

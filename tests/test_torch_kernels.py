@@ -210,3 +210,72 @@ def test_ctypes_signature_matches_source(fn):
                if k == "int"), params
     want = ["ptr" if t is ctypes.c_void_p else "int" for t in argtypes]
     assert kinds == want
+
+
+@pytest.mark.parametrize("R,n,eth,sat", [
+    (17, 24, 6, 32), (32, 40, 4, 16), (21, 30, 8, 32),
+])
+def test_affine_wf_matches_pallas(R, n, eth, sat):
+    """The dirs-emitting wrapper: both distances and every direction byte
+    against the Pallas kernel of ``affine_wf_pallas``."""
+    s1, s2 = _pair_batch(np.random.default_rng(R * 5 + n + eth), R, n, eth)
+    want = jops.affine_wf(jnp.array(s1), jnp.array(s2), eth=eth, sat=sat,
+                          block_r=32)
+    got = tops.affine_wf(_t(s1), _t(s2), eth=eth, sat=sat)
+    assert got[2].dtype == torch.uint8
+    assert tuple(got[2].shape) == (R, n, 2 * eth + 1)
+    _eq([g.numpy() for g in got], want, "affine_wf")
+
+
+@pytest.mark.parametrize("R,L,k,w,block_r", [
+    (8, 150, 12, 30, 8),
+    (33, 100, 12, 30, 64),
+    (16, 80, 8, 16, 16),
+])
+def test_minimizer_scan_matches_pallas(R, L, k, w, block_r):
+    """Hashes and positions against the Pallas kernel of
+    ``minimizer_pallas`` (the shapes of the reference's own sweep)."""
+    seqs = np.random.default_rng(R + L + k).integers(0, 4, (R, L)).astype(
+        np.uint8)
+    mh, mp = jops.minimizer_scan(jnp.array(seqs), k=k, w=w,
+                                 block_r=block_r)
+    got_h, got_p = tops.minimizer_scan(_t(seqs), k=k, w=w)
+    assert got_h.dtype == got_p.dtype == torch.int64
+    assert tuple(got_h.shape) == (R, L - (w + k - 1) + 1)
+    np.testing.assert_array_equal(got_h.numpy(), np.asarray(mh))
+    np.testing.assert_array_equal(got_p.numpy(), np.asarray(mp))
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_affine_wf_dirs_leading_dims(backend):
+    """``wf_backend.affine_wf_dirs`` takes leading batch dims on both
+    backends and gives the reference's planes."""
+    s1, s2 = _pair_batch(np.random.default_rng(9), 12, 20, ETH)
+    de, dm, dirs = twfb.affine_wf_dirs(_t(s1).reshape(3, 4, 20),
+                                       _t(s2).reshape(3, 4, 32), eth=ETH,
+                                       sat=SAT, backend=backend)
+    assert de.shape == dm.shape == (3, 4)
+    assert dirs.shape == (3, 4, 20, 2 * ETH + 1)
+    want = jaff.banded_affine(jnp.array(s1), jnp.array(s2), eth=ETH, sat=SAT)
+    _eq([de.reshape(-1).numpy(), dm.reshape(-1).numpy(),
+         dirs.reshape(12, 20, -1).numpy()], want, "affine_wf_dirs")
+
+
+def test_new_wrappers_reject_bad_input():
+    s1 = torch.zeros((4, 10), dtype=torch.uint8)
+    s2 = torch.zeros((4, 22), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        tops.affine_wf(s1, s2[:, :-1], eth=ETH)
+    with pytest.raises(TypeError):
+        tops.affine_wf(s1.to(torch.int8), s2, eth=ETH)
+    seqs = torch.zeros((4, 50), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="k=17"):
+        tops.minimizer_scan(seqs, k=17, w=4)
+    with pytest.raises(ValueError, match="shorter than one window"):
+        tops.minimizer_scan(seqs, k=12, w=40)
+    with pytest.raises(TypeError):
+        tops.minimizer_scan(seqs.to(torch.int32), k=12, w=30)
+    with pytest.raises(ValueError, match="contiguous"):
+        tops.minimizer_scan(torch.zeros((50, 4), dtype=torch.uint8).t(),
+                            k=12, w=30)
+    assert tops.LAUNCHES["minimizer_scan"] == 0 == tops.LAUNCHES["affine_wf"]

@@ -1,0 +1,173 @@
+"""The port's ``map_fastq`` CLI (run in-process with ``--device cpu``)
+against the reference CLI (run as a subprocess): the same FASTA and FASTQ
+give the same SAM line for line apart from ``@PG``, which records the
+command.  The world is the reference e2e test's: two contigs with an N
+run and 24 reads of 120 bases on both strands, plus a copy of the FASTQ
+with one malformed record for the permissive path."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro.data.genome import (make_reference, sample_reads, write_fasta,
+                               write_fastq)
+from repro_torch.io.fastq import FastqParseError
+from repro_torch.io.sam import validate_sam
+from repro_torch.launch import map_fastq
+
+READ_LEN = 120
+N_READS = 24
+BAD_RECORD = 5
+
+# the reference runs: (name, FASTQ, argv).  The reference's three engines
+# write the same SAM, so each engine is run once, each with one of the
+# other cases: single strand, an odd chunk size, the permissive path.
+REF_RUNS = (
+    ("compacted", "reads.fq", ("--engine", "compacted")),
+    ("fused_single", "reads.fq", ("--engine", "fused", "--single-strand")),
+    ("padded_chunk7", "reads.fq", ("--engine", "padded",
+                                   "--chunk-reads", "7")),
+    ("permissive", "bad.fq", ("--on-error", "permissive", "--rejects",
+                              "ref_rejects.fq")),
+)
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    d = tmp_path_factory.mktemp("torch_map_fastq")
+    c1 = make_reference(5_000, seed=0, repeat_frac=0.02)
+    c2 = make_reference(3_000, seed=5, repeat_frac=0.0)
+    c1[700:704] = 4  # an N run in the reference
+    write_fasta(d / "ref.fa", [("chr1", c1), ("chr2", c2)])
+    rs1 = sample_reads(c1, N_READS // 2, read_len=READ_LEN, seed=3,
+                       both_strands=True)
+    rs2 = sample_reads(c2, N_READS // 2, read_len=READ_LEN, seed=9,
+                       both_strands=True)
+    write_fastq(d / "reads.fq", np.concatenate([rs1.reads, rs2.reads]),
+                np.concatenate([rs1.quals, rs2.quals]),
+                [f"read{i}" for i in range(N_READS)])
+    lines = (d / "reads.fq").read_text().splitlines(True)
+    q = 4 * BAD_RECORD + 3                 # one record's quality line
+    lines[q] = lines[q][:-6] + "\n"        # 5 qualities short
+    (d / "bad.fq").write_text("".join(lines))
+    return d
+
+
+@pytest.fixture(scope="module")
+def ref_sams(world):
+    """The reference CLI's SAM for each of ``REF_RUNS``, the four runs in
+    parallel subprocesses."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = (os.path.join(os.path.dirname(__file__), "..",
+                                      "src") +
+                         os.pathsep + env.get("PYTHONPATH", ""))
+    procs = {}
+    for name, fq, argv in REF_RUNS:
+        cmd = [sys.executable, "-m", "repro.launch.map_fastq",
+               str(world / "ref.fa"), str(world / fq),
+               "-o", str(world / f"ref_{name}.sam"), "--chunk-reads", "16",
+               *argv]
+        procs[name] = subprocess.Popen(cmd, env=env, cwd=str(world),
+                                       stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True)
+    out = {}
+    for name, proc in procs.items():
+        _, err = proc.communicate(timeout=600)
+        assert proc.returncode == 0, err
+        out[name] = (world / f"ref_{name}.sam").read_text()
+    return out
+
+
+def _body(text):
+    return [ln for ln in text.splitlines() if not ln.startswith("@PG")]
+
+
+def _port(world, out_name, *argv, fq="reads.fq", chunk_reads=16):
+    rc = map_fastq.main([str(world / "ref.fa"), str(world / fq),
+                         "-o", str(world / out_name),
+                         "--chunk-reads", str(chunk_reads),
+                         "--device", "cpu", *argv])
+    assert rc == 0
+    return (world / out_name).read_text()
+
+
+@pytest.mark.parametrize("engine", ["compacted", "fused", "padded"])
+def test_same_sam_as_reference(world, ref_sams, engine, capsys):
+    text = _port(world, f"port_{engine}.sam", "--engine", engine)
+    assert _body(text) == _body(ref_sams["compacted"])
+    stats = validate_sam(text, expect_reads=N_READS)
+    assert stats["n_mapped"] == N_READS and stats["n_reverse"] > 0
+    assert "PN:repro_torch.launch.map_fastq" in text
+    err = capsys.readouterr().err
+    assert f"done: {N_READS} reads" in err
+    if engine == "padded":      # no instance accounting on that engine
+        assert "filter/affine" not in err and "plan cache:" in err
+    else:
+        assert "filter/affine [single]" in err and "index storage:" in err
+
+
+@pytest.mark.parametrize("engine", ["fused", "padded"])
+def test_single_strand_same_sam(world, ref_sams, engine):
+    text = _port(world, f"port_single_{engine}.sam", "--engine", engine,
+                 "--single-strand")
+    assert _body(text) == _body(ref_sams["fused_single"])
+    assert validate_sam(text, expect_reads=N_READS)["n_reverse"] == 0
+
+
+@pytest.mark.parametrize("engine", ["compacted", "padded"])
+def test_odd_chunk_same_sam(world, ref_sams, engine):
+    text = _port(world, f"port_chunk7_{engine}.sam", "--engine", engine,
+                 chunk_reads=7)
+    assert _body(text) == _body(ref_sams["padded_chunk7"])
+
+
+def test_permissive_same_sam_and_rejects(world, ref_sams, capsys):
+    text = _port(world, "port_permissive.sam", "--on-error", "permissive",
+                 "--rejects", str(world / "port_rejects.fq"), fq="bad.fq")
+    assert _body(text) == _body(ref_sams["permissive"])
+    assert validate_sam(text, expect_reads=N_READS - 1)
+    assert (world / "port_rejects.fq").read_text() == \
+        (world / "ref_rejects.fq").read_text()
+    assert f"@read{BAD_RECORD}\n" in (world / "port_rejects.fq").read_text()
+    assert "quarantined: 1 malformed record(s)" in capsys.readouterr().err
+
+
+def test_strict_stops_at_the_malformed_record(world):
+    with pytest.raises(FastqParseError, match="qualities"):
+        _port(world, "port_strict.sam", fq="bad.fq")
+    assert not (world / "port_strict.sam").exists()
+    assert (world / "port_strict.sam.partial").exists()
+
+
+def test_stdout_output(world, ref_sams, capsys):
+    rc = map_fastq.main([str(world / "ref.fa"), str(world / "reads.fq"),
+                         "--chunk-reads", "16", "--device", "cpu"])
+    assert rc == 0
+    assert _body(capsys.readouterr().out) == _body(ref_sams["compacted"])
+
+
+@pytest.mark.parametrize("argv,item", [
+    (("--r1", "r1.fq"), 6),
+    (("--interleaved",), 6),
+    (("--index-dir", "idx"), 7),
+    (("--prefetch",), 7),
+    (("--topology", "mesh"), 9),
+    (("--inject", "record=0.1"), 8),
+    (("--trace-out", "t.json"), 8),
+])
+def test_not_ported_flags_exit_naming_their_item(world, argv, item):
+    with pytest.raises(SystemExit) as e:
+        map_fastq.main([str(world / "ref.fa"), str(world / "reads.fq"),
+                        "--device", "cpu", *argv])
+    msg = str(e.value.code)
+    assert "not ported" in msg and f"Queue 1 item {item}" in msg
+
+
+def test_no_device_and_no_gpu_raises(world, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        map_fastq.main([str(world / "ref.fa"), str(world / "reads.fq"),
+                        "-o", str(world / "nodev.sam")])

@@ -113,9 +113,12 @@ def test_session_api(world):
     np.testing.assert_array_equal(a.position, b.position)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         m.map_pairs(reads, reads)
-    with pytest.raises(NotImplementedError):
-        Mapper(tidx, MapperConfig.from_index(tidx, engine="padded"),
-               device="cpu")
+    padded = Mapper(tidx, MapperConfig.from_index(tidx, engine="padded",
+                                                  both_strands=True),
+                    device="cpu")
+    pplan = padded.plan(len(reads))     # one unchunked batch of 2n rows
+    assert pplan.chunk_sizes == (2 * len(reads),)
+    assert pplan.key == ("single", "padded", len(reads))
     with pytest.raises(NotImplementedError):
         Mapper(tidx, topology="mesh", device="cpu")
     with pytest.raises(NotImplementedError, match="from_arrays"):

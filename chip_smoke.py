@@ -45,10 +45,20 @@ Phases, each fatal on failure:
    timed on the first batch's inputs (the compacted engine's first
    chunk; the padded batch for the affine kernel with direction planes),
    and every launch of a run is timed again on its own inputs to give
-   the kernels' device time per run.
+   the kernels' device time per run;
+9. LM serving: the flash-attention kernel against its plain version on
+   generated inputs (the reference kernel test's f32 shapes; SmolLM-135M's
+   and Qwen3-0.6B's head layouts at S=4096 in bf16; a q batch stride of
+   2^31 elements), and planted faults (a kv tile skipped, the wrong KV
+   head, zero rows) shown to fail the bf16 check.  SmolLM-135M at full
+   width from seeded weights: a 32,768-token prefill (one launch a
+   layer), its last-token logits against a prefill on the plain version
+   and against prefills with planted faults, the kernel on layer 0's
+   inputs against its plain version, the library's attention, decode
+   against forward on bf16 and int8 caches, ``greedy_generate``.
 
 Each phase prints its seconds.  The last lines are the kernels JSON line
-(phases 6 and 8, with each kernel's bound computed from its inputs) and
+(phases 6, 8 and 9, with each kernel's bound computed from its inputs) and
 the contract line ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, when no CUDA device is present or anything fails.
 Imports nothing of JAX or of the ``repro`` package.
@@ -58,6 +68,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -119,6 +130,49 @@ ENGINE_KERNELS = {
     "padded": ("linear_wf", "affine_wf"),
 }
 WF_KERNELS = ("linear_wf", "affine_wf_dist", "affine_wf", "affine_traceback")
+
+# LM serving (phase 9)
+LM_ARCH = "smollm-135m"
+LM_BATCH, LM_SEQ = 1, 32_768    # prefill_32k's sequence; batch cut from 32
+DEC_BATCH, DEC_PROMPT, DEC_NEW = 8, 32, 32
+DEC_CHECK_SEQ = 64
+# published dense peaks of the H100 SXM (NVIDIA's data sheet): the bound
+# of attention is its two products at the rate of the inputs' type
+PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+# f32: the reference kernel test's tolerance, against the plain version
+# (the same function as the reference's in f32).  bf16, against the plain
+# version with the kernel's arithmetic (``_flash_plain``): per element
+# FLASH_REL x |plain|, since each side rounds its output to bf16 once, up
+# to 2^-7 of the value apart, plus FLASH_ROW x the RMS of the element's
+# row (its hd outputs): the two sum in a different order and tiling, which
+# moves p's rounding to bf16 by an ulp here and there, a share of the
+# row's size and not of the element's
+FLASH_F32_TOL = 2e-3
+FLASH_REL, FLASH_ROW = 2.0**-7, 2.0**-6
+FLASH_TILE = 64                 # keys a kernel kv tile holds
+# the reference kernel test's four shapes (tests/test_kernels.py), a
+# ragged S (100 rows against the kernel's 64-row tiles) and the two other
+# head dims the kernel is compiled for
+FLASH_SWEEP = [(2, 128, 4, 2, 32, True, 64, 64),
+               (1, 256, 8, 8, 16, True, 64, 128),
+               (2, 128, 6, 2, 32, False, 32, 64),
+               (1, 64, 4, 1, 64, True, 64, 32),
+               (1, 100, 4, 2, 80, True, 100, 100),
+               (1, 100, 4, 2, 128, False, 50, 100)]
+# (H, KV, hd): SmolLM-135M and Qwen3-0.6B, at S=4096 in bf16
+FLASH_LM_HEADS = [(9, 3, 64), (16, 8, 128)]
+FLASH_LM_SEQ = 4096
+# last-token logits, kernel prefill against the plain version's, as a
+# share of the largest |logit|: between the sound reading (2.2%: an ulp's
+# difference in attention grows through 30 bf16 layers) and the subtlest
+# planted fault's (a kv tile skipped, 19.7%) (PERF.md, PR 13)
+LOGITS_TOL = 0.05
+# decode against forward at S=DEC_CHECK_SEQ, as a share of the largest
+# |logit|: the bf16 cache at the reference's decode test's 1e-3; the int8
+# cache rounds each cached k and v row to steps of 1/127 of its largest
+# |element|, which grows through 30 layers as the prefill's ulps do
+DECODE_TOL = 1e-3
+DECODE_INT8_TOL = 0.05
 
 
 def log(msg: str) -> None:
@@ -708,6 +762,414 @@ def phase_mainpath_kernels(runs):
             f"({total / 1e3 / run['wall_s']:.2%})")
     return rows
 
+def _close(name, got, want, tol):
+    """max |got - want| over float32 views; raises unless every element
+    is within tol + tol * |want| and the kernel's output is finite."""
+    import torch
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} != "
+                             f"{tuple(want.shape)} {want.dtype}")
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{name}: the kernel's output is not finite")
+    err = (g - w).abs()
+    if bool((err > tol + tol * w.abs()).any()):
+        raise AssertionError(f"{name}: kernel differs from its plain "
+                             f"version beyond {tol}: max |diff| = "
+                             f"{float(err.max())}")
+    return float(err.max())
+
+
+def _flash_share(got, want):
+    """(max |got - want|, the largest share of its tolerance an element
+    uses): FLASH_REL x |want| + FLASH_ROW x the RMS of want's row (the hd
+    outputs of one query row and head)."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    rms = w.square().mean(-1, keepdim=True).sqrt()
+    tol = (FLASH_REL * w.abs() + FLASH_ROW * rms).clamp_min(1e-30)
+    return float(d.max()), float((d / tol).max())
+
+
+def _flash_close(name, got, want):
+    """A bf16 flash output against its plain version: raises unless it is
+    finite and every element within its tolerance (``_flash_share``).
+    -> (max |diff|, share of the tolerance used)."""
+    import torch
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} != "
+                             f"{tuple(want.shape)} {want.dtype}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: the kernel's output is not finite")
+    err, share = _flash_share(got, want)
+    if share > 1:
+        raise AssertionError(f"{name}: kernel differs from its plain "
+                             f"version: max |diff| {err:.3g}, {share:.3g} x "
+                             f"its tolerance")
+    return err, share
+
+
+def _flash_plain(q, k, v, causal, q_chunk, kv_chunk):
+    """The kernel's plain version: ``_sdpa_chunked`` with its arithmetic
+    (f32 scores, p rounded to v's dtype, f32 P.V sums)."""
+    from repro_torch.core.attention import _sdpa_chunked
+    return _sdpa_chunked(q, k, v, causal, q_chunk, kv_chunk, f32_scores=True)
+
+
+def _plain_masked(q, k, v, keep, chunk=1024):
+    """Attention with the kernel's arithmetic over the (query, key) pairs
+    that ``keep(qpos, kpos)`` allows, one softmax over all keys per chunk
+    of query rows: the body of the planted faults."""
+    import torch
+    from repro_torch.core.attention import NEG
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    kf, vf = k.float(), v.float()
+    kpos = torch.arange(S, device=q.device)[None, :]
+    outs = []
+    for i in range(0, S, chunk):
+        qb = q[:, i : i + chunk].float() * (1.0 / math.sqrt(hd))
+        n = qb.shape[1]
+        s = torch.einsum("bqgrd,bkgd->bgrqk",
+                         qb.reshape(B, n, KV, H // KV, hd), kf)
+        qpos = torch.arange(i, i + n, device=q.device)[:, None]
+        s = s.masked_fill(~keep(qpos, kpos), NEG)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        o = torch.einsum("bgrqk,bkgd->bqgrd", p.to(v.dtype).float(), vf)
+        o = o / p.sum(-1).permute(0, 3, 1, 2).clamp_min(1e-30)[..., None]
+        outs.append(o.to(q.dtype).reshape(B, n, H, hd))
+    return torch.cat(outs, dim=1)
+
+
+def _fault_tile(q, k, v, causal, q_chunk, kv_chunk):
+    """A kv tile (FLASH_TILE keys) skipped: causal, each row past the
+    first tile misses its diagonal tile; bidirectional, every row misses
+    the last tile."""
+    S = q.shape[1]
+    if causal:
+        def keep(qp, kp):
+            return (kp <= qp) & ((kp < qp // FLASH_TILE * FLASH_TILE)
+                                 | (qp < FLASH_TILE))
+    else:
+        def keep(qp, kp):
+            return kp < S - FLASH_TILE
+    return _plain_masked(q, k, v, keep)
+
+
+def _fault_head(q, k, v, causal, q_chunk, kv_chunk):
+    """Query head h reads KV head h // rep + 1 (mod KV)."""
+    def keep(qp, kp):
+        return (kp <= qp) if causal else (kp >= 0)
+    return _plain_masked(q, k.roll(1, 2), v.roll(1, 2), keep)
+
+
+def _fault_rows(q, k, v, causal, q_chunk, kv_chunk):
+    """The rows past S/2 left zero."""
+    out = _flash_plain(q, k, v, causal, q_chunk, kv_chunk)
+    out[:, q.shape[1] // 2 :] = 0
+    return out
+
+
+# planted kernel faults, built from plain versions: each must fail the
+# bf16 check on the generated S=4096 inputs and on layer 0 of the
+# prefill; the first two also the prefill's logits check
+FLASH_FAULTS = {"a kv tile skipped": _fault_tile,
+                "the wrong KV head read": _fault_head,
+                "rows past S/2 left zero": _fault_rows}
+LOGITS_FAULTS = ("a kv tile skipped", "the wrong KV head read")
+
+
+def _check_faults(what, q, k, v, causal, qc, kc, want):
+    """Each planted fault's share of the bf16 tolerance on these inputs;
+    raises if one passes."""
+    shares = {}
+    for name, fault in FLASH_FAULTS.items():
+        shares[name] = _flash_share(fault(q, k, v, causal, qc, kc), want)[1]
+    log(f"planted faults, {what}: " + ", ".join(
+        f"{name} {s:.3g} x the tolerance" for name, s in shares.items()))
+    passed = [name for name, s in shares.items() if s <= 1]
+    if passed:
+        raise AssertionError(f"{what}: planted faults pass the bf16 check: "
+                             f"{passed}")
+
+
+def _qkv_inputs(rng, B, S, H, KV, hd, dtype):
+    import torch
+    return [torch.from_numpy(rng.standard_normal((B, S, n, hd)).astype(
+        np.float32)).cuda().to(dtype) for n in (H, KV, KV)]
+
+
+def attention_flops(B, S, H, hd, causal):
+    """Multiply-adds x 2 of Q.K^T and P.V over the (query, key) pairs the
+    mask keeps: S(S+1)/2 per head when causal, S^2 when not."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return 2 * 2 * B * H * pairs * hd
+
+
+def flash_bound(q, k, causal):
+    """(bound_ms, bound_by): the two products at the inputs' type's peak
+    against q, k, v read and o written once over the HBM rate."""
+    B, S, H, hd = q.shape
+    t_ops = attention_flops(B, S, H, hd, causal) / PEAK_FLOPS[
+        str(q.dtype)] * 1e3
+    n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def phase_flash_parity():
+    """The flash-attention kernel against its plain version on generated
+    inputs, and the planted faults against the bf16 check."""
+    import torch
+    from repro_torch.core.attention import _sdpa_chunked
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(5)
+    for B, S, H, KV, hd, causal, qc, kc in FLASH_SWEEP:
+        q, k, v = _qkv_inputs(rng, B, S, H, KV, hd, torch.float32)
+        got = ops.flash_attention(q, k, v, causal=causal, q_chunk=qc,
+                                  kv_chunk=kc)
+        torch.cuda.synchronize()
+        what = (f"flash_attention B={B} S={S} H={H} KV={KV} hd={hd} "
+                f"causal={causal} float32")
+        err = _close(what, got, _flash_plain(q, k, v, causal, qc, kc),
+                     FLASH_F32_TOL)
+        log(f"parity {what}: max |diff| {err:.3g} (tolerance "
+            f"{FLASH_F32_TOL} + {FLASH_F32_TOL} x |plain|)")
+    S = FLASH_LM_SEQ
+    for H, KV, hd in FLASH_LM_HEADS:
+        for causal in (True, False):
+            q, k, v = _qkv_inputs(rng, 1, S, H, KV, hd, torch.bfloat16)
+            got = ops.flash_attention(q, k, v, causal=causal, q_chunk=1024,
+                                      kv_chunk=1024)
+            torch.cuda.synchronize()
+            what = (f"flash_attention B=1 S={S} H={H} KV={KV} hd={hd} "
+                    f"causal={causal} bfloat16")
+            want = _flash_plain(q, k, v, causal, 1024, 1024)
+            err, share = _flash_close(what, got, want)
+            ref_share = _flash_share(_sdpa_chunked(
+                q, k, v, causal, 1024, 1024), want)[1]
+            log(f"parity {what}: max |diff| {err:.3g}, {share:.3g} x the "
+                f"tolerance (the reference's bf16 products: "
+                f"{ref_share:.3g} x)")
+            _check_faults(what, q, k, v, causal, 1024, 1024, want)
+    ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=False), 5, 1)
+    b_ms, b_by = flash_bound(q, k, False)
+    log(f"timing flash_attention (generated, last case): {ms:.4f} ms/call, "
+        f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound")
+    # 64-bit offsets, strided q: batch row 1 of q starts 2^31 elements
+    # into a 4.3 GB buffer
+    B, S, H, KV, hd = 2, 256, 4, 2, 64
+    buf = torch.empty(2**31 + S * H * hd, dtype=torch.bfloat16,
+                      device="cuda")
+    q = buf.as_strided((B, S, H, hd), (2**31, H * hd, hd, 1))
+    src, k, v = _qkv_inputs(rng, B, S, H, KV, hd, torch.bfloat16)
+    q.copy_(src)
+    got = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err, share = _flash_close("flash_attention, q past 2^31 elements", got,
+                              _flash_plain(q, k, v, True, 512, 512))
+    log(f"parity flash_attention with q's batch stride 2^31 elements: max "
+        f"|diff| {err:.3g}, {share:.3g} x the tolerance")
+    del buf, q
+
+
+class FlashInputs:
+    """Runs ``fn`` (the signature of the kernel's plain version, which
+    counts no launch) in place of ``ops.flash_attention`` inside it, and
+    keeps a copy of the first call's q, k, v."""
+
+    def __init__(self, fn):
+        self.fn, self.first = fn, None
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self._saved = ops.flash_attention
+
+        def wrapped(q, k, v, *, causal=True, q_chunk=512, kv_chunk=512):
+            if self.first is None:
+                self.first = (q.clone(), k.clone(), v.clone(), causal,
+                              q_chunk, kv_chunk)
+            return self.fn(q, k, v, causal, q_chunk, kv_chunk)
+        ops.flash_attention = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.flash_attention = self._saved
+
+
+def _logits_diff(what, got, want):
+    """-> (max |diff| / max |want|, same argmax on every row); raises if
+    ``got`` is not finite."""
+    import torch
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{what}: logits not finite")
+    return (float((g - w).abs().max() / w.abs().max()),
+            bool((g.argmax(-1) == w.argmax(-1)).all()))
+
+
+def _logits_close(what, got, want, tol):
+    rel, same = _logits_diff(what, got, want)
+    log(f"{what}: max |diff| / max |logit| = {rel:.4g} (tolerance {tol}), "
+        f"same argmax: {same}")
+    if rel > tol or not same:
+        raise AssertionError(f"{what}: beyond its tolerance")
+    return rel
+
+
+def phase_lm():
+    """SmolLM-135M serving at full width: prefill through the flash kernel,
+    decode, generation.  -> the flash kernel's JSON row."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm, transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = transformer.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"LM: {cfg.arch} at full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}): "
+        f"{n_params:,} parameters drawn on the card from seed 0 in "
+        f"{time.perf_counter() - t0:.2f} s; TF32 off for matmuls and cuDNN")
+    rng = np.random.default_rng(13)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        LM_BATCH, LM_SEQ))).cuda()
+    prefill = lm.make_prefill_step(cfg)
+    prefill(params, {"tokens": toks[:, :FLASH_LM_SEQ]})    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()     # weights, earlier phases
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = ops.LAUNCHES["flash_attention"]
+    if launches != cfg.n_layers:
+        raise AssertionError(f"prefill launched flash_attention {launches} "
+                             f"times, not once per layer ({cfg.n_layers})")
+    if tuple(logits.shape) != (LM_BATCH, cfg.vocab_size):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)}")
+    log(f"prefill: B={LM_BATCH} S={LM_SEQ:,} in {dt:.3f} s = "
+        f"{LM_BATCH * LM_SEQ / dt:,.0f} tokens/s; flash_attention launches "
+        f"{launches}; peak device memory "
+        f"{(torch.cuda.max_memory_allocated() - held) / 1e9:.3f} GB above "
+        f"the {held / 1e9:.3f} GB held before it")
+
+    # the same prefill on the plain version (keeping layer 0's inputs) and
+    # with each planted fault: readings first, then the checks
+    with FlashInputs(_flash_plain) as kept:
+        t0 = time.perf_counter()
+        plain_logits = prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        plain_dt = time.perf_counter() - t0
+    rel, same = _logits_diff("prefill logits", logits, plain_logits)
+    log(f"prefill on the plain version: {plain_dt:.3f} s; last-token logits "
+        f"against the kernel prefill's: max |diff| / max |logit| = "
+        f"{rel:.4g} (tolerance {LOGITS_TOL}), same argmax: {same}")
+    fault_rel = {}
+    for name in LOGITS_FAULTS:
+        t0 = time.perf_counter()
+        with FlashInputs(FLASH_FAULTS[name]):
+            fault_rel[name] = _logits_diff(name, prefill(
+                params, {"tokens": toks}), plain_logits)[0]
+        dt_f = time.perf_counter() - t0
+        log(f"prefill with {name} in every layer ({dt_f:.3f} s): last-token "
+            f"logits max |diff| / max |logit| = {fault_rel[name]:.4g}")
+    if rel > LOGITS_TOL or not same:
+        raise AssertionError("prefill logits, kernel against plain: beyond "
+                             "the tolerance")
+    passed = [n for n, r in fault_rel.items() if r <= LOGITS_TOL]
+    if passed:
+        raise AssertionError(f"planted faults pass the logits check: "
+                             f"{passed}")
+
+    q, k, v, causal, qc, kc = kept.first
+    got = ops.flash_attention(q, k, v, causal=causal, q_chunk=qc,
+                              kv_chunk=kc)
+    torch.cuda.synchronize()
+    want = _flash_plain(q, k, v, causal, qc, kc)
+    err, share = _flash_close("flash_attention on layer 0 of the prefill",
+                              got, want)
+    _check_faults("layer 0 of the prefill", q, k, v, causal, qc, kc, want)
+    ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
+                                             q_chunk=qc, kv_chunk=kc), 5, 1)
+    plain_ms = cuda_ms(lambda: _flash_plain(q, k, v, causal, qc, kc), 1, 1)
+    bidir_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=False),
+                       2, 1)
+    qT, kT, vT = (t.transpose(1, 2) for t in (q, k, v))
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        lib = F.scaled_dot_product_attention(qT, kT, vT, is_causal=causal,
+                                             enable_gqa=True)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qT, kT, vT, is_causal=causal, enable_gqa=True), 5, 1)
+    lib_err = float((lib.transpose(1, 2).float() - got.float()).abs().max())
+    b_ms, b_by = flash_bound(q, k, causal)
+    log(f"flash_attention, layer 0 of the prefill: q {tuple(q.shape)} "
+        f"{q.dtype}: max |diff| against the plain version {err:.3g}, "
+        f"{share:.3g} x the tolerance; {ms:.3f} ms/call "
+        f"({attention_flops(*q.shape, causal) / ms / 1e9:.2f}"
+        f" TFLOP/s), plain {plain_ms:.3f} ms, scaled_dot_product_attention "
+        f"(flash backend) {lib_ms:.3f} ms (max |diff| to the kernel "
+        f"{lib_err:.3g}), bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.2%} of "
+        f"bound; the same tensors bidirectional {bidir_ms:.3f} ms "
+        f"({attention_flops(*q.shape, False) / bidir_ms / 1e9:.2f} "
+        f"TFLOP/s)")
+
+    # decode against forward, step by step over DEC_CHECK_SEQ tokens
+    serve = lm.make_serve_step(cfg)
+    short = toks[:1, :DEC_CHECK_SEQ]
+    full, _ = transformer.forward(params, {"tokens": short}, cfg)
+    for kv_quant, tol in ((False, DECODE_TOL), (True, DECODE_INT8_TOL)):
+        cache = transformer.init_cache(cfg, 1, DEC_CHECK_SEQ,
+                                       kv_quant=kv_quant)
+        for t in range(DEC_CHECK_SEQ):
+            lg, cache = serve(params, cache, short[:, t : t + 1], t)
+        _logits_close(f"decode on the {'int8' if kv_quant else 'bf16'} "
+                      f"cache against forward at S={DEC_CHECK_SEQ}", lg,
+                      full[:, -1], tol)
+
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        DEC_BATCH, DEC_PROMPT))).cuda()
+    for kv_quant in (False, True):
+        lm.greedy_generate(params, cfg, prompt[:, :4], 2, kv_quant=kv_quant)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = lm.greedy_generate(params, cfg, prompt, DEC_NEW,
+                                 kv_quant=kv_quant)
+        torch.cuda.synchronize()
+        dt_g = time.perf_counter() - t0
+        if tuple(out.shape) != (DEC_BATCH, DEC_PROMPT + DEC_NEW) or not bool(
+                (out[:, :DEC_PROMPT] == prompt).all()) or not bool(
+                ((out >= 0) & (out < cfg.vocab_size)).all()):
+            raise AssertionError(f"greedy_generate kv_quant={kv_quant}: "
+                                 f"bad tokens {tuple(out.shape)}")
+        steps = DEC_PROMPT + DEC_NEW - 1
+        log(f"greedy_generate {'int8' if kv_quant else 'bf16'} cache: "
+            f"B={DEC_BATCH}, {DEC_PROMPT} + {DEC_NEW} tokens in {dt_g:.3f} s"
+            f" = {DEC_BATCH * DEC_NEW / dt_g:,.1f} new tokens/s, "
+            f"{steps / dt_g:.1f} decode steps/s "
+            f"({DEC_BATCH * steps / dt_g:,.1f} tokens/s through the decode "
+            f"step)")
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:84",
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                shape=list(q.shape), dtype=str(q.dtype)[6:],
+                prefill_tokens_per_s=LM_BATCH * LM_SEQ / dt)
+
 
 def main() -> int:
     import torch
@@ -738,6 +1200,9 @@ def main() -> int:
     rows = phase_mainpath_kernels(runs)
     rows["minimizer_scan"] = mini_row
     phase_done("8 main-path kernels")
+    phase_flash_parity()
+    rows["flash_attention"] = phase_lm()
+    phase_done("9 LM serving")
     log(f"total {time.perf_counter() - t_all:.2f} s")
     log(smi)
     print(json.dumps({"kernels": list(rows.values())}))

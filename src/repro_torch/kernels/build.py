@@ -23,11 +23,13 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_ROOT = Path(__file__).parent / "_build"
 # library name -> source file
 SOURCES = {"linear_wf": "linear_wf.cu", "affine_wf": "affine_wf.cu",
-           "traceback": "traceback.cu", "minimizer": "minimizer.cu"}
+           "traceback": "traceback.cu", "minimizer": "minimizer.cu",
+           "flash_attention": "flash_attention.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_int64
 # C entry point -> (library, argtypes); every entry returns a cudaError_t
 ENTRIES = {
     "linear_wf_launch": ("linear_wf", [_P, _P, _P] + [_I] * 5 + [_P]),
@@ -36,6 +38,8 @@ ENTRIES = {
     "affine_traceback_launch": ("traceback",
                                 [_P] * 5 + [_I] * 7 + [_P]),
     "minimizer_launch": ("minimizer", [_P] * 3 + [_I] * 7 + [_P]),
+    "flash_attention_launch": ("flash_attention",
+                               [_P] * 4 + [_I] * 7 + [_F] + [_L] * 9 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -1,15 +1,15 @@
 """Wrappers of the Hopper kernels, with their launch counters.
 
 Each WF wrapper takes the natural row layout — reads ``s1`` (R, n) and
-windows ``s2_window`` (R, n + 2*eth), both uint8 and contiguous — and
-``minimizer_scan`` sequences (R, L) uint8.  Each checks its input, and
-then:
+windows ``s2_window`` (R, n + 2*eth), both uint8 and contiguous —,
+``minimizer_scan`` sequences (R, L) uint8, and ``flash_attention`` the
+LM layers' (B, S, H, hd) layout.  Each checks its input, and then:
 
   * on CUDA tensors launches its kernel on the tensor's device and that
     device's current stream (building the library at first use), and
     adds one to its entry of ``LAUNCHES``; a refused launch raises;
-  * on CPU tensors runs the kernel's plain torch version from
-    ``repro_torch.core`` — the only case where the plain version stands
+  * on CPU tensors runs the kernel's plain torch version (from
+    ``repro_torch.core``) — the only case where the plain version stands
     in, and it does so because of where the tensor lies.
 
 The counters count launches and nothing else, so a run can show that
@@ -17,15 +17,19 @@ its main path went through the kernels.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..core.affine_wf import banded_affine, banded_affine_dist, traceback
+from ..core.attention import _sdpa_chunked
 from ..core.linear_wf import banded_wf
 from ..core.minimizers import minimizers
 from . import build
 
 LAUNCHES = {"linear_wf": 0, "affine_wf_dist": 0, "affine_wf": 0,
-            "affine_traceback": 0, "minimizer_scan": 0}
+            "affine_traceback": 0, "minimizer_scan": 0,
+            "flash_attention": 0}
 SUPPORTED_ETH = (4, 6, 8)   # template instances compiled into csrc/
 MAX_SAT = 85                # above it the reference's int8 values wrap
 SMEM_LIMIT = 232_448        # dynamic shared memory a Hopper block may use
@@ -33,6 +37,8 @@ THREADS = 128               # linear / affine block size
 SMEM_DEFAULT = 48 * 1024    # shared memory a block gets without opting in
 MINI_THREADS = 256          # minimizer block size
 MINI_WINDOWS = 1024         # windows a minimizer block aims to cover
+FLASH_HEAD_DIMS = (16, 32, 64, 80, 128)  # head_dim instances compiled
+FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launch_counts() -> None:
@@ -238,3 +244,69 @@ def affine_traceback(s1: torch.Tensor, s2_window: torch.Tensor, *,
         _raise_on(rc, "affine_traceback")
         LAUNCHES["affine_traceback"] += 1
     return dists[0], dists[1], ops_, cnt
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_chunk: int = 512,
+                    kv_chunk: int = 512):
+    """Causal or bidirectional attention with GQA, in the layers layout:
+    q (B, S, H, hd); k, v (B, S, KV, hd) -> (B, S, H, hd) in q's dtype.
+    Query head h reads KV head h // (H // KV).
+
+    ``q_chunk``/``kv_chunk`` are the reference's blocking: they are
+    checked as it asserts them (S divisible by min(chunk, S)) and set the
+    plain version's chunks; the kernel picks its own tiles.  The kernel
+    computes ``_sdpa_chunked(..., f32_scores=True)``; on CPU tensors the
+    wrapper runs ``_sdpa_chunked`` with the reference model's products in
+    the inputs' dtype, the same function for float32 inputs.  Takes
+    float32 and bfloat16; the kernel has head_dim instances
+    ``FLASH_HEAD_DIMS``.  Strided inputs are read in place as long as
+    head_dim is contiguous."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k, v must be 4-D (B, S, heads, hd), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype not in FLASH_DTYPES:
+            raise TypeError(f"{name} must be float32 or bfloat16, got "
+                            f"{t.dtype}")
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    if k.shape != v.shape or (k.shape[0], k.shape[1], k.shape[3]) != (
+            B, S, hd):
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must "
+                         f"both be (B, S, KV, hd) = ({B}, {S}, KV, {hd})")
+    if KV == 0 or H % KV:
+        raise ValueError(f"{H} query heads are not a multiple of {KV} KV "
+                         f"heads")
+    for name, c in (("q_chunk", q_chunk), ("kv_chunk", kv_chunk)):
+        if c < 1 or S % min(c, S):
+            raise ValueError(f"S={S} is not divisible by {name}={c}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q on {q.device}, k on {k.device}, v on "
+                         f"{v.device}")
+    if not _is_cuda(q):
+        return _sdpa_chunked(q, k, v, causal, q_chunk=q_chunk,
+                             kv_chunk=kv_chunk)
+    if hd not in FLASH_HEAD_DIMS:
+        raise ValueError(f"head_dim={hd} has no compiled kernel instance; "
+                         f"supported: {FLASH_HEAD_DIMS}")
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("head_dim must be the contiguous axis of q, k, v")
+    if k.stride() != v.stride():
+        raise ValueError(f"k and v strides differ: {k.stride()}, "
+                         f"{v.stride()}")
+    out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    if out.numel():
+        with torch.cuda.device(q.device):
+            rc = build.entry("flash_attention_launch")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, S, H, KV, hd, FLASH_DTYPES[q.dtype], int(causal),
+                1.0 / math.sqrt(hd), *q.stride()[:3], *k.stride()[:3],
+                *out.stride()[:3], _stream(q))
+        _raise_on(rc, "flash_attention")
+        LAUNCHES["flash_attention"] += 1
+    return out

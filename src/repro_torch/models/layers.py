@@ -1,0 +1,248 @@
+"""Transformer building blocks on torch tensors: the dense subset of the
+reference's ``models/layers.py``, name for name.
+
+Conventions, as in the reference:
+  * params are plain dicts of tensors; fp32 storage, bf16 compute;
+  * attention supports GQA, RoPE (with a position offset for decode),
+    optional qk-norm (Qwen3), causal/bidirectional, and a KV-cache decode
+    path (bf16 or int8 cache).
+
+The reference's ``Shardings`` argument is dropped: without a mesh it does
+nothing.  Long-sequence attention (S > ``ATTN_CHUNK_THRESHOLD``) runs
+``kernels.ops.flash_attention``: on CUDA tensors the Hopper kernel, on CPU
+tensors ``_sdpa_chunked`` (``core.attention``, re-exported here), which is
+the kernel's plain version and computes what the reference computes there.
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+
+from ..core.attention import NEG, _sdpa_chunked  # noqa: F401
+from ..kernels import ops
+
+
+def compute_dtype(x):
+    return x.to(torch.bfloat16)
+
+
+def _mm(x, w):
+    """x @ w for bf16 operands, accumulated in f32 and rounded once, as XLA
+    and cuBLAS compute it.  torch's CPU bf16 matmul rounds elsewhere, so
+    on the CPU the product is taken in f32 and rounded."""
+    if x.is_cuda:
+        return x @ w
+    return (x.float() @ w.float()).to(torch.promote_types(x.dtype, w.dtype))
+
+
+def _silu(x):
+    """x * sigmoid(x) op by op in x's dtype, as the reference's
+    ``jax.nn.silu`` rounds it (``F.silu`` rounds once)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+# ----------------------------------------------------------------- norms
+def rms_norm(x, scale, eps: float = 1e-6):
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+def layer_norm(x, scale=None, bias=None, eps: float = 1e-5):
+    """LayerNorm; scale/bias may be None (OLMo's non-parametric LN)."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    if scale is not None:
+        y = y * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+def apply_norm(x, p, kind: str):
+    if kind == "rms":
+        return rms_norm(x, p["scale"])
+    if kind == "ln":
+        return layer_norm(x, p.get("scale"), p.get("bias"))
+    if kind == "ln_nonparam":
+        return layer_norm(x, None, None)
+    raise ValueError(kind)
+
+
+def init_norm(generator, d, kind: str, device=None):
+    if kind == "ln_nonparam":
+        return {}
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+
+
+# ----------------------------------------------------------------- rope
+def rope_freqs(head_dim: int, theta: float = 10000.0, device=None):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x (..., S, H, hd); positions (..., S) int32."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)          # (hd/2,)
+    ang = positions[..., None].float() * freqs       # (..., S, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    xf1, xf2 = x[..., : hd // 2].float(), x[..., hd // 2 :].float()
+    return torch.cat([xf1 * cos - xf2 * sin,
+                      xf2 * cos + xf1 * sin], dim=-1).to(x.dtype)
+
+
+# ----------------------------------------------------------------- attention
+def _normal(generator, shape, device):
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=device)
+
+
+def init_attention(generator, cfg, device=None):
+    d, hd = cfg.d_model, cfg.head_dim
+    nh, nkv = cfg.n_heads, cfg.n_kv_heads
+    s = 1.0 / math.sqrt(d)
+    p = {
+        "wq": _normal(generator, (d, nh * hd), device) * s,
+        "wk": _normal(generator, (d, nkv * hd), device) * s,
+        "wv": _normal(generator, (d, nkv * hd), device) * s,
+        "wo": _normal(generator, (nh * hd, d), device) * s,
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=torch.float32, device=device)
+        p["k_norm"] = torch.ones((hd,), dtype=torch.float32, device=device)
+    return p
+
+
+def _qkv(x, p, cfg, positions):
+    B, S, _ = x.shape
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _mm(x, compute_dtype(p["wq"])).reshape(B, S, nh, hd)
+    k = _mm(x, compute_dtype(p["wk"])).reshape(B, S, nkv, hd)
+    v = _mm(x, compute_dtype(p["wv"])).reshape(B, S, nkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _sdpa(q, k, v, causal: bool, q_offset=None):
+    """q (B,Sq,H,hd), k/v (B,Sk,KV,hd) -> (B,Sq,H,hd).
+
+    GQA via grouped einsum — the KV tensors are never replicated across the
+    query-head group."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    rep = H // KV
+    qg = q.reshape(B, Sq, KV, rep, hd)
+    scale = 1.0 / math.sqrt(hd)
+    logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, k).float()
+    logits = logits * scale
+    if causal:
+        qi = torch.arange(Sq, device=q.device)[:, None] + (
+            0 if q_offset is None else q_offset)
+        ki = torch.arange(k.shape[1], device=q.device)[None, :]
+        logits = logits.masked_fill(~(qi >= ki), NEG)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", w, v)
+    return out.reshape(B, Sq, H, hd)
+
+
+ATTN_CHUNK_THRESHOLD = 2048
+
+
+def attention(x, p, cfg, positions=None, causal=True):
+    """Full (training / prefill) attention. x (B, S, D)."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
+    q, k, v = _qkv(x, p, cfg, positions)
+    if S > ATTN_CHUNK_THRESHOLD:
+        o = ops.flash_attention(q, k, v, causal=causal, q_chunk=1024,
+                                kv_chunk=1024)
+    else:
+        o = _sdpa(q, k, v, causal)
+    o = o.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    return _mm(o, compute_dtype(p["wo"]))
+
+
+def _quant(x):
+    """Per-(token, kv-head) symmetric int8 quantization -> (int8, f32
+    scale (..., 1))."""
+    s = x.float().abs().amax(-1, keepdim=True) / 127.0 + 1e-12
+    return torch.round(x.float() / s).to(torch.int8), s
+
+
+def decode_attention(x, p, cfg, cache, pos: int, *,
+                     seq_shard_axes: Sequence[str] = ()):
+    """One-token decode with KV cache.
+
+    x (B, 1, D); cache dict {k, v: (B, S_max, KV, hd)} (bf16), or int8
+    k/v with f32 ``k_scale``/``v_scale`` (B, S_max, KV, 1).  Row ``pos``
+    of the cache is written in place (the reference returns an updated
+    copy); the returned cache holds the same tensors.
+    """
+    if seq_shard_axes:
+        raise NotImplementedError(
+            "sequence-sharded KV cache (distributed flash-decode) needs the "
+            "mesh: ROADMAP Queue 1 item 9")
+    B = x.shape[0]
+    pos = int(pos)
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _qkv(x, p, cfg, positions)
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if cache["k"].dtype == torch.int8:
+        # int8 KV cache: dequantization is folded into the attention
+        # einsums — the cache is never materialized in bf16 whole
+        rep = H // KV
+        k_q, k_s = _quant(k_new)
+        v_q, v_s = _quant(v_new)
+        cache["k"][:, pos] = k_q[:, 0]
+        cache["v"][:, pos] = v_q[:, 0]
+        cache["k_scale"][:, pos] = k_s[:, 0]
+        cache["v_scale"][:, pos] = v_s[:, 0]
+        qg = q.reshape(B, 1, KV, rep, hd)
+        logits = torch.einsum("bqgrd,bkgd->bgrqk", qg,
+                              cache["k"].to(torch.bfloat16)).float()
+        # fold in the per-(token, head) scale: (B,S,KV,1)->(B,KV,1,1,S)
+        ksT = cache["k_scale"].permute(0, 2, 3, 1)[:, :, :, None, :]
+        logits = logits * ksT / math.sqrt(hd)
+        kidx = torch.arange(cache["k"].shape[1], device=x.device)
+        logits = logits.masked_fill(kidx > pos, NEG)
+        w = torch.softmax(logits, dim=-1)
+        vsT = cache["v_scale"].permute(0, 2, 3, 1)[:, :, :, None, :]
+        o = torch.einsum("bgrqk,bkgd->bqgrd", (w * vsT).to(torch.bfloat16),
+                         cache["v"].to(torch.bfloat16))
+        o = o.reshape(B, 1, H, hd).to(x.dtype)
+    else:
+        cache["k"][:, pos] = k_new[:, 0]
+        cache["v"][:, pos] = v_new[:, 0]
+        o = _sdpa(q, cache["k"], cache["v"], causal=True, q_offset=pos)
+    o = o.reshape(B, 1, H * hd)
+    return _mm(o, compute_dtype(p["wo"])), cache
+
+
+# ----------------------------------------------------------------- mlp
+def init_mlp(generator, cfg, device=None):
+    d, f = cfg.d_model, cfg.d_ff
+    s = 1.0 / math.sqrt(d)
+    return {
+        "wi": _normal(generator, (d, f), device) * s,
+        "wg": _normal(generator, (d, f), device) * s,
+        "wo": _normal(generator, (f, d), device) / math.sqrt(f),
+    }
+
+
+def mlp(x, p):
+    h = _silu(_mm(x, compute_dtype(p["wg"]))) * _mm(x, compute_dtype(p["wi"]))
+    return _mm(h, compute_dtype(p["wo"]))

@@ -31,6 +31,13 @@ print("LOADED", bad)
      "repro_torch.io.cigar", "repro_torch.io.fasta", "repro_torch.io.fastq",
      "repro_torch.io.sam", "repro_torch.data.genome",
      "repro_torch.launch.map_fastq"),
+    ("repro_torch.configs", "repro_torch.configs.dartpim",
+     "repro_torch.models", "repro_torch.models.layers",
+     "repro_torch.models.transformer", "repro_torch.models.lm",
+     "repro_torch.models.convert", "repro_torch.kernels.ops"),
+    # the flash wrapper's plain version, first in a fresh process
+    ("repro_torch.core.attention", "repro_torch.kernels.ops",
+     "repro_torch.models.layers"),
     ("chip_smoke",),
 ])
 def test_imports_without_jax_or_repro(modules):

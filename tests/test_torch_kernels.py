@@ -198,18 +198,17 @@ def test_wrappers_reject_bad_input():
 def test_ctypes_signature_matches_source(fn):
     """The ctypes argument list of each C entry point matches its
     ``extern "C"`` declaration in ``csrc/``: pointers where the source
-    takes pointers, ints where it takes ints.  A mismatch would only show
-    as a bad launch on the card."""
+    takes pointers, and ints, 64-bit ints and floats where it takes them.
+    A mismatch would only show as a bad launch on the card."""
     lib, argtypes = tbuild.ENTRIES[fn]
     src = (tbuild.CSRC / tbuild.SOURCES[lib]).read_text()
     m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", src)
     assert m, f"{fn} not declared in {tbuild.SOURCES[lib]}"
     params = [p.strip() for p in m.group(1).split(",")]
-    kinds = ["ptr" if "*" in p else "int" for p in params]
-    assert all(p.startswith("int ") for p, k in zip(params, kinds)
-               if k == "int"), params
-    want = ["ptr" if t is ctypes.c_void_p else "int" for t in argtypes]
-    assert kinds == want
+    kinds = ["ptr" if "*" in p else p.split()[0] for p in params]
+    names = {ctypes.c_void_p: "ptr", ctypes.c_int: "int",
+             ctypes.c_int64: "int64_t", ctypes.c_float: "float"}
+    assert kinds == [names[t] for t in argtypes], params
 
 
 @pytest.mark.parametrize("R,n,eth,sat", [

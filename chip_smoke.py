@@ -46,16 +46,23 @@ Phases, each fatal on failure:
    chunk; the padded batch for the affine kernel with direction planes),
    and every launch of a run is timed again on its own inputs to give
    the kernels' device time per run;
-9. LM serving: the flash-attention kernel against its plain version on
-   generated inputs (the reference kernel test's f32 shapes; SmolLM-135M's
-   and Qwen3-0.6B's head layouts at S=4096 in bf16; a q batch stride of
-   2^31 elements), and planted faults (a kv tile skipped, the wrong KV
-   head, zero rows) shown to fail the bf16 check.  SmolLM-135M at full
-   width from seeded weights: a 32,768-token prefill (one launch a
-   layer), its last-token logits against a prefill on the plain version
-   and against prefills with planted faults, the kernel on layer 0's
-   inputs against its plain version, the library's attention, decode
-   against forward on bf16 and int8 caches, ``greedy_generate``.
+9. LM serving: the two flash-attention kernels against their plain
+   version on generated inputs: the tensor-core kernel (bf16, hd 64 and
+   128) on a sweep of ragged S, batch 2, KV = H and KV < H, causal and
+   bidirectional, on SmolLM-135M's and Qwen3-0.6B's head layouts at
+   S=4096, with a q batch stride of 2^31 elements, on 72 small shapes at
+   the edges of its tiles and with k and v strided (a misaligned q must
+   be refused); the CUDA-core body on the reference kernel test's f32
+   shapes and on one bf16 hd=80 case.
+   Planted faults (a kv tile skipped, the wrong KV head, zero rows) are
+   shown to fail the bf16 check on every bf16 case.  SmolLM-135M at full
+   width from seeded weights: a 32,768-token prefill (one tensor-core
+   launch a layer), a ``torch.profiler`` trace of one more (the ten
+   largest device ops), its last-token logits against a prefill on the
+   plain version and against prefills with planted faults, the kernel on
+   layer 0's inputs against its plain version, the CUDA-core body and the
+   library's attention on the same inputs, decode against forward on bf16
+   and int8 caches, ``greedy_generate``.
 
 Each phase prints its seconds.  The last lines are the kernels JSON line
 (phases 6, 8 and 9, with each kernel's bound computed from its inputs) and
@@ -149,19 +156,41 @@ PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 # row's size and not of the element's
 FLASH_F32_TOL = 2e-3
 FLASH_REL, FLASH_ROW = 2.0**-7, 2.0**-6
-FLASH_TILE = 64                 # keys a kernel kv tile holds
-# the reference kernel test's four shapes (tests/test_kernels.py), a
-# ragged S (100 rows against the kernel's 64-row tiles) and the two other
-# head dims the kernel is compiled for
+# keys a kv tile of each kernel holds (ops.flash_kernel names the kernel)
+FLASH_TILE = {"flash_attention_wgmma": 128, "flash_attention": 64}
+# float32, on the CUDA-core body: the reference kernel test's four shapes
+# (tests/test_kernels.py), a ragged S (100 rows against the body's 64-row
+# tiles) and the two other head dims it is compiled for
 FLASH_SWEEP = [(2, 128, 4, 2, 32, True, 64, 64),
                (1, 256, 8, 8, 16, True, 64, 128),
                (2, 128, 6, 2, 32, False, 32, 64),
                (1, 64, 4, 1, 64, True, 64, 32),
                (1, 100, 4, 2, 80, True, 100, 100),
                (1, 100, 4, 2, 128, False, 50, 100)]
+# bf16, on the tensor-core kernel (128-row query and key tiles): hd 64 and
+# 128, each causal and bidirectional; S ragged against the tiles (100: one
+# tile, its second 64-row warpgroup past S; 1,000) or whole (256, 384);
+# batch 2; KV = H and KV < H.  KV >= 2 and, causal, S > 128, so that each
+# planted fault changes the output
+FLASH_BF16_SWEEP = [(2, 1000, 4, 2, 64, True, 1000, 500),
+                    (1, 100, 4, 4, 64, False, 100, 100),
+                    (2, 256, 6, 2, 64, False, 256, 128),
+                    (1, 1000, 8, 2, 128, True, 500, 1000),
+                    (2, 1000, 8, 8, 128, False, 1000, 1000),
+                    (1, 384, 8, 8, 128, True, 384, 384)]
 # (H, KV, hd): SmolLM-135M and Qwen3-0.6B, at S=4096 in bf16
 FLASH_LM_HEADS = [(9, 3, 64), (16, 8, 128)]
 FLASH_LM_SEQ = 4096
+# bf16 edges of the tensor-core kernel's tiles (64 rows a warpgroup, 128
+# a query or key tile), each S at hd 64 and 128, causal and bidirectional,
+# with (B, H, KV) = (1, 1, 1) and (3, 6, 2); checked against the plain
+# version only (with one KV head a wrong-head fault changes nothing)
+FLASH_EDGE_SEQS = (1, 2, 63, 65, 127, 129, 255, 257, 2049)
+# bf16 at hd=80 stays on the CUDA-core body: StableLM-3B's 32 heads of 80
+FLASH_HD80 = (1, 4096, 32, 32, 80, True, 1024, 1024)
+# words in the names of cuBLAS's and CUTLASS's matrix-product kernels, by
+# which the prefill profile sums the GEMMs' device time
+GEMM_KERNEL_WORDS = ("gemm", "nvjet", "cutlass", "xmma")
 # last-token logits, kernel prefill against the plain version's, as a
 # share of the largest |logit|: between the sound reading (2.2%: an ulp's
 # difference in attention grows through 30 bf16 layers) and the subtlest
@@ -833,8 +862,10 @@ def _plain_masked(q, k, v, keep, chunk=1024):
         s = torch.einsum("bqgrd,bkgd->bgrqk",
                          qb.reshape(B, n, KV, H // KV, hd), kf)
         qpos = torch.arange(i, i + n, device=q.device)[:, None]
-        s = s.masked_fill(~keep(qpos, kpos), NEG)
-        p = torch.exp(s - s.amax(-1, keepdim=True))
+        kept = keep(qpos, kpos)
+        s = s.masked_fill(~kept, NEG)
+        # a row that keeps no key sums nothing: 0 / max(0, 1e-30) = 0
+        p = torch.exp(s - s.amax(-1, keepdim=True)).masked_fill(~kept, 0)
         o = torch.einsum("bgrqk,bkgd->bqgrd", p.to(v.dtype).float(), vf)
         o = o / p.sum(-1).permute(0, 3, 1, 2).clamp_min(1e-30)[..., None]
         outs.append(o.to(q.dtype).reshape(B, n, H, hd))
@@ -842,17 +873,18 @@ def _plain_masked(q, k, v, keep, chunk=1024):
 
 
 def _fault_tile(q, k, v, causal, q_chunk, kv_chunk):
-    """A kv tile (FLASH_TILE keys) skipped: causal, each row past the
-    first tile misses its diagonal tile; bidirectional, every row misses
-    the last tile."""
+    """A kv tile of the kernel these inputs go to skipped: causal, each row
+    past the first tile misses its diagonal tile; bidirectional, every row
+    misses the last tile."""
+    from repro_torch.kernels import ops
     S = q.shape[1]
+    tile = FLASH_TILE[ops.flash_kernel(q.dtype, q.shape[3])]
     if causal:
         def keep(qp, kp):
-            return (kp <= qp) & ((kp < qp // FLASH_TILE * FLASH_TILE)
-                                 | (qp < FLASH_TILE))
+            return (kp <= qp) & ((kp < qp // tile * tile) | (qp < tile))
     else:
         def keep(qp, kp):
-            return kp < S - FLASH_TILE
+            return kp < S - tile
     return _plain_masked(q, k, v, keep)
 
 
@@ -918,44 +950,112 @@ def flash_bound(q, k, causal):
                                  else "bytes")
 
 
+def _route(dtype, hd):
+    """The kernel a CUDA input should reach (the rule the wrapper's
+    ``flash_kernel`` implements): the tensor-core kernel for bf16 at hd 64
+    and 128, the CUDA-core body for the rest."""
+    import torch
+    if dtype == torch.bfloat16 and hd in (64, 128):
+        return "flash_attention_wgmma"
+    return "flash_attention"
+
+
+def _flash_launch(what, q, k, v, causal, qc, kc):
+    """``ops.flash_attention`` on these inputs, synchronised; raises unless
+    the launch counters show one launch, of the kernel ``_route`` names."""
+    import torch
+    from repro_torch.kernels import ops
+    before = dict(ops.LAUNCHES)
+    out = ops.flash_attention(q, k, v, causal=causal, q_chunk=qc,
+                              kv_chunk=kc)
+    torch.cuda.synchronize()
+    n = {key: ops.LAUNCHES[key] - before[key]
+         for key in ("flash_attention", "flash_attention_wgmma")}
+    want = _route(q.dtype, q.shape[3])
+    if n != {"flash_attention": 1,
+             "flash_attention_wgmma": int(want == "flash_attention_wgmma")}:
+        raise AssertionError(f"{what}: launches {n}, expected one of "
+                             f"{want}")
+    return out
+
+
+def _cuda_core_flash(q, k, v, causal):
+    """The CUDA-core body through its C entry, on inputs the wrapper sends
+    to the tensor-core kernel (no launch counted): the body that served
+    them before the tensor-core kernel, checked and timed beside it."""
+    import torch
+    from repro_torch.kernels import build
+    B, S, H, hd = q.shape
+    out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    rc = build.entry("flash_attention_launch")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
+        k.shape[2], hd, 1, int(causal), 1.0 / math.sqrt(hd),
+        *q.stride()[:3], *k.stride()[:3], *out.stride()[:3],
+        torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"CUDA-core flash launch failed: {rc}")
+    return out
+
+
 def phase_flash_parity():
-    """The flash-attention kernel against its plain version on generated
-    inputs, and the planted faults against the bf16 check."""
+    """Both flash-attention kernels against their plain version on
+    generated inputs, and the planted faults against the bf16 check.
+    -> timings for the kernels JSON row."""
     import torch
     from repro_torch.core.attention import _sdpa_chunked
     from repro_torch.kernels import ops
     rng = np.random.default_rng(5)
     for B, S, H, KV, hd, causal, qc, kc in FLASH_SWEEP:
         q, k, v = _qkv_inputs(rng, B, S, H, KV, hd, torch.float32)
-        got = ops.flash_attention(q, k, v, causal=causal, q_chunk=qc,
-                                  kv_chunk=kc)
-        torch.cuda.synchronize()
         what = (f"flash_attention B={B} S={S} H={H} KV={KV} hd={hd} "
                 f"causal={causal} float32")
+        got = _flash_launch(what, q, k, v, causal, qc, kc)
         err = _close(what, got, _flash_plain(q, k, v, causal, qc, kc),
                      FLASH_F32_TOL)
-        log(f"parity {what}: max |diff| {err:.3g} (tolerance "
-            f"{FLASH_F32_TOL} + {FLASH_F32_TOL} x |plain|)")
+        log(f"parity {what} (CUDA-core body): max |diff| {err:.3g} "
+            f"(tolerance {FLASH_F32_TOL} + {FLASH_F32_TOL} x |plain|)")
+    timing = {}
+    for B, S, H, KV, hd, causal, qc, kc in FLASH_BF16_SWEEP + [FLASH_HD80]:
+        q, k, v = _qkv_inputs(rng, B, S, H, KV, hd, torch.bfloat16)
+        what = (f"flash_attention B={B} S={S} H={H} KV={KV} hd={hd} "
+                f"causal={causal} bfloat16")
+        got = _flash_launch(what, q, k, v, causal, qc, kc)
+        want = _flash_plain(q, k, v, causal, qc, kc)
+        err, share = _flash_close(what, got, want)
+        log(f"parity {what} ({_route(q.dtype, hd)}): max |diff| {err:.3g}, "
+            f"{share:.3g} x the tolerance")
+        _check_faults(what, q, k, v, causal, qc, kc, want)
+    ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
+                                             q_chunk=qc, kv_chunk=kc), 5, 1)
+    b_ms, b_by = flash_bound(q, k, causal)
+    timing["hd80"] = dict(shape=list(q.shape), causal=causal, ms=ms,
+                          bound_ms=b_ms)
+    log(f"timing flash_attention {tuple(q.shape)} hd={hd} causal={causal} "
+        f"bfloat16 (CUDA-core body): {ms:.4f} ms/call "
+        f"({attention_flops(*q.shape, causal) / ms / 1e9:.2f} TFLOP/s), "
+        f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.2%} of bound")
     S = FLASH_LM_SEQ
     for H, KV, hd in FLASH_LM_HEADS:
         for causal in (True, False):
             q, k, v = _qkv_inputs(rng, 1, S, H, KV, hd, torch.bfloat16)
-            got = ops.flash_attention(q, k, v, causal=causal, q_chunk=1024,
-                                      kv_chunk=1024)
-            torch.cuda.synchronize()
             what = (f"flash_attention B=1 S={S} H={H} KV={KV} hd={hd} "
                     f"causal={causal} bfloat16")
+            got = _flash_launch(what, q, k, v, causal, 1024, 1024)
             want = _flash_plain(q, k, v, causal, 1024, 1024)
             err, share = _flash_close(what, got, want)
             ref_share = _flash_share(_sdpa_chunked(
                 q, k, v, causal, 1024, 1024), want)[1]
-            log(f"parity {what}: max |diff| {err:.3g}, {share:.3g} x the "
-                f"tolerance (the reference's bf16 products: "
-                f"{ref_share:.3g} x)")
+            log(f"parity {what} (tensor cores): max |diff| {err:.3g}, "
+                f"{share:.3g} x the tolerance (the reference's bf16 "
+                f"products: {ref_share:.3g} x)")
             _check_faults(what, q, k, v, causal, 1024, 1024, want)
     ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=False), 5, 1)
     b_ms, b_by = flash_bound(q, k, False)
-    log(f"timing flash_attention (generated, last case): {ms:.4f} ms/call, "
+    timing["lm4096"] = dict(shape=list(q.shape), causal=False, ms=ms,
+                            bound_ms=b_ms)
+    log(f"timing flash_attention {tuple(q.shape)} causal=False bfloat16 "
+        f"(tensor cores): {ms:.4f} ms/call "
+        f"({attention_flops(*q.shape, False) / ms / 1e9:.2f} TFLOP/s), "
         f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound")
     # 64-bit offsets, strided q: batch row 1 of q starts 2^31 elements
     # into a 4.3 GB buffer
@@ -965,13 +1065,89 @@ def phase_flash_parity():
     q = buf.as_strided((B, S, H, hd), (2**31, H * hd, hd, 1))
     src, k, v = _qkv_inputs(rng, B, S, H, KV, hd, torch.bfloat16)
     q.copy_(src)
-    got = ops.flash_attention(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    err, share = _flash_close("flash_attention, q past 2^31 elements", got,
-                              _flash_plain(q, k, v, True, 512, 512))
-    log(f"parity flash_attention with q's batch stride 2^31 elements: max "
-        f"|diff| {err:.3g}, {share:.3g} x the tolerance")
+    what = "flash_attention, q past 2^31 elements"
+    got = _flash_launch(what, q, k, v, True, 512, 512)
+    err, share = _flash_close(what, got, _flash_plain(q, k, v, True, 512,
+                                                      512))
+    log(f"parity flash_attention with q's batch stride 2^31 elements "
+        f"(tensor cores): max |diff| {err:.3g}, {share:.3g} x the "
+        f"tolerance")
     del buf, q
+    worst, n = 0.0, 0
+    for S in FLASH_EDGE_SEQS:
+        for hd in (64, 128):
+            for causal in (True, False):
+                for B, H, KV in ((1, 1, 1), (3, 6, 2)):
+                    q, k, v = _qkv_inputs(rng, B, S, H, KV, hd,
+                                          torch.bfloat16)
+                    what = (f"flash_attention edge B={B} S={S} H={H} "
+                            f"KV={KV} hd={hd} causal={causal}")
+                    got = _flash_launch(what, q, k, v, causal, S, S)
+                    worst = max(worst, _flash_close(what, got, _flash_plain(
+                        q, k, v, causal, S, S))[1])
+                    n += 1
+    log(f"parity flash_attention on {n} edge cases, S in "
+        f"{FLASH_EDGE_SEQS} (tensor cores): at most {worst:.3g} x the "
+        f"tolerance")
+    # k and v as slices of one (B, S, 2 KV, hd) buffer: strided, aligned
+    B, S, H, KV, hd = 2, 777, 8, 2, 128
+    q, kv, _ = _qkv_inputs(rng, B, S, H, 2 * KV, hd, torch.bfloat16)
+    k, v = kv[:, :, :KV], kv[:, :, KV:]
+    what = "flash_attention, k and v slices of one buffer"
+    err, share = _flash_close(what, _flash_launch(what, q, k, v, True, S, S),
+                              _flash_plain(q, k, v, True, S, S))
+    log(f"parity {what} (tensor cores): max |diff| {err:.3g}, {share:.3g} "
+        f"x the tolerance")
+    # a q that starts 2 bytes past a 16-byte boundary must be refused
+    before = dict(ops.LAUNCHES)
+    bad = torch.empty(q.numel() + 8, dtype=q.dtype, device=q.device)[
+        1 : 1 + q.numel()].view(q.shape)
+    try:
+        ops.flash_attention(bad, k, v, causal=True, q_chunk=S, kv_chunk=S)
+    except ValueError as e:
+        log(f"a misaligned q is refused: {e}")
+    else:
+        raise AssertionError("a misaligned q was not refused")
+    if ops.LAUNCHES != before:
+        raise AssertionError("the refused call counted a launch")
+    return timing
+
+
+def _profile_prefill(prefill, params, toks):
+    """One prefill under ``torch.profiler``: logs the ten largest device
+    ops (self device time, launches) and the flash kernel's share.  ->
+    {"flash_share", "device_ms", "wall_s"}, or None when the trace holds
+    no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = sorted(((e.self_device_time_total, e.count, e.key)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA), reverse=True)
+    total = sum(us for us, _, _ in dev)
+    if not total:
+        log("prefill profile: the trace holds no device time")
+        return None
+    flash = sum(us for us, _, key in dev if "flash_wgmma_kernel" in key)
+    gemm = sum(us for us, _, key in dev
+               if any(w in key.lower() for w in GEMM_KERNEL_WORDS))
+    log(f"prefill profile: {wall:.3f} s wall under the profiler, device "
+        f"time {total / 1e3:.3f} ms ({total / 1e6 / wall:.2%} of the wall, "
+        f"one stream); the flash kernel {flash / 1e3:.3f} ms = "
+        f"{flash / total:.2%}, GEMM kernels {gemm / 1e3:.3f} ms = "
+        f"{gemm / total:.2%}, the rest {(total - flash - gemm) / 1e3:.3f} "
+        f"ms = {(total - flash - gemm) / total:.2%} of device time over "
+        f"{sum(n for _, n, _ in dev):,} device ops; the ten largest:")
+    for us, n, key in dev[:10]:
+        log(f"  {us / 1e3:10.3f} ms {n:6d} x {us / total:7.2%}  {key[:100]}")
+    return dict(flash_share=flash / total, gemm_share=gemm / total,
+                device_ms=total / 1e3, wall_s=wall)
 
 
 class FlashInputs:
@@ -1019,9 +1195,10 @@ def _logits_close(what, got, want, tol):
     return rel
 
 
-def phase_lm():
-    """SmolLM-135M serving at full width: prefill through the flash kernel,
-    decode, generation.  -> the flash kernel's JSON row."""
+def phase_lm(timing):
+    """SmolLM-135M serving at full width: prefill through the tensor-core
+    flash kernel, decode, generation.  ``timing``: phase_flash_parity's.
+    -> the flash kernel's JSON row."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -1055,17 +1232,21 @@ def phase_lm():
     logits = prefill(params, {"tokens": toks})
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = ops.LAUNCHES["flash_attention"]
-    if launches != cfg.n_layers:
-        raise AssertionError(f"prefill launched flash_attention {launches} "
-                             f"times, not once per layer ({cfg.n_layers})")
+    launches = ops.LAUNCHES["flash_attention_wgmma"]
+    if not launches == ops.LAUNCHES["flash_attention"] == cfg.n_layers:
+        raise AssertionError(f"prefill launched flash_attention "
+                             f"{ops.LAUNCHES['flash_attention']} times, "
+                             f"{launches} of them the tensor-core kernel, "
+                             f"not once per layer ({cfg.n_layers}) on the "
+                             f"tensor cores")
     if tuple(logits.shape) != (LM_BATCH, cfg.vocab_size):
         raise AssertionError(f"prefill logits {tuple(logits.shape)}")
     log(f"prefill: B={LM_BATCH} S={LM_SEQ:,} in {dt:.3f} s = "
         f"{LM_BATCH * LM_SEQ / dt:,.0f} tokens/s; flash_attention launches "
-        f"{launches}; peak device memory "
+        f"{launches}, all on the tensor cores; peak device memory "
         f"{(torch.cuda.max_memory_allocated() - held) / 1e9:.3f} GB above "
         f"the {held / 1e9:.3f} GB held before it")
+    profile = _profile_prefill(prefill, params, toks)
 
     # the same prefill on the plain version (keeping layer 0's inputs) and
     # with each planted fault: readings first, then the checks
@@ -1105,6 +1286,11 @@ def phase_lm():
     _check_faults("layer 0 of the prefill", q, k, v, causal, qc, kc, want)
     ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
                                              q_chunk=qc, kv_chunk=kc), 5, 1)
+    core = _cuda_core_flash(q, k, v, causal)
+    torch.cuda.synchronize()
+    core_share = _flash_close("the CUDA-core body on layer 0 of the prefill",
+                              core, want)[1]
+    core_ms = cuda_ms(lambda: _cuda_core_flash(q, k, v, causal), 2, 1)
     plain_ms = cuda_ms(lambda: _flash_plain(q, k, v, causal, qc, kc), 1, 1)
     bidir_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=False),
                        2, 1)
@@ -1118,11 +1304,14 @@ def phase_lm():
     b_ms, b_by = flash_bound(q, k, causal)
     log(f"flash_attention, layer 0 of the prefill: q {tuple(q.shape)} "
         f"{q.dtype}: max |diff| against the plain version {err:.3g}, "
-        f"{share:.3g} x the tolerance; {ms:.3f} ms/call "
+        f"{share:.3g} x the tolerance; {ms:.4f} ms/call "
         f"({attention_flops(*q.shape, causal) / ms / 1e9:.2f}"
-        f" TFLOP/s), plain {plain_ms:.3f} ms, scaled_dot_product_attention "
+        f" TFLOP/s), the CUDA-core body {core_ms:.3f} ms ({core_share:.3g} x "
+        f"the tolerance; {core_ms / ms:.2f}x the time), plain "
+        f"{plain_ms:.3f} ms, scaled_dot_product_attention "
         f"(flash backend) {lib_ms:.3f} ms (max |diff| to the kernel "
-        f"{lib_err:.3g}), bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.2%} of "
+        f"{lib_err:.3g}; {lib_ms / ms:.2f}x the kernel's time), bound "
+        f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.2%} of "
         f"bound; the same tensors bidirectional {bidir_ms:.3f} ms "
         f"({attention_flops(*q.shape, False) / bidir_ms / 1e9:.2f} "
         f"TFLOP/s)")
@@ -1163,12 +1352,18 @@ def phase_lm():
             f"({DEC_BATCH * steps / dt_g:,.1f} tokens/s through the decode "
             f"step)")
     return dict(name="flash_attention", route="cuda",
-                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                source="src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
                 replaces="src/repro/kernels/flash_attention.py:84",
                 launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                 shape=list(q.shape), dtype=str(q.dtype)[6:],
-                prefill_tokens_per_s=LM_BATCH * LM_SEQ / dt)
+                tolerance_share=share, bidirectional_ms=bidir_ms,
+                prefill_tokens_per_s=LM_BATCH * LM_SEQ / dt,
+                prefill_profile=profile, hd128_s4096=timing["lm4096"],
+                cuda_core_body=dict(
+                    source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                    serves="float32; bfloat16 at hd 16, 32, 80",
+                    layer0_ms=core_ms, hd80=timing["hd80"]))
 
 
 def main() -> int:
@@ -1200,8 +1395,7 @@ def main() -> int:
     rows = phase_mainpath_kernels(runs)
     rows["minimizer_scan"] = mini_row
     phase_done("8 main-path kernels")
-    phase_flash_parity()
-    rows["flash_attention"] = phase_lm()
+    rows["flash_attention"] = phase_lm(phase_flash_parity())
     phase_done("9 LM serving")
     log(f"total {time.perf_counter() - t_all:.2f} s")
     log(smi)

@@ -24,7 +24,8 @@ BUILD_ROOT = Path(__file__).parent / "_build"
 # library name -> source file
 SOURCES = {"linear_wf": "linear_wf.cu", "affine_wf": "affine_wf.cu",
            "traceback": "traceback.cu", "minimizer": "minimizer.cu",
-           "flash_attention": "flash_attention.cu"}
+           "flash_attention": "flash_attention.cu",
+           "flash_attention_wgmma": "flash_attention_wgmma.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,6 +41,9 @@ ENTRIES = {
     "minimizer_launch": ("minimizer", [_P] * 3 + [_I] * 7 + [_P]),
     "flash_attention_launch": ("flash_attention",
                                [_P] * 4 + [_I] * 7 + [_F] + [_L] * 9 + [_P]),
+    "flash_attention_wgmma_launch": ("flash_attention_wgmma",
+                                     [_P] * 4 + [_I] * 6 + [_F] + [_L] * 9
+                                     + [_P]),
 }
 
 _lock = threading.Lock()

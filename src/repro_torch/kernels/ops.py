@@ -29,7 +29,7 @@ from . import build
 
 LAUNCHES = {"linear_wf": 0, "affine_wf_dist": 0, "affine_wf": 0,
             "affine_traceback": 0, "minimizer_scan": 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "flash_attention_wgmma": 0}
 SUPPORTED_ETH = (4, 6, 8)   # template instances compiled into csrc/
 MAX_SAT = 85                # above it the reference's int8 values wrap
 SMEM_LIMIT = 232_448        # dynamic shared memory a Hopper block may use
@@ -39,6 +39,8 @@ MINI_THREADS = 256          # minimizer block size
 MINI_WINDOWS = 1024         # windows a minimizer block aims to cover
 FLASH_HEAD_DIMS = (16, 32, 64, 80, 128)  # head_dim instances compiled
 FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+FLASH_WGMMA_HEAD_DIMS = (64, 128)  # bf16 head dims of the tensor-core kernel
+TMA_ALIGN = 16              # bytes: a TMA load's base and strides
 
 
 def reset_launch_counts() -> None:
@@ -246,6 +248,38 @@ def affine_traceback(s1: torch.Tensor, s2_window: torch.Tensor, *,
     return dists[0], dists[1], ops_, cnt
 
 
+def flash_kernel(dtype: torch.dtype, hd: int) -> str:
+    """The kernel ``flash_attention`` launches for CUDA inputs of ``dtype``
+    at head dim ``hd``: ``"flash_attention_wgmma"`` (tensor cores fed by
+    TMA) for bfloat16 at ``FLASH_WGMMA_HEAD_DIMS``, else
+    ``"flash_attention"`` (the CUDA-core body: float32, and bfloat16 at the
+    other head dims of ``FLASH_HEAD_DIMS``).  Raises for what neither
+    takes."""
+    if dtype not in FLASH_DTYPES:
+        raise TypeError(f"no flash kernel for {dtype}")
+    if dtype == torch.bfloat16 and hd in FLASH_WGMMA_HEAD_DIMS:
+        return "flash_attention_wgmma"
+    if hd not in FLASH_HEAD_DIMS:
+        raise ValueError(f"head_dim={hd} has no compiled kernel instance; "
+                         f"supported: {FLASH_HEAD_DIMS}")
+    return "flash_attention"
+
+
+def check_tma(name: str, ptr: int, strides, itemsize: int) -> None:
+    """Raises ValueError unless a tensor at address ``ptr`` with element
+    ``strides`` (batch, seq, head; head_dim contiguous) and elements of
+    ``itemsize`` bytes meets the TMA's rules: the base and every stride a
+    multiple of ``TMA_ALIGN`` bytes."""
+    if ptr % TMA_ALIGN:
+        raise ValueError(f"{name}'s data pointer {ptr:#x} is not "
+                         f"{TMA_ALIGN}-byte aligned, as a TMA load needs")
+    for s in strides:
+        if s * itemsize % TMA_ALIGN:
+            raise ValueError(f"{name}'s strides {tuple(strides)} (elements "
+                             f"of {itemsize} bytes) are not all multiples "
+                             f"of {TMA_ALIGN} bytes, as a TMA load needs")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_chunk: int = 512,
                     kv_chunk: int = 512):
@@ -255,13 +289,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``q_chunk``/``kv_chunk`` are the reference's blocking: they are
     checked as it asserts them (S divisible by min(chunk, S)) and set the
-    plain version's chunks; the kernel picks its own tiles.  The kernel
-    computes ``_sdpa_chunked(..., f32_scores=True)``; on CPU tensors the
+    plain version's chunks; the kernels pick their own tiles.  The kernels
+    compute ``_sdpa_chunked(..., f32_scores=True)``; on CPU tensors the
     wrapper runs ``_sdpa_chunked`` with the reference model's products in
     the inputs' dtype, the same function for float32 inputs.  Takes
-    float32 and bfloat16; the kernel has head_dim instances
-    ``FLASH_HEAD_DIMS``.  Strided inputs are read in place as long as
-    head_dim is contiguous."""
+    float32 and bfloat16.  ``flash_kernel`` picks the kernel: bfloat16 at
+    head dim 64 or 128 goes to the tensor-core kernel, the rest to the
+    CUDA-core body (head_dim instances ``FLASH_HEAD_DIMS``).  Strided
+    inputs are read in place as long as head_dim is contiguous; the
+    tensor-core kernel loads them by TMA and raises (no other kernel
+    stands in) unless each base and stride is a multiple of 16 bytes
+    (``check_tma``), which the layers' (B, S, heads, hd) tensors, each a
+    contiguous projection of its own, always meet.
+    ``LAUNCHES["flash_attention"]`` counts every launch,
+    ``LAUNCHES["flash_attention_wgmma"]`` those of the tensor-core
+    kernel."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q, k, v must be 4-D (B, S, heads, hd), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -291,22 +333,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not _is_cuda(q):
         return _sdpa_chunked(q, k, v, causal, q_chunk=q_chunk,
                              kv_chunk=kv_chunk)
-    if hd not in FLASH_HEAD_DIMS:
-        raise ValueError(f"head_dim={hd} has no compiled kernel instance; "
-                         f"supported: {FLASH_HEAD_DIMS}")
+    kernel = flash_kernel(q.dtype, hd)
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("head_dim must be the contiguous axis of q, k, v")
     if k.stride() != v.stride():
         raise ValueError(f"k and v strides differ: {k.stride()}, "
                          f"{v.stride()}")
+    if kernel == "flash_attention_wgmma":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            check_tma(name, t.data_ptr(), t.stride()[:3], t.element_size())
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     if out.numel():
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, S, H, KV, hd)
+        if kernel == "flash_attention":     # the CUDA-core body's dtype
+            args += (FLASH_DTYPES[q.dtype],)
         with torch.cuda.device(q.device):
-            rc = build.entry("flash_attention_launch")(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, S, H, KV, hd, FLASH_DTYPES[q.dtype], int(causal),
-                1.0 / math.sqrt(hd), *q.stride()[:3], *k.stride()[:3],
-                *out.stride()[:3], _stream(q))
-        _raise_on(rc, "flash_attention")
+            rc = build.entry(f"{kernel}_launch")(
+                *args, int(causal), 1.0 / math.sqrt(hd), *q.stride()[:3],
+                *k.stride()[:3], *out.stride()[:3], _stream(q))
+        _raise_on(rc, kernel)
         LAUNCHES["flash_attention"] += 1
+        if kernel == "flash_attention_wgmma":
+            LAUNCHES[kernel] += 1
     return out

@@ -32,6 +32,7 @@ from repro.models import lm as jlm
 from repro.models import transformer as jt
 from repro_torch import configs as tconfigs
 from repro_torch.configs import dartpim as tdartpim
+from repro_torch.kernels import build as tbuild
 from repro_torch.kernels import ops as tops
 from repro_torch.models import convert, layers as tl, lm as tlm
 from repro_torch.models import transformer as tt
@@ -136,6 +137,7 @@ def test_flash_attention_matches_pallas(B, S, H, KV, hd, causal, qc, kc):
     np.testing.assert_allclose(got.numpy(), _np(want), atol=F32_TOL,
                                rtol=F32_TOL)
     assert tops.LAUNCHES["flash_attention"] == 0
+    assert tops.LAUNCHES["flash_attention_wgmma"] == 0
 
 
 @pytest.mark.parametrize("B,S,H,KV,hd,causal,qc,kc", [
@@ -143,14 +145,19 @@ def test_flash_attention_matches_pallas(B, S, H, KV, hd, causal, qc, kc):
     (1, 256, 8, 8, 16, True, 64, 128),
     (2, 128, 6, 2, 32, False, 32, 64),
     (1, 64, 4, 1, 64, True, 64, 32),
+    # the tensor-core kernel's 128-row query and key tiles
+    (1, 256, 8, 2, 128, True, 128, 128),
+    (1, 384, 9, 3, 64, True, 128, 128),
+    (2, 256, 4, 4, 64, False, 128, 128),
 ])
 def test_kernel_arithmetic_matches_pallas_bf16(B, S, H, KV, hd, causal, qc,
                                                kc):
     """``_sdpa_chunked(f32_scores=True)``, the plain version the Hopper
-    kernel is held against on the card, against the Pallas kernel in
-    interpret mode on bf16 inputs.  Tolerance per element: 2^-7 |ref|
-    (each side rounds its output to bf16 once) plus 2^-6 of the row's RMS
-    (the row's hd outputs), which chip_smoke.py applies on the card."""
+    kernels are held against on the card, against the Pallas kernel in
+    interpret mode on bf16 inputs; with chunks of 128 it sums over the
+    tensor-core kernel's tiles.  Tolerance per element: 2^-7 |ref| (each
+    side rounds its output to bf16 once) plus 2^-6 of the row's RMS (the
+    row's hd outputs), which chip_smoke.py applies on the card."""
     q, k, v = _attn_inputs(np.random.default_rng(5), B, S, H, KV, hd)
     want = _np(jops.flash_attention(
         *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), causal=causal,
@@ -161,6 +168,67 @@ def test_kernel_arithmetic_matches_pallas_bf16(B, S, H, KV, hd, causal, qc,
     rms = np.sqrt(np.square(want).mean(-1, keepdims=True))
     tol = 2.0**-7 * np.abs(want) + 2.0**-6 * rms
     assert (np.abs(got.float().numpy() - want) <= tol).all()
+
+
+@pytest.mark.parametrize("dtype,hd,kernel", [
+    (torch.bfloat16, 64, "flash_attention_wgmma"),
+    (torch.bfloat16, 128, "flash_attention_wgmma"),
+    (torch.bfloat16, 16, "flash_attention"),
+    (torch.bfloat16, 32, "flash_attention"),
+    (torch.bfloat16, 80, "flash_attention"),
+    (torch.float32, 64, "flash_attention"),
+    (torch.float32, 128, "flash_attention"),
+])
+def test_flash_kernel_route(dtype, hd, kernel):
+    """bf16 at hd 64 and 128 goes to the tensor-core kernel, the rest to
+    the CUDA-core body, and both have a C entry in build.ENTRIES."""
+    assert tops.flash_kernel(dtype, hd) == kernel
+    assert f"{kernel}_launch" in tbuild.ENTRIES
+
+
+@pytest.mark.parametrize("dtype,hd,exc", [
+    (torch.bfloat16, 96, ValueError),
+    (torch.float32, 256, ValueError),
+    (torch.float16, 64, TypeError),
+])
+def test_flash_kernel_route_refuses(dtype, hd, exc):
+    with pytest.raises(exc):
+        tops.flash_kernel(dtype, hd)
+
+
+def _bf16_view(offset, strides, shape=(2, 8, 4, 64)):
+    """A (B, S, heads, hd) bf16 view of a CPU buffer, ``offset`` elements
+    in, with element ``strides``: the description the TMA check reads."""
+    buf = torch.zeros(8192 + offset, dtype=torch.bfloat16)
+    return buf.as_strided(shape, strides, offset)
+
+
+@pytest.mark.parametrize("case,offset,strides,ok", [
+    ("contiguous", 0, (2048, 256, 64, 1), True),
+    ("a fused projection's slice", 64, (3072, 384, 64, 1), True),
+    ("base 2 bytes past alignment", 1, (2048, 256, 64, 1), False),
+    ("base 8 bytes past alignment", 4, (2048, 256, 64, 1), False),
+    ("head stride of 65 elements", 0, (2200, 264, 65, 1), False),
+    ("seq stride of 260 elements", 0, (2100, 260, 64, 1), False),
+    ("batch stride of 2049 elements", 0, (2049, 256, 64, 1), False),
+])
+def test_check_tma(case, offset, strides, ok):
+    """The tensor-core kernel's TMA rules on CPU-side descriptions: a base
+    and (batch, seq, head) strides of multiples of 16 bytes pass, any other
+    raises (the wrapper never falls back to the CUDA-core body)."""
+    t = _bf16_view(offset, strides)
+    args = ("q", t.data_ptr(), t.stride()[:3], t.element_size())
+    if ok:
+        tops.check_tma(*args)
+    else:
+        with pytest.raises(ValueError, match="TMA"):
+            tops.check_tma(*args)
+
+
+def test_check_tma_batch_stride_past_2_31():
+    """chip_smoke.py's 64-bit case: q's batch stride of 2^31 elements
+    (4 GiB) meets the rules."""
+    tops.check_tma("q", 0, (2**31, 256, 64), 2)
 
 
 def _qkv_t(B=1, S=64, H=4, KV=2, hd=32, dtype=torch.float32):

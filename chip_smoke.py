@@ -11,9 +11,10 @@ Phases, each fatal on failure:
 3. kernel parity: each kernel against its plain torch version on the same
    CUDA tensors: the WF kernels on random and near-match pairs at n=150,
    eth=6, sat=32, max_ops=302 (65,536 linear, 16,384 affine distance and
-   affine with direction planes, 8,192 traceback instances) and in a
-   ragged case (n=37, eth=4); the minimizer scan on 65,536 random reads
-   of 150 bases (k=12, w=30) and a ragged 1,000 reads of 80 (k=8, w=16).
+   affine with direction planes, 8,192 traceback instances) and on 1,000
+   pairs at n=37 and n=150 at every compiled eth (0..12); the minimizer
+   scan on 65,536 random reads of 150 bases (k=12, w=30) and a ragged
+   1,000 reads of 80 (k=8, w=16).
    Equality must be exact.  Times each kernel and its plain version with
    CUDA events;
 4. end to end: a 64 Mb synthetic reference (GRCh38 cut to what the flat
@@ -47,13 +48,16 @@ Phases, each fatal on failure:
    and every launch of a run is timed again on its own inputs to give
    the kernels' device time per run;
 9. LM serving: the two flash-attention kernels against their plain
-   version on generated inputs: the tensor-core kernel (bf16, hd 64 and
-   128) on a sweep of ragged S, batch 2, KV = H and KV < H, causal and
-   bidirectional, on SmolLM-135M's and Qwen3-0.6B's head layouts at
-   S=4096, with a q batch stride of 2^31 elements, on 72 small shapes at
-   the edges of its tiles and with k and v strided (a misaligned q must
-   be refused); the CUDA-core body on the reference kernel test's f32
-   shapes and on one bf16 hd=80 case.
+   version on generated inputs: the tensor-core kernel (bf16, hd 64, 80
+   and 128) on a sweep of ragged S, batch 2, KV = H and KV < H, causal and
+   bidirectional, on StableLM-3B's head layout at S=4096 (timed beside
+   the CUDA-core body and ``scaled_dot_product_attention``), on
+   SmolLM-135M's and Qwen3-0.6B's at S=4096, with a q batch stride of
+   2^31 elements, on 108 small shapes at the edges of its tiles and with k
+   and v strided (a misaligned q must be refused); the CUDA-core body on
+   the reference kernel test's f32 shapes and, timed beside
+   ``scaled_dot_product_attention``, on StableLM-3B's heads in f32 and a
+   bf16 hd=32 case.
    Planted faults (a kv tile skipped, the wrong KV head, zero rows) are
    shown to fail the bf16 check on every bf16 case.  SmolLM-135M at full
    width from seeded weights: a 32,768-token prefill (one tensor-core
@@ -62,11 +66,16 @@ Phases, each fatal on failure:
    plain version and against prefills with planted faults, the kernel on
    layer 0's inputs against its plain version, the CUDA-core body and the
    library's attention on the same inputs, decode against forward on bf16
-   and int8 caches, ``greedy_generate``.
+   and int8 caches, ``greedy_generate``;
+10. StableLM-3B's prefill at full width (32 heads of 80, 2.8 B parameters
+   from seed 0): a timed 32,768-token prefill (one launch a layer of the
+   tensor-core kernel at hd=80), its profile, the kernel on layer 0's
+   inputs as in phase 9, and the last-token logits of a 4,096-token
+   prefill against the plain version's and the planted faults'.
 
 Each phase prints its seconds.  The last lines are the kernels JSON line
-(phases 6, 8 and 9, with each kernel's bound computed from its inputs) and
-the contract line ``{"ok": true, "device": {...}}``.  Exits non-zero,
+(phases 6, 8, 9 and 10, with each kernel's bound computed from its
+inputs) and the contract line ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, when no CUDA device is present or anything fails.
 Imports nothing of JAX or of the ``repro`` package.
 """
@@ -93,6 +102,9 @@ N, ETH, SAT, MAX_OPS = 150, 6, 32, 302
 K, W = 12, 30
 R_LINEAR, R_AFFINE, R_TRACEBACK = 65_536, 16_384, 8_192
 R_MINI = 65_536
+# phase 3 holds each WF kernel to its plain version at every compiled eth
+# on PARITY_R pairs of each read length
+PARITY_R, PARITY_NS = 1000, (37, N)
 # the card's peaks (H100 SXM): HBM rate from NVIDIA's data sheet.  The
 # int32 rate is not in the data sheet: its 67 TFLOP/s of float32 counts an
 # FMA as two ops on 128 float32 lanes per SM; Hopper has 64 int32 lanes
@@ -138,9 +150,14 @@ ENGINE_KERNELS = {
 }
 WF_KERNELS = ("linear_wf", "affine_wf_dist", "affine_wf", "affine_traceback")
 
-# LM serving (phase 9)
+# LM serving (phase 9) and StableLM-3B's prefill (phase 10)
 LM_ARCH = "smollm-135m"
 LM_BATCH, LM_SEQ = 1, 32_768    # prefill_32k's sequence; batch cut from 32
+STABLELM_ARCH = "stablelm-3b"
+# its logits are checked against the plain version's prefill at this S (>
+# ATTN_CHUNK_THRESHOLD, so every layer runs the flash kernel): at LM_SEQ
+# the plain prefill would take minutes
+STABLELM_CHECK_SEQ = 4096
 DEC_BATCH, DEC_PROMPT, DEC_NEW = 8, 32, 32
 DEC_CHECK_SEQ = 64
 # published dense peaks of the H100 SXM (NVIDIA's data sheet): the bound
@@ -167,14 +184,18 @@ FLASH_SWEEP = [(2, 128, 4, 2, 32, True, 64, 64),
                (1, 64, 4, 1, 64, True, 64, 32),
                (1, 100, 4, 2, 80, True, 100, 100),
                (1, 100, 4, 2, 128, False, 50, 100)]
-# bf16, on the tensor-core kernel (128-row query and key tiles): hd 64 and
-# 128, each causal and bidirectional; S ragged against the tiles (100: one
-# tile, its second 64-row warpgroup past S; 1,000) or whole (256, 384);
-# batch 2; KV = H and KV < H.  KV >= 2 and, causal, S > 128, so that each
-# planted fault changes the output
+# bf16, on the tensor-core kernel (128-row query and key tiles): hd 64, 80
+# and 128, each causal and bidirectional; S ragged against the tiles (100:
+# one tile, its second 64-row warpgroup past S; 1,000) or whole (256,
+# 384); batch 2; KV = H and KV < H.  KV >= 2 and, causal, S > 128, so that
+# each planted fault changes the output
 FLASH_BF16_SWEEP = [(2, 1000, 4, 2, 64, True, 1000, 500),
                     (1, 100, 4, 4, 64, False, 100, 100),
                     (2, 256, 6, 2, 64, False, 256, 128),
+                    (2, 1000, 8, 2, 80, True, 500, 1000),
+                    (1, 384, 4, 4, 80, True, 384, 384),
+                    (2, 256, 6, 2, 80, False, 256, 128),
+                    (1, 1000, 4, 4, 80, False, 1000, 1000),
                     (1, 1000, 8, 2, 128, True, 500, 1000),
                     (2, 1000, 8, 8, 128, False, 1000, 1000),
                     (1, 384, 8, 8, 128, True, 384, 384)]
@@ -182,12 +203,17 @@ FLASH_BF16_SWEEP = [(2, 1000, 4, 2, 64, True, 1000, 500),
 FLASH_LM_HEADS = [(9, 3, 64), (16, 8, 128)]
 FLASH_LM_SEQ = 4096
 # bf16 edges of the tensor-core kernel's tiles (64 rows a warpgroup, 128
-# a query or key tile), each S at hd 64 and 128, causal and bidirectional,
-# with (B, H, KV) = (1, 1, 1) and (3, 6, 2); checked against the plain
-# version only (with one KV head a wrong-head fault changes nothing)
+# a query or key tile), each S at hd 64, 80 and 128, causal and
+# bidirectional, with (B, H, KV) = (1, 1, 1) and (3, 6, 2); checked against
+# the plain version only (with one KV head a wrong-head fault changes
+# nothing)
 FLASH_EDGE_SEQS = (1, 2, 63, 65, 127, 129, 255, 257, 2049)
-# bf16 at hd=80 stays on the CUDA-core body: StableLM-3B's 32 heads of 80
+# StableLM-3B's 32 heads of 80 at S=4096: bf16 on the tensor-core kernel
+# (timed beside the CUDA-core body that served it before), and in float32
+# on the CUDA-core body; FLASH_HD32 in bf16 stays on the CUDA-core body.
+# Each is timed beside scaled_dot_product_attention
 FLASH_HD80 = (1, 4096, 32, 32, 80, True, 1024, 1024)
+FLASH_HD32 = (1, 4096, 32, 32, 32, True, 1024, 1024)
 # words in the names of cuBLAS's and CUTLASS's matrix-product kernels, by
 # which the prefill profile sums the GEMMs' device time
 GEMM_KERNEL_WORDS = ("gemm", "nvjet", "cutlass", "xmma")
@@ -394,25 +420,35 @@ def phase_minimizer_parity():
 
 
 def phase_parity():
-    """Each WF kernel against its plain version on generated pairs."""
+    """Each WF kernel against its plain version on generated pairs: at
+    every compiled eth (``ops.SUPPORTED_ETH``) on PARITY_R pairs of each
+    of PARITY_NS read lengths, then on the main path's geometry (timed)."""
     import torch
+    from repro_torch.kernels import ops
     rng = np.random.default_rng(11)
     dev = torch.device("cuda")
+    eths = ops.SUPPORTED_ETH
     for name, k in _kernels().items():
-        # ragged: R off every block size, short reads, another band; the
-        # traceback also with a max_ops that wraps
-        cases = [(1000, 37, 4, 2 * 37 + 2), (k["R"], N, ETH, MAX_OPS)]
+        # ragged: R off every block size, short and main-path reads, every
+        # band; the traceback also with a max_ops that wraps
+        cases = [(PARITY_R, n, eth, 2 * n + 2) for eth in eths
+                 for n in PARITY_NS]
         if name == "affine_traceback":
-            cases.insert(1, (1000, 37, 4, 40))
+            cases.append((PARITY_R, 37, 4, 40))
+        cases.append((k["R"], N, ETH, MAX_OPS))
         for R, n, eth, mo in cases:
             s1, s2 = pair_batch(rng, R, n, eth)
             a, b = torch.from_numpy(s1).to(dev), torch.from_numpy(s2).to(dev)
             got = k["run"](a, b, eth, mo)
             torch.cuda.synchronize()
-            _compare(f"{name} R={R} n={n} eth={eth}", got,
+            _compare(f"{name} R={R} n={n} eth={eth} max_ops={mo}", got,
                      k["plain"](a, b, eth, mo))
-            log(f"parity {name}: R={R} n={n} eth={eth} max_ops={mo}: "
-                f"bit-identical (tolerance 0: integer outputs)")
+        wrap = " (and 40 at n=37, eth=4)" if name == "affine_traceback" \
+            else ""
+        log(f"parity {name}: R={PARITY_R}, n in {PARITY_NS}, every eth in "
+            f"{eths[0]}..{eths[-1]}, max_ops 2n+2{wrap}; R={k['R']}, "
+            f"n={N}, eth={ETH}: bit-identical (tolerance 0: "
+            f"integer outputs)")
         R = k["R"]
         ms = cuda_ms(lambda: k["run"](a, b, ETH, MAX_OPS), k["reps"], 3)
         plain_ms = cuda_ms(lambda: k["plain"](a, b, ETH, MAX_OPS), 2, 1)
@@ -952,10 +988,10 @@ def flash_bound(q, k, causal):
 
 def _route(dtype, hd):
     """The kernel a CUDA input should reach (the rule the wrapper's
-    ``flash_kernel`` implements): the tensor-core kernel for bf16 at hd 64
-    and 128, the CUDA-core body for the rest."""
+    ``flash_kernel`` implements): the tensor-core kernel for bf16 at hd 64,
+    80 and 128, the CUDA-core body for the rest."""
     import torch
-    if dtype == torch.bfloat16 and hd in (64, 128):
+    if dtype == torch.bfloat16 and hd in (64, 80, 128):
         return "flash_attention_wgmma"
     return "flash_attention"
 
@@ -997,6 +1033,98 @@ def _cuda_core_flash(q, k, v, causal):
     return out
 
 
+def _sdpa(q, k, v, causal, flash_only):
+    """``scaled_dot_product_attention`` on the layers' (B, S, heads, hd)
+    tensors: -> (output in that layout, ms per call, the backend's name).
+    ``flash_only`` holds it to the flash backend; else PyTorch picks, and
+    the name is its pick (``torch._fused_sdp_choice``)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qT, kT, vT = (t.transpose(1, 2) for t in (q, k, v))
+    gqa = q.shape[2] != k.shape[2]
+
+    def call():
+        return F.scaled_dot_product_attention(qT, kT, vT, is_causal=causal,
+                                              enable_gqa=gqa)
+    if flash_only:
+        name, ctx = "FLASH_ATTENTION", sdpa_kernel(
+            [SDPBackend.FLASH_ATTENTION])
+    else:
+        pick = torch._fused_sdp_choice(qT, kT, vT, None, 0.0, causal,
+                                       enable_gqa=gqa)
+        name = next(n for n, b in SDPBackend.__members__.items()
+                    if int(b.value) == pick)
+        ctx = contextlib.nullcontext()
+    with ctx:
+        out = call()
+        ms = cuda_ms(call, 5, 1)
+    return out.transpose(1, 2), ms, name
+
+
+def _time_hd80(q, k, v, causal, qc, kc):
+    """bf16 hd=80 (checked by the caller): the tensor-core kernel, the
+    CUDA-core body that served it before (checked here too) and
+    ``scaled_dot_product_attention`` (flash backend), timed on the same
+    inputs.  -> the numbers for the kernels JSON row."""
+    from repro_torch.kernels import ops
+    ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
+                                             q_chunk=qc, kv_chunk=kc), 5, 1)
+    core_share = _flash_close("the CUDA-core body at hd=80", _cuda_core_flash(
+        q, k, v, causal), _flash_plain(q, k, v, causal, qc, kc))[1]
+    core_ms = cuda_ms(lambda: _cuda_core_flash(q, k, v, causal), 3, 1)
+    _, lib_ms, _ = _sdpa(q, k, v, causal, flash_only=True)
+    b_ms, b_by = flash_bound(q, k, causal)
+    flops = attention_flops(*q.shape, causal)
+    log(f"timing flash_attention {tuple(q.shape)} causal={causal} bfloat16 "
+        f"(tensor cores): {ms:.4f} ms/call ({flops / ms / 1e9:.2f} TFLOP/s), "
+        f"the CUDA-core body {core_ms:.4f} ms ({core_share:.3g} x the "
+        f"tolerance; {core_ms / ms:.2f}x the time), "
+        f"scaled_dot_product_attention (flash backend) {lib_ms:.4f} ms "
+        f"({lib_ms / ms:.2f}x the kernel's time), bound {b_ms:.4f} ms "
+        f"({b_by}), {b_ms / ms:.2%} of bound")
+    return dict(shape=list(q.shape), causal=causal, ms=ms, core_ms=core_ms,
+                library_ms=lib_ms, bound_ms=b_ms)
+
+
+def _time_cuda_core_body(rng):
+    """The shapes that stay on the CUDA-core body: FLASH_HD80's in float32
+    and FLASH_HD32's in bf16, each checked against its plain version and
+    timed beside ``scaled_dot_product_attention`` (float32: the backend
+    PyTorch picks; bf16: the flash backend).  -> {name: numbers}."""
+    import torch
+    from repro_torch.kernels import ops
+    out = {}
+    for key, case, dtype in (("body_f32_hd80", FLASH_HD80, torch.float32),
+                             ("body_bf16_hd32", FLASH_HD32, torch.bfloat16)):
+        B, S, H, KV, hd, causal, qc, kc = case
+        q, k, v = _qkv_inputs(rng, B, S, H, KV, hd, dtype)
+        what = (f"flash_attention B={B} S={S} H={H} KV={KV} hd={hd} "
+                f"causal={causal} {str(dtype)[6:]}")
+        got = _flash_launch(what, q, k, v, causal, qc, kc)
+        want = _flash_plain(q, k, v, causal, qc, kc)
+        if dtype == torch.float32:
+            err = _close(what, got, want, FLASH_F32_TOL)
+            check = f"max |diff| {err:.3g} (tolerance {FLASH_F32_TOL})"
+        else:
+            err, share = _flash_close(what, got, want)
+            check = f"{share:.3g} x the tolerance"
+        ms = cuda_ms(lambda: ops.flash_attention(
+            q, k, v, causal=causal, q_chunk=qc, kv_chunk=kc), 3, 1)
+        _, lib_ms, backend = _sdpa(q, k, v, causal,
+                                   flash_only=dtype == torch.bfloat16)
+        b_ms, b_by = flash_bound(q, k, causal)
+        log(f"timing {what} (CUDA-core body): {check}; {ms:.4f} ms/call "
+            f"({attention_flops(*q.shape, causal) / ms / 1e9:.2f} TFLOP/s), "
+            f"scaled_dot_product_attention ({backend} backend) "
+            f"{lib_ms:.4f} ms ({ms / lib_ms:.2f}x its time in the body), "
+            f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.2%} of bound")
+        out[key] = dict(shape=list(q.shape), dtype=str(dtype)[6:],
+                        causal=causal, ms=ms, library_ms=lib_ms,
+                        library_backend=backend, bound_ms=b_ms)
+    return out
+
+
 def phase_flash_parity():
     """Both flash-attention kernels against their plain version on
     generated inputs, and the planted faults against the bf16 check.
@@ -1025,15 +1153,8 @@ def phase_flash_parity():
         log(f"parity {what} ({_route(q.dtype, hd)}): max |diff| {err:.3g}, "
             f"{share:.3g} x the tolerance")
         _check_faults(what, q, k, v, causal, qc, kc, want)
-    ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
-                                             q_chunk=qc, kv_chunk=kc), 5, 1)
-    b_ms, b_by = flash_bound(q, k, causal)
-    timing["hd80"] = dict(shape=list(q.shape), causal=causal, ms=ms,
-                          bound_ms=b_ms)
-    log(f"timing flash_attention {tuple(q.shape)} hd={hd} causal={causal} "
-        f"bfloat16 (CUDA-core body): {ms:.4f} ms/call "
-        f"({attention_flops(*q.shape, causal) / ms / 1e9:.2f} TFLOP/s), "
-        f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.2%} of bound")
+    timing["hd80"] = _time_hd80(q, k, v, causal, qc, kc)
+    timing.update(_time_cuda_core_body(rng))
     S = FLASH_LM_SEQ
     for H, KV, hd in FLASH_LM_HEADS:
         for causal in (True, False):
@@ -1075,7 +1196,7 @@ def phase_flash_parity():
     del buf, q
     worst, n = 0.0, 0
     for S in FLASH_EDGE_SEQS:
-        for hd in (64, 128):
+        for hd in (64, 80, 128):
             for causal in (True, False):
                 for B, H, KV in ((1, 1, 1), (3, 6, 2)):
                     q, k, v = _qkv_inputs(rng, B, S, H, KV, hd,
@@ -1195,20 +1316,13 @@ def _logits_close(what, got, want, tol):
     return rel
 
 
-def phase_lm(timing):
-    """SmolLM-135M serving at full width: prefill through the tensor-core
-    flash kernel, decode, generation.  ``timing``: phase_flash_parity's.
-    -> the flash kernel's JSON row."""
+def _draw_params(arch):
+    """``arch``'s config at full width and its weights drawn on the card
+    from seed 0.  -> (cfg, params)."""
     import torch
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
-    from repro_torch.models import lm, transformer
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config(LM_ARCH)
+    from repro_torch.models import transformer
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = transformer.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0))
@@ -1216,14 +1330,19 @@ def phase_lm(timing):
     n_params = sum(p.numel() for p in params.parameters())
     log(f"LM: {cfg.arch} at full width ({cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
-        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}): "
-        f"{n_params:,} parameters drawn on the card from seed 0 in "
-        f"{time.perf_counter() - t0:.2f} s; TF32 off for matmuls and cuDNN")
-    rng = np.random.default_rng(13)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
-        LM_BATCH, LM_SEQ))).cuda()
-    prefill = lm.make_prefill_step(cfg)
-    prefill(params, {"tokens": toks[:, :FLASH_LM_SEQ]})    # warm-up
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, norm "
+        f"{cfg.norm}): {n_params:,} parameters drawn on the card from seed 0 "
+        f"in {time.perf_counter() - t0:.2f} s; TF32 off for matmuls and "
+        f"cuDNN")
+    return cfg, params
+
+
+def _timed_prefill(prefill, params, toks, cfg):
+    """One prefill, timed on the host clock around a synchronise; raises
+    unless it launched the tensor-core flash kernel once a layer and gave
+    (B, vocab) logits.  -> (logits, seconds)."""
+    import torch
+    from repro_torch.kernels import ops
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()     # weights, earlier phases
@@ -1239,26 +1358,35 @@ def phase_lm(timing):
                              f"{launches} of them the tensor-core kernel, "
                              f"not once per layer ({cfg.n_layers}) on the "
                              f"tensor cores")
-    if tuple(logits.shape) != (LM_BATCH, cfg.vocab_size):
+    B, S = toks.shape
+    if tuple(logits.shape) != (B, cfg.vocab_size):
         raise AssertionError(f"prefill logits {tuple(logits.shape)}")
-    log(f"prefill: B={LM_BATCH} S={LM_SEQ:,} in {dt:.3f} s = "
-        f"{LM_BATCH * LM_SEQ / dt:,.0f} tokens/s; flash_attention launches "
+    log(f"prefill {cfg.arch}: B={B} S={S:,} in {dt:.3f} s = "
+        f"{B * S / dt:,.0f} tokens/s; flash_attention launches "
         f"{launches}, all on the tensor cores; peak device memory "
         f"{(torch.cuda.max_memory_allocated() - held) / 1e9:.3f} GB above "
         f"the {held / 1e9:.3f} GB held before it")
-    profile = _profile_prefill(prefill, params, toks)
+    return logits, dt
 
-    # the same prefill on the plain version (keeping layer 0's inputs) and
-    # with each planted fault: readings first, then the checks
+
+def _logits_check(prefill, params, toks, logits, tol):
+    """The last-token ``logits`` of a kernel prefill on ``toks`` against a
+    prefill on the kernel's plain version, and the prefills with planted
+    faults against the same: the readings first, then the checks (sound
+    within ``tol`` with the same argmax; every fault beyond it).  -> (the
+    plain prefill's layer-0 flash inputs, the sound reading, {fault:
+    reading})."""
+    import torch
     with FlashInputs(_flash_plain) as kept:
         t0 = time.perf_counter()
         plain_logits = prefill(params, {"tokens": toks})
         torch.cuda.synchronize()
         plain_dt = time.perf_counter() - t0
     rel, same = _logits_diff("prefill logits", logits, plain_logits)
-    log(f"prefill on the plain version: {plain_dt:.3f} s; last-token logits "
-        f"against the kernel prefill's: max |diff| / max |logit| = "
-        f"{rel:.4g} (tolerance {LOGITS_TOL}), same argmax: {same}")
+    log(f"prefill at S={toks.shape[1]:,} on the plain version: "
+        f"{plain_dt:.3f} s; last-token logits against the kernel prefill's: "
+        f"max |diff| / max |logit| = {rel:.4g} (tolerance {tol}), same "
+        f"argmax: {same}")
     fault_rel = {}
     for name in LOGITS_FAULTS:
         t0 = time.perf_counter()
@@ -1268,41 +1396,46 @@ def phase_lm(timing):
         dt_f = time.perf_counter() - t0
         log(f"prefill with {name} in every layer ({dt_f:.3f} s): last-token "
             f"logits max |diff| / max |logit| = {fault_rel[name]:.4g}")
-    if rel > LOGITS_TOL or not same:
+    if rel > tol or not same:
         raise AssertionError("prefill logits, kernel against plain: beyond "
                              "the tolerance")
-    passed = [n for n, r in fault_rel.items() if r <= LOGITS_TOL]
+    passed = [n for n, r in fault_rel.items() if r <= tol]
     if passed:
         raise AssertionError(f"planted faults pass the logits check: "
                              f"{passed}")
+    return kept.first, rel, fault_rel
 
-    q, k, v, causal, qc, kc = kept.first
+
+def _layer0(first, what):
+    """The flash kernel on one prefill's layer-0 q, k, v: against its
+    plain version and the planted faults, then timed beside the CUDA-core
+    body, the plain version and ``scaled_dot_product_attention`` (flash
+    backend).  -> the numbers for the kernels JSON row."""
+    import torch
+    from repro_torch.kernels import ops
+    q, k, v, causal, qc, kc = first
     got = ops.flash_attention(q, k, v, causal=causal, q_chunk=qc,
                               kv_chunk=kc)
     torch.cuda.synchronize()
     want = _flash_plain(q, k, v, causal, qc, kc)
-    err, share = _flash_close("flash_attention on layer 0 of the prefill",
-                              got, want)
-    _check_faults("layer 0 of the prefill", q, k, v, causal, qc, kc, want)
+    err, share = _flash_close(f"flash_attention on layer 0 of {what}", got,
+                              want)
+    _check_faults(f"layer 0 of {what}", q, k, v, causal, qc, kc, want)
     ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
                                              q_chunk=qc, kv_chunk=kc), 5, 1)
     core = _cuda_core_flash(q, k, v, causal)
     torch.cuda.synchronize()
-    core_share = _flash_close("the CUDA-core body on layer 0 of the prefill",
+    core_share = _flash_close(f"the CUDA-core body on layer 0 of {what}",
                               core, want)[1]
+    del core, want
     core_ms = cuda_ms(lambda: _cuda_core_flash(q, k, v, causal), 2, 1)
     plain_ms = cuda_ms(lambda: _flash_plain(q, k, v, causal, qc, kc), 1, 1)
     bidir_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=False),
                        2, 1)
-    qT, kT, vT = (t.transpose(1, 2) for t in (q, k, v))
-    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
-        lib = F.scaled_dot_product_attention(qT, kT, vT, is_causal=causal,
-                                             enable_gqa=True)
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qT, kT, vT, is_causal=causal, enable_gqa=True), 5, 1)
-    lib_err = float((lib.transpose(1, 2).float() - got.float()).abs().max())
+    lib, lib_ms, _ = _sdpa(q, k, v, causal, flash_only=True)
+    lib_err = float((lib.float() - got.float()).abs().max())
     b_ms, b_by = flash_bound(q, k, causal)
-    log(f"flash_attention, layer 0 of the prefill: q {tuple(q.shape)} "
+    log(f"flash_attention, layer 0 of {what}: q {tuple(q.shape)} "
         f"{q.dtype}: max |diff| against the plain version {err:.3g}, "
         f"{share:.3g} x the tolerance; {ms:.4f} ms/call "
         f"({attention_flops(*q.shape, causal) / ms / 1e9:.2f}"
@@ -1315,6 +1448,32 @@ def phase_lm(timing):
         f"bound; the same tensors bidirectional {bidir_ms:.3f} ms "
         f"({attention_flops(*q.shape, False) / bidir_ms / 1e9:.2f} "
         f"TFLOP/s)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, shape=list(q.shape),
+                dtype=str(q.dtype)[6:], tolerance_share=share,
+                bidirectional_ms=bidir_ms, cuda_core_body_ms=core_ms)
+
+
+def phase_lm(timing):
+    """SmolLM-135M serving at full width: prefill through the tensor-core
+    flash kernel, decode, generation.  ``timing``: phase_flash_parity's.
+    -> the flash kernel's JSON row."""
+    import torch
+    from repro_torch.models import lm, transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, params = _draw_params(LM_ARCH)
+    rng = np.random.default_rng(13)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        LM_BATCH, LM_SEQ))).cuda()
+    prefill = lm.make_prefill_step(cfg)
+    prefill(params, {"tokens": toks[:, :FLASH_LM_SEQ]})    # warm-up
+    logits, dt = _timed_prefill(prefill, params, toks, cfg)
+    profile = _profile_prefill(prefill, params, toks)
+    # the same prefill on the plain version keeps layer 0's inputs
+    first, _, _ = _logits_check(prefill, params, toks, logits, LOGITS_TOL)
+    row = _layer0(first, "the SmolLM-135M prefill")
 
     # decode against forward, step by step over DEC_CHECK_SEQ tokens
     serve = lm.make_serve_step(cfg)
@@ -1354,16 +1513,52 @@ def phase_lm(timing):
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
                 replaces="src/repro/kernels/flash_attention.py:84",
-                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                shape=list(q.shape), dtype=str(q.dtype)[6:],
-                tolerance_share=share, bidirectional_ms=bidir_ms,
+                launches=cfg.n_layers, **row,
                 prefill_tokens_per_s=LM_BATCH * LM_SEQ / dt,
                 prefill_profile=profile, hd128_s4096=timing["lm4096"],
                 cuda_core_body=dict(
                     source="src/repro_torch/kernels/csrc/flash_attention.cu",
-                    serves="float32; bfloat16 at hd 16, 32, 80",
-                    layer0_ms=core_ms, hd80=timing["hd80"]))
+                    serves="float32; bfloat16 at hd 16, 32",
+                    **{key: timing[key] for key in ("body_f32_hd80",
+                                                    "body_bf16_hd32")}))
+
+
+def phase_stablelm(timing):
+    """StableLM-3B's prefill at full width (hd=80 on the tensor-core flash
+    kernel): the timed 32,768-token prefill, its profile, the kernel on
+    layer 0's inputs, and the logits against the plain version's at
+    STABLELM_CHECK_SEQ.  ``timing``: phase_flash_parity's.  -> the hd=80
+    kernel's JSON row."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    torch.cuda.empty_cache()
+    log(f"device memory held before the model: "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    cfg, params = _draw_params(STABLELM_ARCH)
+    rng = np.random.default_rng(17)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        LM_BATCH, LM_SEQ))).cuda()
+    prefill = lm.make_prefill_step(cfg)
+    # warm-up at the full length, keeping the kernel's layer-0 inputs
+    kernel = ops.flash_attention
+    with FlashInputs(lambda q, k, v, c, qc, kc: kernel(
+            q, k, v, causal=c, q_chunk=qc, kv_chunk=kc)) as kept:
+        prefill(params, {"tokens": toks})
+    _, dt = _timed_prefill(prefill, params, toks, cfg)
+    profile = _profile_prefill(prefill, params, toks)
+    row = _layer0(kept.first, "the StableLM-3B prefill")
+    del kept
+    short = toks[:, :STABLELM_CHECK_SEQ]
+    logits, _ = _timed_prefill(prefill, params, short, cfg)
+    _logits_check(prefill, params, short, logits, LOGITS_TOL)
+    return dict(name="flash_attention_hd80", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+                replaces="src/repro/kernels/flash_attention.py:84",
+                launches=cfg.n_layers, **row,
+                prefill_tokens_per_s=LM_BATCH * LM_SEQ / dt,
+                prefill_profile=profile, hd80_s4096=timing["hd80"])
 
 
 def main() -> int:
@@ -1394,9 +1589,13 @@ def main() -> int:
     phase_done("7 map_fastq")
     rows = phase_mainpath_kernels(runs)
     rows["minimizer_scan"] = mini_row
+    del runs, compacted                     # the kept kernel inputs
     phase_done("8 main-path kernels")
-    rows["flash_attention"] = phase_lm(phase_flash_parity())
+    timing = phase_flash_parity()
+    rows["flash_attention"] = phase_lm(timing)
     phase_done("9 LM serving")
+    rows["flash_attention_hd80"] = phase_stablelm(timing)
+    phase_done("10 StableLM-3B prefill")
     log(f"total {time.perf_counter() - t_all:.2f} s")
     log(smi)
     print(json.dumps({"kernels": list(rows.values())}))

@@ -21,6 +21,7 @@ from concurrent.futures import Future, ThreadPoolExecutor
 import numpy as np
 import torch
 
+from ..kernels import ops
 from . import streaming
 from .device import resolve_device
 from .encoding import revcomp
@@ -181,6 +182,19 @@ def _reduce_strands(res: MappingResult, n: int) -> MappingResult:
         n_candidates=pick(res.n_candidates), stats=stats)
 
 
+def check_card_geometry(cfg: MapperConfig, device: torch.device) -> None:
+    """Refuses, with a ValueError naming the field, a configuration that
+    the Hopper WF kernels do not take (``kernels.ops.check_wf_geometry``)
+    when ``cfg`` runs them: ``wf_backend="cuda"`` on a CUDA ``device``.
+    The fused traceback's bound counts where an engine launches it (not
+    the padded engine, not ``cigar_mode="off"``).  Elsewhere the plain
+    versions take any geometry, and nothing is checked."""
+    if device.type == "cuda" and cfg.wf_backend == "cuda":
+        ops.check_wf_geometry(cfg.eth, cfg.read_len, cfg.sat_affine,
+                              traceback=(cfg.engine != "padded"
+                                         and cfg.cigar_mode != "off"))
+
+
 class Mapper:
     """Read-mapping session: placed index + plan cache + executor.
 
@@ -196,7 +210,9 @@ class Mapper:
     device : torch device, optional
         Where the index lives and the stages run.  None means the CUDA
         card; with no GPU present that raises, and ``device="cpu"`` runs
-        the kernels' plain versions on the CPU.
+        the kernels' plain versions on the CPU.  On the card, a geometry
+        the kernels do not take raises here (``check_card_geometry``),
+        before the index is placed.
     """
 
     def __init__(self, index: GenomeIndex, cfg: MapperConfig | None = None,
@@ -214,6 +230,7 @@ class Mapper:
         self.cfg = cfg or MapperConfig.from_index(index)
         self.topology = topology
         self.device = resolve_device(device)
+        check_card_geometry(self.cfg, self.device)
         self.index = index
         self._plan_cache: dict[tuple, _ChunkPipeline] = {}
         self.plan_cache_hits = 0

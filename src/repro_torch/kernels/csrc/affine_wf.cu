@@ -58,12 +58,10 @@ template <bool EMIT>
 static int launch_eth(int R, int n, int eth, int sat, int threads, int smem,
                       void* stream, const uint8_t* a, const uint8_t* b,
                       int32_t* o, uint8_t* d) {
-  switch (eth) {
-    case 4: return wf::launch<affine_wf_kernel<4, EMIT>>(R, threads, smem, stream, a, b, o, d, R, n, sat);
-    case 6: return wf::launch<affine_wf_kernel<6, EMIT>>(R, threads, smem, stream, a, b, o, d, R, n, sat);
-    case 8: return wf::launch<affine_wf_kernel<8, EMIT>>(R, threads, smem, stream, a, b, o, d, R, n, sat);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return wf::by_eth(eth, [&](auto e) {
+    return wf::launch<affine_wf_kernel<decltype(e)::value, EMIT>>(
+        R, threads, smem, stream, a, b, o, d, R, n, sat);
+  });
 }
 
 extern "C" int affine_wf_dist_launch(const void* s1, const void* s2, void* out,

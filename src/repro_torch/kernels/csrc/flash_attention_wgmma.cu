@@ -1,10 +1,10 @@
-// Flash attention on Hopper's tensor cores: bfloat16, head_dim 64 or 128,
-// causal or bidirectional, GQA.
+// Flash attention on Hopper's tensor cores: bfloat16, head_dim 64, 80 or
+// 128, causal or bidirectional, GQA.
 //
 // Replaces the Pallas kernel flash_attention_pallas
 // (src/repro/kernels/flash_attention.py:69, its body _kernel at :27) for the
-// inputs the LM prefill gives it; float32 inputs and bf16 at head dims 16,
-// 32 and 80 stay on the CUDA-core body, flash_attention.cu.  For each batch
+// inputs the LM prefill gives it; float32 inputs and bf16 at head dims 16
+// and 32 stay on the CUDA-core body, flash_attention.cu.  For each batch
 // row b, query head h and query position i it computes
 //   softmax_j(q_i . k_j / sqrt(hd), j <= i when causal) . v_j
 // with k and v read from KV head h // (H / KV): f32 scores, masked scores
@@ -16,8 +16,8 @@
 // rounding only:
 //   * the scale multiplies the f32 product q.k instead of q before it.
 //     At hd=64 the scale is 1/8, exact, so the scores equal the Pallas
-//     body's up to the order of the sum; at hd=128 they differ by at most
-//     an f32 ulp of each score;
+//     body's up to the order of the sum; at hd=80 and 128 they differ by
+//     at most an f32 ulp of each score;
 //   * the exp2 form: p = 2^(s * c - m * c) with c = scale * log2(e) folded
 //     into one f32 constant, the max m taken over the unscaled scores (c
 //     > 0, so the same key), and ex2.approx (relative error below 2^-22).
@@ -39,16 +39,20 @@
 //     warpgroup 40 registers) and two consumers of 64 query rows each (232
 //     registers).  Causal query tiles launch longest first, so that the
 //     short ones fill the tail;
-//   * TMA loads, 64-column boxes (128 bytes, two boxes at hd=128) with
-//     128-byte swizzle, over the (B, S, heads, hd) layout with its strides
-//     (64-bit, so a 2^31-element batch stride works); KV head h // rep is
-//     read in place, L2 serving its reuse across the rep query heads.  Q
-//     is loaded once; K and V tiles of 128 keys stream through a ring of
-//     two stages with separate buffers and full/empty mbarriers, so V_j
-//     lands while S_j = Q.K_j^T runs and tile j+1 while tile j is used.
-//     TMA zero-fills rows past S;
+//   * TMA loads, 64-column boxes (128 bytes, two boxes at hd=80 and 128)
+//     with 128-byte swizzle, over the (B, S, heads, hd) layout with its
+//     strides (64-bit, so a 2^31-element batch stride works); KV head
+//     h // rep is read in place, L2 serving its reuse across the rep query
+//     heads.  Q is loaded once; K and V tiles of 128 keys stream through a
+//     ring of two stages with separate buffers and full/empty mbarriers, so
+//     V_j lands while S_j = Q.K_j^T runs and tile j+1 while tile j is used.
+//     TMA zero-fills rows past S and, at hd=80, columns 80-127 of the
+//     second box: the map's dim 0 is hd, so only the 16 real columns are
+//     read from device memory, and each box still completes its whole
+//     16 KB of transaction bytes;
 //   * S_j on wgmma m64n128k16 (bf16 x bf16 -> f32) with Q and K_j K-major
-//     in shared memory;
+//     in shared memory, hd / 16 k-steps of 32 bytes (five at hd=80, the
+//     fifth the first 32 bytes of box 1: no product on the zero fill);
 //   * the online softmax on the accumulator fragment in registers: each
 //     thread holds two rows, a quad of threads a row; the row max is
 //     reduced over the quad with shuffles, the row sum kept per thread
@@ -60,7 +64,8 @@
 //   * P.V on wgmma with A = P from registers: the f32 accumulator of
 //     S_j, converted pairwise to bf16, is the A fragment of P.V (the same
 //     row and column in the same thread): no shared-memory round trip.
-//     B = V_j in shared memory, MN-major through the transpose bit;
+//     B = V_j in shared memory, MN-major through the transpose bit, N =
+//     hd (m64n80k16 at hd=80: box 0's 64 columns and box 1's first 16);
 //   * the epilogue divides by max(l, 1e-30), rounds once to bf16 and
 //     stores the rows below S.
 #include <cstdint>
@@ -81,13 +86,15 @@ constexpr float NEG = -1e30f;
 
 // Shared memory, every tile 1024-byte aligned (the swizzle atom: 8 rows
 // of 128 bytes): Q (BQ rows), then STAGES K tiles, STAGES V tiles (BK
-// rows each), each as HD / 64 boxes of 64 columns; then the barriers.
+// rows each), each as ceil(HD / 64) boxes of 64 columns; then the
+// barriers.
 template <int HD>
 struct Layout {
+  static constexpr int NBOX = (HD + BOX - 1) / BOX;
   static constexpr int Q_BOX = BQ * ROW_BYTES;
   static constexpr int KV_BOX = BK * ROW_BYTES;
-  static constexpr int Q_BYTES = HD / BOX * Q_BOX;
-  static constexpr int KV_BYTES = HD / BOX * KV_BOX;
+  static constexpr int Q_BYTES = NBOX * Q_BOX;
+  static constexpr int KV_BYTES = NBOX * KV_BOX;
   static constexpr int K_OFF = Q_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
   static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
@@ -247,6 +254,32 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 80, f32) += A (64 x 16) . B (16 x 80); A bf16 in registers (the
+// accumulator layout, two values a register), B bf16 in shared memory,
+// MN-major (transposed), 128-byte swizzle: columns 64-79 are the first 16
+// of the next 64-column box, the leading byte offset further on.
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // D (64 x 128, f32) += A (64 x 16) . B (16 x 128); A bf16 in registers (the
 // accumulator layout, two values a register), B bf16 in shared memory,
 // MN-major (transposed), 128-byte swizzle.
@@ -282,7 +315,7 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
 
 // S += or = the consumer's 64 query rows . K tile^T, over HD in steps of
 // 16: A (Q) and B (K) K-major, each step 32 bytes into a 128-byte row of a
-// box, the next box after four steps.
+// box, the next box after four steps (at HD=80 one step into box 1).
 template <int HD>
 __device__ __forceinline__ void scores(float (&s)[64], uint32_t q,
                                        uint32_t k) {
@@ -307,6 +340,8 @@ __device__ __forceinline__ void pv(float (&acc)[HD / 2], const uint32_t* p,
                                   Layout<HD>::KV_BOX, 1024);
     if constexpr (HD == 64)
       wgmma_rs_n64(acc, p + 4 * kt, d);
+    else if constexpr (HD == 80)
+      wgmma_rs_n80(acc, p + 4 * kt, d);
     else
       wgmma_rs_n128(acc, p + 4 * kt, d);
   }
@@ -352,7 +387,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     if (threadIdx.x == 0) {
       const int g = h / rep;
       mbar_expect_tx(bar_q(bar), L::Q_BYTES);
-      for (int c0 = 0; c0 < HD / BOX; ++c0)
+      for (int c0 = 0; c0 < L::NBOX; ++c0)
         tma_load(sq + c0 * L::Q_BOX, &qmap, bar_q(bar), c0 * BOX, h, q0, b);
       for (int j = 0; j < nk; ++j) {
         // round j / STAGES of slot s waits for the consumers' release of
@@ -363,12 +398,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         const uint32_t sv = base + L::V_OFF + s * L::KV_BYTES;
         mbar_wait(bar_k_empty(bar, s), ph ^ 1);
         mbar_expect_tx(bar_k_full(bar, s), L::KV_BYTES);
-        for (int c0 = 0; c0 < HD / BOX; ++c0)
+        for (int c0 = 0; c0 < L::NBOX; ++c0)
           tma_load(sk + c0 * L::KV_BOX, &kmap, bar_k_full(bar, s), c0 * BOX,
                    g, j * BK, b);
         mbar_wait(bar_v_empty(bar, s), ph ^ 1);
         mbar_expect_tx(bar_v_full(bar, s), L::KV_BYTES);
-        for (int c0 = 0; c0 < HD / BOX; ++c0)
+        for (int c0 = 0; c0 < L::NBOX; ++c0)
           tma_load(sv + c0 * L::KV_BOX, &vmap, bar_v_full(bar, s), c0 * BOX,
                    g, j * BK, b);
       }
@@ -537,7 +572,7 @@ bool tma_ok(const void* p, int64_t s0, int64_t s1, int64_t s2) {
 
 }  // namespace
 
-// bfloat16 only; hd 64 or 128.  Strides are in elements: (batch, seq,
+// bfloat16 only; hd 64, 80 or 128.  Strides are in elements: (batch, seq,
 // head) of q, of k and v (equal), and of o; head_dim is contiguous.  q, k
 // and v must be 16-byte aligned with strides of a multiple of 16 bytes
 // (the TMA's rules): the wrapper checks, and so does this entry.
@@ -546,7 +581,7 @@ extern "C" int flash_attention_wgmma_launch(
     int H, int KV, int hd, int causal, float scale, int64_t qsb,
     int64_t qss, int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
     int64_t osb, int64_t oss, int64_t osh, void* stream) {
-  if (KV <= 0 || H % KV || (hd != 64 && hd != 128))
+  if (KV <= 0 || H % KV || (hd != 64 && hd != 80 && hd != 128))
     return cudaErrorInvalidValue;
   if (!tma_ok(q, qsb, qss, qsh) || !tma_ok(k, ksb, kss, ksh) ||
       !tma_ok(v, ksb, kss, ksh))
@@ -562,5 +597,7 @@ extern "C" int flash_attention_wgmma_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd == 64)
     return launch<64>(qm, km, vm, o, B, S, H, KV, causal, c, osb, oss, osh, s);
+  if (hd == 80)
+    return launch<80>(qm, km, vm, o, B, S, H, KV, causal, c, osb, oss, osh, s);
   return launch<128>(qm, km, vm, o, B, S, H, KV, causal, c, osb, oss, osh, s);
 }

@@ -82,10 +82,8 @@ extern "C" int linear_wf_launch(const void* s1, const void* s2, void* out,
   auto* a = (const uint8_t*)s1;
   auto* b = (const uint8_t*)s2;
   auto* o = (int32_t*)out;
-  switch (eth) {
-    case 4: return wf::launch<linear_wf_kernel<4>>(R, threads, smem, stream, a, b, o, R, n);
-    case 6: return wf::launch<linear_wf_kernel<6>>(R, threads, smem, stream, a, b, o, R, n);
-    case 8: return wf::launch<linear_wf_kernel<8>>(R, threads, smem, stream, a, b, o, R, n);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return wf::by_eth(eth, [&](auto e) {
+    return wf::launch<linear_wf_kernel<decltype(e)::value>>(
+        R, threads, smem, stream, a, b, o, R, n);
+  });
 }

@@ -86,10 +86,8 @@ extern "C" int affine_traceback_launch(const void* s1, const void* s2,
   auto* dd = (int32_t*)dists;
   auto* o = (int32_t*)ops;
   auto* c = (int32_t*)cnt;
-  switch (eth) {
-    case 4: return wf::launch<affine_traceback_kernel<4>>(R, threads, smem, stream, a, b, dd, o, c, R, n, sat, max_ops);
-    case 6: return wf::launch<affine_traceback_kernel<6>>(R, threads, smem, stream, a, b, dd, o, c, R, n, sat, max_ops);
-    case 8: return wf::launch<affine_traceback_kernel<8>>(R, threads, smem, stream, a, b, dd, o, c, R, n, sat, max_ops);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return wf::by_eth(eth, [&](auto e) {
+    return wf::launch<affine_traceback_kernel<decltype(e)::value>>(
+        R, threads, smem, stream, a, b, dd, o, c, R, n, sat, max_ops);
+  });
 }

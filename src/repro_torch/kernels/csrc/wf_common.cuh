@@ -13,11 +13,33 @@
 
 #include <cstdint>
 #include <mutex>
+#include <type_traits>
+#include <utility>
 #include <cuda_runtime.h>
 
 namespace wf {
 
 constexpr int OP_MATCH = 0, OP_SUB = 1, OP_INS = 2, OP_DEL = 3, OP_NONE = 4;
+
+// Every kernel is compiled for each band half-width 0..MAX_ETH (the
+// wrappers' ops.SUPPORTED_ETH).  At ETH=12 the affine pass keeps five
+// 25-cell arrays in registers.
+constexpr int MAX_ETH = 12;
+
+template <typename F, int... E>
+int by_eth(int eth, F&& f, std::integer_sequence<int, E...>) {
+  int rc = (int)cudaErrorInvalidValue;
+  (void)((eth == E && ((rc = f(std::integral_constant<int, E>{})), true)) ||
+         ...);
+  return rc;
+}
+
+// f(std::integral_constant<int, eth>{}) for eth in [0, MAX_ETH], so that f
+// can launch the instance of that eth; cudaErrorInvalidValue for any other.
+template <typename F>
+int by_eth(int eth, F&& f) {
+  return by_eth(eth, f, std::make_integer_sequence<int, MAX_ETH + 1>{});
+}
 
 // Copy a block's input rows, which are contiguous in device memory, into
 // shared memory with all threads: neighbouring threads read neighbouring

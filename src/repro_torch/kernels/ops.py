@@ -30,7 +30,7 @@ from . import build
 LAUNCHES = {"linear_wf": 0, "affine_wf_dist": 0, "affine_wf": 0,
             "affine_traceback": 0, "minimizer_scan": 0,
             "flash_attention": 0, "flash_attention_wgmma": 0}
-SUPPORTED_ETH = (4, 6, 8)   # template instances compiled into csrc/
+SUPPORTED_ETH = tuple(range(13))  # instances 0..wf::MAX_ETH (wf_common.cuh)
 MAX_SAT = 85                # above it the reference's int8 values wrap
 SMEM_LIMIT = 232_448        # dynamic shared memory a Hopper block may use
 THREADS = 128               # linear / affine block size
@@ -39,7 +39,7 @@ MINI_THREADS = 256          # minimizer block size
 MINI_WINDOWS = 1024         # windows a minimizer block aims to cover
 FLASH_HEAD_DIMS = (16, 32, 64, 80, 128)  # head_dim instances compiled
 FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-FLASH_WGMMA_HEAD_DIMS = (64, 128)  # bf16 head dims of the tensor-core kernel
+FLASH_WGMMA_HEAD_DIMS = (64, 80, 128)  # bf16 head dims, tensor-core kernel
 TMA_ALIGN = 16              # bytes: a TMA load's base and strides
 
 
@@ -74,17 +74,48 @@ def _is_cuda(t: torch.Tensor) -> bool:
     return True
 
 
+def _check_eth_sat(eth: int, sat: int | None) -> None:
+    if eth not in SUPPORTED_ETH:
+        raise ValueError(f"eth={eth} has no compiled kernel instance; "
+                         f"supported: {SUPPORTED_ETH[0]}..{SUPPORTED_ETH[-1]}")
+    if sat is not None and not 0 <= sat <= MAX_SAT:
+        raise ValueError(f"sat={sat} outside [0, {MAX_SAT}]: the "
+                         f"reference's int8 band values would wrap")
+
+
+def _staged_smem(n: int, eth: int) -> int:
+    """Shared memory of a linear or affine block, which stages its THREADS
+    reads and windows; raises when it exceeds a block's."""
+    smem = THREADS * (2 * n + 2 * eth)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"read_len={n}, eth={eth}: {THREADS} reads and "
+                         f"windows ({smem} B) do not fit in {SMEM_LIMIT} B "
+                         f"of shared memory")
+    return smem
+
+
+def check_wf_geometry(eth: int, read_len: int, sat: int, *,
+                      traceback: bool = True) -> None:
+    """Raises ValueError, naming the field, unless the WF kernels take
+    reads of ``read_len`` at band half-width ``eth`` and affine saturation
+    ``sat`` on the card: ``eth`` in ``SUPPORTED_ETH``, ``sat`` in [0,
+    ``MAX_SAT``], a block's staged rows within its shared memory and, with
+    ``traceback``, the fused traceback's direction bytes too
+    (``traceback_threads``).  Sessions call it before any work, so that a
+    configuration the kernels refuse fails before the index build rather
+    than at the first launch; the plain versions take any of them."""
+    _check_eth_sat(eth, sat)
+    _staged_smem(read_len, eth)
+    if traceback:
+        traceback_threads(read_len, eth)
+
+
 def _on_card(s1: torch.Tensor, eth: int, sat: int | None = None) -> bool:
     """False for CPU tensors (plain version); True for CUDA tensors the
     kernels take; raises for anything else."""
     if not _is_cuda(s1):
         return False
-    if eth not in SUPPORTED_ETH:
-        raise ValueError(f"eth={eth} has no compiled kernel instance; "
-                         f"supported: {SUPPORTED_ETH}")
-    if sat is not None and not 0 <= sat <= MAX_SAT:
-        raise ValueError(f"sat={sat} outside [0, {MAX_SAT}]: the "
-                         f"reference's int8 band values would wrap")
+    _check_eth_sat(eth, sat)
     return True
 
 
@@ -103,9 +134,9 @@ def linear_wf(s1: torch.Tensor, s2_window: torch.Tensor, *, eth: int = 6):
     if not _on_card(s1, eth):
         return banded_wf(s1, s2_window, eth=eth)
     R, n = s1.shape
+    smem = _staged_smem(n, eth)
     out = torch.empty((2, R), dtype=torch.int32, device=s1.device)
     if R:
-        smem = THREADS * (2 * n + 2 * eth)
         with torch.cuda.device(s1.device):
             rc = build.entry("linear_wf_launch")(
                 s1.data_ptr(), s2_window.data_ptr(), out.data_ptr(), R, n,
@@ -122,9 +153,9 @@ def affine_wf_dist(s1: torch.Tensor, s2_window: torch.Tensor, *,
     if not _on_card(s1, eth, sat):
         return banded_affine_dist(s1, s2_window, eth=eth, sat=sat)
     R, n = s1.shape
+    smem = _staged_smem(n, eth)
     out = torch.empty((2, R), dtype=torch.int32, device=s1.device)
     if R:
-        smem = THREADS * (2 * n + 2 * eth)
         with torch.cuda.device(s1.device):
             rc = build.entry("affine_wf_dist_launch")(
                 s1.data_ptr(), s2_window.data_ptr(), out.data_ptr(), R, n,
@@ -147,13 +178,13 @@ def affine_wf(s1: torch.Tensor, s2_window: torch.Tensor, *, eth: int = 6,
     if not _on_card(s1, eth, sat):
         return banded_affine(s1, s2_window, eth=eth, sat=sat)
     R, n = s1.shape
+    smem = _staged_smem(n, eth)
     band = 2 * eth + 1
     dev = s1.device
     dists = torch.empty((2, R), dtype=torch.int32, device=dev)
     # every byte is written by the kernel (0 left of column 0): no fill
     planes = torch.empty((n * band, R), dtype=torch.uint8, device=dev)
     if R:
-        smem = THREADS * (2 * n + 2 * eth)
         with torch.cuda.device(dev):
             rc = build.entry("affine_wf_launch")(
                 s1.data_ptr(), s2_window.data_ptr(), dists.data_ptr(),
@@ -214,8 +245,8 @@ def traceback_threads(n: int, eth: int) -> int:
     for threads in (64, 32):
         if threads * per_thread <= SMEM_LIMIT:
             return threads
-    raise ValueError(f"n={n}, eth={eth}: {per_thread} direction bytes per "
-                     f"instance do not fit 32 instances in "
+    raise ValueError(f"read_len={n}, eth={eth}: {per_thread} direction "
+                     f"bytes per instance do not fit 32 instances in "
                      f"{SMEM_LIMIT} B of shared memory")
 
 
@@ -251,7 +282,7 @@ def affine_traceback(s1: torch.Tensor, s2_window: torch.Tensor, *,
 def flash_kernel(dtype: torch.dtype, hd: int) -> str:
     """The kernel ``flash_attention`` launches for CUDA inputs of ``dtype``
     at head dim ``hd``: ``"flash_attention_wgmma"`` (tensor cores fed by
-    TMA) for bfloat16 at ``FLASH_WGMMA_HEAD_DIMS``, else
+    TMA) for bfloat16 at ``FLASH_WGMMA_HEAD_DIMS`` (64, 80, 128), else
     ``"flash_attention"`` (the CUDA-core body: float32, and bfloat16 at the
     other head dims of ``FLASH_HEAD_DIMS``).  Raises for what neither
     takes."""
@@ -294,7 +325,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     wrapper runs ``_sdpa_chunked`` with the reference model's products in
     the inputs' dtype, the same function for float32 inputs.  Takes
     float32 and bfloat16.  ``flash_kernel`` picks the kernel: bfloat16 at
-    head dim 64 or 128 goes to the tensor-core kernel, the rest to the
+    head dim 64, 80 or 128 goes to the tensor-core kernel, the rest to the
     CUDA-core body (head_dim instances ``FLASH_HEAD_DIMS``).  Strided
     inputs are read in place as long as head_dim is contiguous; the
     tensor-core kernel loads them by TMA and raises (no other kernel

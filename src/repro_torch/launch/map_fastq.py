@@ -94,7 +94,7 @@ def _print_mapper_stats(mapper, totals: dict, file=None) -> None:
 def run(args) -> int:
     from ..core.device import resolve_device
     from ..core.index import build_index
-    from ..core.mapper import Mapper, accumulate_stats
+    from ..core.mapper import Mapper, accumulate_stats, check_card_geometry
     from ..core.pipeline import MapperConfig
     from ..io.fasta import ReferenceMap, load_reference
     from ..io.fastq import FastqStream
@@ -106,6 +106,11 @@ def run(args) -> int:
                          chunk_reads=args.chunk_reads,
                          on_error=args.on_error, rejects=args.rejects)
     rl = stream.read_len
+    cfg = MapperConfig(
+        read_len=rl, k=args.k, w=args.w, eth=args.eth, engine=args.engine,
+        wf_backend=args.wf_backend, chunk_reads=args.chunk_reads,
+        stream=not args.no_stream, both_strands=not args.single_strand)
+    check_card_geometry(cfg, device)    # before the FASTA load and index
     # spacer >= one alignment window: no read can map across a boundary
     rejected_contigs: list = []
     ref, contigs = load_reference(args.reference, spacer=rl + 2 * args.eth,
@@ -116,10 +121,6 @@ def run(args) -> int:
     refmap = ReferenceMap(contigs)
     idx = build_index(ref, read_len=rl, k=args.k, w=args.w, eth=args.eth,
                       device=device)
-    cfg = MapperConfig.from_index(
-        idx, engine=args.engine, wf_backend=args.wf_backend,
-        chunk_reads=args.chunk_reads, stream=not args.no_stream,
-        both_strands=not args.single_strand)
     mapper = Mapper(idx, cfg, device=device)
     _say(f"map_fastq: {len(contigs)} contig(s), {len(ref)} indexed bases "
          f"(in-memory index), read_len={rl}, topology={mapper.topology}, "

@@ -63,6 +63,8 @@ def _eq(got, want, what):
 
 @pytest.mark.parametrize("R,n,eth", [
     (33, 24, 6), (64, 40, 6), (128, 50, 4), (16, 30, 8), (21, 24, 6),
+    # the ends and the middle of the compiled range (ops.SUPPORTED_ETH)
+    (24, 30, 0), (24, 30, 5), (24, 30, 12),
 ])
 def test_linear_wf_matches_pallas(R, n, eth):
     s1, s2 = _pair_batch(np.random.default_rng(R * n + eth), R, n, eth)
@@ -75,6 +77,7 @@ def test_linear_wf_matches_pallas(R, n, eth):
 
 @pytest.mark.parametrize("R,n,eth,sat", [
     (17, 24, 6, 32), (32, 40, 4, 16), (64, 30, 6, 32),
+    (24, 30, 0, 32), (24, 30, 5, 16), (24, 30, 12, 32),
 ])
 def test_affine_wf_dist_matches_pallas(R, n, eth, sat):
     s1, s2 = _pair_batch(np.random.default_rng(R + n), R, n, eth)
@@ -141,6 +144,19 @@ def test_affine_traceback_matches_pallas(case, wrap):
     _eq([g.numpy() for g in got], (de, dm, ops_, cnt), "jnp traceback")
 
 
+@pytest.mark.parametrize("eth", [0, 5, 12])
+def test_affine_traceback_matches_pallas_at_eth(eth):
+    """The fused affine + traceback wrapper at the ends and the middle of
+    the compiled eth range, on random and near-match pairs."""
+    s1, s2 = _pair_batch(np.random.default_rng(40 + eth), 24, 30, eth)
+    max_ops = 2 * 30 + 2
+    want = jops.affine_traceback(jnp.array(s1), jnp.array(s2), eth=eth,
+                                 sat=SAT, max_ops=max_ops, block_r=8)
+    got = tops.affine_traceback(_t(s1), _t(s2), eth=eth, sat=SAT,
+                                max_ops=max_ops)
+    _eq([g.numpy() for g in got], want, f"affine_traceback eth={eth}")
+
+
 def test_all_match_and_gap_runs_decode():
     """The degenerate batch walks as the reference's own test expects: a
     straight diagonal, and a 2-insertion run next to a 2-deletion run."""
@@ -194,6 +210,48 @@ def test_wrappers_reject_bad_input():
         tops.traceback_threads(1000, 8)
 
 
+def test_supported_eth_is_the_compiled_range():
+    """``ops.SUPPORTED_ETH`` is 0..wf::MAX_ETH, the instances every WF
+    kernel's entry point dispatches to through ``wf::by_eth`` (no
+    hand-written case list that could fall behind)."""
+    common = (tbuild.CSRC / "wf_common.cuh").read_text()
+    m = re.search(r"constexpr int MAX_ETH = (\d+);", common)
+    assert m and tops.SUPPORTED_ETH == tuple(range(int(m.group(1)) + 1))
+    assert tops.SUPPORTED_ETH[-1] >= 12
+    for lib in ("linear_wf", "affine_wf", "traceback"):
+        src = (tbuild.CSRC / tbuild.SOURCES[lib]).read_text()
+        assert "wf::by_eth(eth," in src and "case " not in src, lib
+
+
+@pytest.mark.parametrize("eth,read_len,sat,traceback,field", [
+    (13, 150, 32, True, "eth"),             # just past the range
+    (-1, 150, 32, True, "eth"),
+    (6, 150, 86, True, "sat"),              # past MAX_SAT
+    (6, 150, -1, True, "sat"),
+    (6, 559, 32, True, "read_len"),         # the traceback's direction bytes
+    (0, 909, 32, False, "read_len"),        # a block's staged rows
+    (6, 150, 32, True, None),
+    (0, 908, 32, True, None),
+    (12, 150, 85, True, None),
+    (6, 558, 32, True, None),
+    (6, 600, 32, False, None),              # no traceback: the padded engine
+])
+def test_check_wf_geometry(eth, read_len, sat, traceback, field):
+    """The card's early refusal: a ValueError naming the field for what
+    the WF kernels do not take, and nothing for what they take."""
+    args = (eth, read_len, sat)
+    if field is None:
+        tops.check_wf_geometry(*args, traceback=traceback)
+    else:
+        with pytest.raises(ValueError, match=f"^{field}="):
+            tops.check_wf_geometry(*args, traceback=traceback)
+
+
+def test_check_wf_geometry_takes_every_compiled_eth():
+    for eth in tops.SUPPORTED_ETH:
+        tops.check_wf_geometry(eth, 150, 32)
+
+
 @pytest.mark.parametrize("fn", sorted(tbuild.ENTRIES))
 def test_ctypes_signature_matches_source(fn):
     """The ctypes argument list of each C entry point matches its
@@ -213,6 +271,7 @@ def test_ctypes_signature_matches_source(fn):
 
 @pytest.mark.parametrize("R,n,eth,sat", [
     (17, 24, 6, 32), (32, 40, 4, 16), (21, 30, 8, 32),
+    (24, 30, 0, 32), (24, 30, 5, 16), (24, 30, 12, 32),
 ])
 def test_affine_wf_matches_pallas(R, n, eth, sat):
     """The dirs-emitting wrapper: both distances and every direction byte

@@ -52,10 +52,13 @@ def _t(a, dtype=torch.float32):
     return torch.from_numpy(np.asarray(a, np.float32)).to(dtype)
 
 
-def _models(arch):
-    """Reduced configs of both packages and the same weights in each."""
-    jc = jconfigs.reduced(jconfigs.ARCHS[arch])
-    tc = tconfigs.reduced(tconfigs.ARCHS[arch])
+def _models(arch, **overrides):
+    """Reduced configs of both packages, with ``overrides`` on top, and the
+    same weights in each."""
+    jc = dataclasses.replace(jconfigs.reduced(jconfigs.ARCHS[arch]),
+                             **overrides)
+    tc = dataclasses.replace(tconfigs.reduced(tconfigs.ARCHS[arch]),
+                             **overrides)
     params = jt.init_params(jc, KEY)
     tparams = convert.params_from_jax(jax.tree.map(np.asarray, params),
                                       device="cpu")
@@ -122,6 +125,9 @@ def test_configs_equal_reference():
     (1, 256, 8, 8, 16, True, 64, 128),
     (2, 128, 6, 2, 32, False, 32, 64),
     (1, 64, 4, 1, 64, True, 64, 32),
+    # StableLM-3B's head dim, on the tensor-core kernel in bf16
+    (1, 256, 4, 4, 80, True, 128, 128),
+    (1, 256, 4, 4, 80, False, 128, 128),
 ])
 def test_flash_attention_matches_pallas(B, S, H, KV, hd, causal, qc, kc):
     """The wrapper on CPU tensors (its plain version) against the Pallas
@@ -149,6 +155,8 @@ def test_flash_attention_matches_pallas(B, S, H, KV, hd, causal, qc, kc):
     (1, 256, 8, 2, 128, True, 128, 128),
     (1, 384, 9, 3, 64, True, 128, 128),
     (2, 256, 4, 4, 64, False, 128, 128),
+    (1, 256, 4, 4, 80, True, 128, 128),
+    (1, 256, 4, 2, 80, False, 128, 128),
 ])
 def test_kernel_arithmetic_matches_pallas_bf16(B, S, H, KV, hd, causal, qc,
                                                kc):
@@ -175,13 +183,14 @@ def test_kernel_arithmetic_matches_pallas_bf16(B, S, H, KV, hd, causal, qc,
     (torch.bfloat16, 128, "flash_attention_wgmma"),
     (torch.bfloat16, 16, "flash_attention"),
     (torch.bfloat16, 32, "flash_attention"),
-    (torch.bfloat16, 80, "flash_attention"),
+    (torch.bfloat16, 80, "flash_attention_wgmma"),
     (torch.float32, 64, "flash_attention"),
+    (torch.float32, 80, "flash_attention"),
     (torch.float32, 128, "flash_attention"),
 ])
 def test_flash_kernel_route(dtype, hd, kernel):
-    """bf16 at hd 64 and 128 goes to the tensor-core kernel, the rest to
-    the CUDA-core body, and both have a C entry in build.ENTRIES."""
+    """bf16 at hd 64, 80 and 128 goes to the tensor-core kernel, the rest
+    to the CUDA-core body, and both have a C entry in build.ENTRIES."""
     assert tops.flash_kernel(dtype, hd) == kernel
     assert f"{kernel}_launch" in tbuild.ENTRIES
 
@@ -211,12 +220,18 @@ def _bf16_view(offset, strides, shape=(2, 8, 4, 64)):
     ("head stride of 65 elements", 0, (2200, 264, 65, 1), False),
     ("seq stride of 260 elements", 0, (2100, 260, 64, 1), False),
     ("batch stride of 2049 elements", 0, (2049, 256, 64, 1), False),
+    # head dim 80: a 160-byte head is ten 16-byte units
+    ("hd 80, contiguous", 0, (2560, 320, 80, 1), True),
+    ("hd 80, base 8 elements in (16 bytes)", 8, (2560, 320, 80, 1), True),
+    ("hd 80, base 4 elements in (8 bytes)", 4, (2560, 320, 80, 1), False),
+    ("hd 80, head stride of 84 elements", 0, (2688, 336, 84, 1), False),
 ])
 def test_check_tma(case, offset, strides, ok):
     """The tensor-core kernel's TMA rules on CPU-side descriptions: a base
     and (batch, seq, head) strides of multiples of 16 bytes pass, any other
     raises (the wrapper never falls back to the CUDA-core body)."""
-    t = _bf16_view(offset, strides)
+    hd = 80 if case.startswith("hd 80") else 64
+    t = _bf16_view(offset, strides, shape=(2, 8, 4, hd))
     args = ("q", t.data_ptr(), t.stride()[:3], t.element_size())
     if ok:
         tops.check_tma(*args)
@@ -380,13 +395,22 @@ def test_forward_last_only_matches_reference(arch):
     assert float(aux) == 0.0
 
 
-def test_long_branch_matches_reference():
+@pytest.mark.parametrize("arch,overrides,seed", [
+    ("smollm-135m", {}, 4),
+    # StableLM-3B's heads: 80 wide, as many KV heads as query heads.  The
+    # batch of seed 6 has its top two reference logits 0.31 apart, so the
+    # argmax is compared (seeds 4, 5 and 7 give 0.09: undecided)
+    ("stablelm-3b", dict(head_dim=80, n_kv_heads=4), 6),
+])
+def test_long_branch_matches_reference(arch, overrides, seed):
     """S > ATTN_CHUNK_THRESHOLD: attention goes through ops.flash_attention,
     which on the CPU runs _sdpa_chunked, as the reference runs its own."""
-    jc, tc, params, tparams = _models("smollm-135m")
+    jc, tc, params, tparams = _models(arch, **overrides)
+    if overrides:
+        assert (tc.head_dim, tc.n_kv_heads) == (80, tc.n_heads)
     S = 3072
     assert S > tl.ATTN_CHUNK_THRESHOLD
-    jb, tb = _batch(jc, 1, S, seed=4)
+    jb, tb = _batch(jc, 1, S, seed=seed)
     want = jlm.make_prefill_step(jc)(params, jb)
     tops.reset_launch_counts()
     got = tlm.make_prefill_step(tc, device="cpu")(tparams, tb)

@@ -171,3 +171,30 @@ def test_no_device_and_no_gpu_raises(world, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         map_fastq.main([str(world / "ref.fa"), str(world / "reads.fq"),
                         "-o", str(world / "nodev.sam")])
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_card_refuses_eth_before_the_index_build(world, monkeypatch,
+                                                 backend):
+    """``--eth 13`` on the card with the kernels (``--wf-backend cuda``,
+    the default) fails before the FASTA load and the index build, naming
+    ``eth``; with ``--wf-backend torch`` no kernel runs and the run goes on
+    to load the FASTA (stopped there: this machine has no card)."""
+    import repro_torch.io.fasta as fasta
+
+    class Reached(Exception):
+        pass
+
+    def stop(*a, **k):
+        raise Reached("reached the FASTA load")
+    monkeypatch.setattr(fasta, "load_reference", stop)
+    argv = [str(world / "ref.fa"), str(world / "reads.fq"), "-o",
+            str(world / "eth13.sam"), "--device", "cuda", "--eth", "13",
+            "--wf-backend", backend]
+    if backend == "cuda":
+        with pytest.raises(ValueError, match="^eth=13 "):
+            map_fastq.main(argv)
+    else:
+        with pytest.raises(Reached, match="FASTA load"):
+            map_fastq.main(argv)
+    assert not (world / "eth13.sam").exists()

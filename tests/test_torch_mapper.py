@@ -18,7 +18,8 @@ from repro.core.pipeline import MapperConfig as JConfig
 from repro.data.genome import make_reference, sample_reads
 from repro_torch.core import mapper as tmapper
 from repro_torch.core.index import GenomeIndex
-from repro_torch.core.mapper import Mapper
+from repro_torch.core.mapper import Mapper, check_card_geometry
+from repro_torch.kernels import ops as tops
 from repro_torch.core.pipeline import MapperConfig
 from repro_torch.io.cigar import cigars_from_result
 
@@ -28,14 +29,19 @@ STAT_FIELDS = ("reads", "candidates", "survivors", "affine_instances",
                "padded_affine_instances", "reverse_best")
 
 
-@pytest.fixture(scope="module")
-def world():
-    ref = make_reference(20_000, seed=0, repeat_frac=0.02)
-    jidx = jbuild(ref)
+def _indexes(ref, **geometry):
+    jidx = jbuild(ref, **geometry)
     tidx = GenomeIndex.from_arrays(jidx.uniq_kmers, jidx.offsets,
                                    jidx.positions, jidx.segments,
                                    read_len=jidx.read_len, k=jidx.k,
                                    w=jidx.w, eth=jidx.eth)
+    return jidx, tidx
+
+
+@pytest.fixture(scope="module")
+def world():
+    ref = make_reference(20_000, seed=0, repeat_frac=0.02)
+    jidx, tidx = _indexes(ref)
     rs = sample_reads(ref, 10, seed=3, both_strands=True)
     junk = np.random.default_rng(5).integers(0, 4, (3, 150)).astype(np.uint8)
     return jidx, tidx, rs, np.concatenate([rs.reads, junk])
@@ -179,3 +185,48 @@ def test_split_and_reduce_strands_match_reference(world):
         if b is not None:
             np.testing.assert_array_equal(a, b, err_msg=f)
     assert rg.stats.reverse_best == rw.stats.reverse_best
+
+
+def test_eth_past_the_kernels_maps_on_cpu_and_is_refused_on_the_card(world):
+    """An eth past ``ops.SUPPORTED_ETH`` maps on the CPU (the plain
+    versions take any band) equal to the reference; on the card it is
+    refused when the ``Mapper`` is built, naming ``eth``, before the index
+    is placed on the device (here there is none: placing it would raise
+    otherwise)."""
+    eth = tops.SUPPORTED_ETH[-1] + 1
+    ref = make_reference(20_000, seed=0, repeat_frac=0.02)
+    jidx, tidx = _indexes(ref, eth=eth)
+    reads = world[3]
+    want = JMapper(jidx, JConfig.from_index(jidx, both_strands=True)).map(
+        reads)
+    cfg = MapperConfig.from_index(tidx, both_strands=True)
+    got = Mapper(tidx, cfg, device="cpu").map(reads)
+    assert_same(got, want)
+    with pytest.raises(ValueError, match=f"^eth={eth} "):
+        Mapper(tidx, cfg, device="cuda")
+    # the torch backend runs no kernel: it passes the check, and only
+    # placing the index on the absent card fails
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        Mapper(tidx, dataclasses.replace(cfg, wf_backend="torch"),
+               device="cuda")
+
+
+@pytest.mark.parametrize("overrides,field", [
+    (dict(), None),
+    (dict(eth=13), "eth"),
+    (dict(sat_affine=86), "sat"),
+    (dict(read_len=600), "read_len"),          # the fused traceback's bound
+    (dict(read_len=600, engine="padded"), None),    # runs no such kernel
+    (dict(read_len=600, cigar_mode="off"), None),
+    (dict(eth=13, wf_backend="torch"), None),
+])
+def test_check_card_geometry(overrides, field):
+    """What the session refuses on a CUDA device, and that it refuses
+    nothing on the CPU."""
+    cfg = MapperConfig(**overrides)
+    check_card_geometry(cfg, torch.device("cpu"))
+    if field is None:
+        check_card_geometry(cfg, torch.device("cuda"))
+    else:
+        with pytest.raises(ValueError, match=f"^{field}="):
+            check_card_geometry(cfg, torch.device("cuda"))

@@ -48,25 +48,25 @@ Phases, each fatal on failure:
    and every launch of a run is timed again on its own inputs to give
    the kernels' device time per run;
 9. LM serving: the two flash-attention kernels against their plain
-   version on generated inputs: the tensor-core kernel (bf16, hd 64, 80
-   and 128) on a sweep of ragged S, batch 2, KV = H and KV < H, causal and
-   bidirectional, on StableLM-3B's head layout at S=4096 (timed beside
-   the CUDA-core body and ``scaled_dot_product_attention``), on
-   SmolLM-135M's and Qwen3-0.6B's at S=4096, with a q batch stride of
-   2^31 elements, on 108 small shapes at the edges of its tiles and with k
-   and v strided (a misaligned q must be refused); the CUDA-core body on
-   the reference kernel test's f32 shapes and, timed beside
-   ``scaled_dot_product_attention``, on StableLM-3B's heads in f32 and a
-   bf16 hd=32 case.
-   Planted faults (a kv tile skipped, the wrong KV head, zero rows) are
-   shown to fail the bf16 check on every bf16 case.  SmolLM-135M at full
-   width from seeded weights: a 32,768-token prefill (one tensor-core
-   launch a layer), a ``torch.profiler`` trace of one more (the ten
-   largest device ops), its last-token logits against a prefill on the
-   plain version and against prefills with planted faults, the kernel on
-   layer 0's inputs against its plain version, the CUDA-core body and the
-   library's attention on the same inputs, decode against forward on bf16
-   and int8 caches, ``greedy_generate``;
+   version on generated inputs: the tensor-core kernel (bf16, hd 16, 32,
+   64, 80 and 128) on a sweep of ragged S, batch 2, KV = H and KV < H,
+   causal and bidirectional, on 32 heads of 16, 32 and 80 at S=4096 (each
+   timed beside ``scaled_dot_product_attention``), on SmolLM-135M's and
+   Qwen3-0.6B's heads at S=4096, with a q batch stride of 2^31 elements,
+   and with k and v strided (a misaligned q must be refused); the
+   CUDA-core kernel (float32) on the reference kernel test's shapes, on
+   inputs off 16-byte alignment and, timed beside
+   ``scaled_dot_product_attention``, on StableLM-3B's, SmolLM-135M's and
+   Qwen3-0.6B's heads at S=4096; both on 360 small shapes at the edges of
+   their tiles.  Planted faults (a kv tile skipped, the wrong KV head,
+   zero rows) are shown to fail the bf16 check on every bf16 case.
+   SmolLM-135M at full width from seeded weights: a 32,768-token prefill
+   (one tensor-core launch a layer), a ``torch.profiler`` trace of one
+   more (the ten largest device ops), its last-token logits against a
+   prefill on the plain version and against prefills with planted
+   faults, the kernel on layer 0's inputs against its plain version and
+   the library's attention on the same inputs, decode against forward on
+   bf16 and int8 caches, ``greedy_generate``;
 10. StableLM-3B's prefill at full width (32 heads of 80, 2.8 B parameters
    from seed 0): a timed 32,768-token prefill (one launch a layer of the
    tensor-core kernel at hd=80), its profile, the kernel on layer 0's
@@ -75,7 +75,8 @@ Phases, each fatal on failure:
 
 Each phase prints its seconds.  The last lines are the kernels JSON line
 (phases 6, 8, 9 and 10, with each kernel's bound computed from its
-inputs) and the contract line ``{"ok": true, "device": {...}}``.  Exits non-zero,
+inputs; the flash row also holds the timed cases of phase 9, the
+float32 ones under ``cuda_core_kernel``) and the contract line ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, when no CUDA device is present or anything fails.
 Imports nothing of JAX or of the ``repro`` package.
 """
@@ -175,21 +176,30 @@ FLASH_F32_TOL = 2e-3
 FLASH_REL, FLASH_ROW = 2.0**-7, 2.0**-6
 # keys a kv tile of each kernel holds (ops.flash_kernel names the kernel)
 FLASH_TILE = {"flash_attention_wgmma": 128, "flash_attention": 64}
-# float32, on the CUDA-core body: the reference kernel test's four shapes
-# (tests/test_kernels.py), a ragged S (100 rows against the body's 64-row
-# tiles) and the two other head dims it is compiled for
+# float32, on the CUDA-core kernel: the reference kernel test's four
+# shapes (tests/test_kernels.py), a ragged S (100 rows: one 128-row query
+# tile, the second 64-key tile past S) and the two other head dims it is
+# compiled for
 FLASH_SWEEP = [(2, 128, 4, 2, 32, True, 64, 64),
                (1, 256, 8, 8, 16, True, 64, 128),
                (2, 128, 6, 2, 32, False, 32, 64),
                (1, 64, 4, 1, 64, True, 64, 32),
                (1, 100, 4, 2, 80, True, 100, 100),
                (1, 100, 4, 2, 128, False, 50, 100)]
-# bf16, on the tensor-core kernel (128-row query and key tiles): hd 64, 80
-# and 128, each causal and bidirectional; S ragged against the tiles (100:
-# one tile, its second 64-row warpgroup past S; 1,000) or whole (256,
-# 384); batch 2; KV = H and KV < H.  KV >= 2 and, causal, S > 128, so that
-# each planted fault changes the output
-FLASH_BF16_SWEEP = [(2, 1000, 4, 2, 64, True, 1000, 500),
+# bf16, on the tensor-core kernel (128-row query and key tiles): hd 16, 32,
+# 64, 80 and 128, each causal and bidirectional; S ragged against the
+# tiles (100: one tile, its second 64-row warpgroup past S; 1,000) or
+# whole (256, 384); batch 2; KV = H and KV < H.  KV >= 2 and, causal, S >
+# 128, so that each planted fault changes the output
+FLASH_BF16_SWEEP = [(2, 1000, 4, 2, 16, True, 1000, 500),
+                    (1, 384, 4, 4, 16, True, 384, 384),
+                    (2, 256, 6, 2, 16, False, 256, 128),
+                    (1, 1000, 4, 4, 16, False, 1000, 1000),
+                    (2, 1000, 8, 2, 32, True, 500, 1000),
+                    (1, 384, 8, 8, 32, True, 384, 384),
+                    (2, 256, 4, 4, 32, False, 256, 128),
+                    (1, 1000, 8, 2, 32, False, 1000, 1000),
+                    (2, 1000, 4, 2, 64, True, 1000, 500),
                     (1, 100, 4, 4, 64, False, 100, 100),
                     (2, 256, 6, 2, 64, False, 256, 128),
                     (2, 1000, 8, 2, 80, True, 500, 1000),
@@ -202,18 +212,39 @@ FLASH_BF16_SWEEP = [(2, 1000, 4, 2, 64, True, 1000, 500),
 # (H, KV, hd): SmolLM-135M and Qwen3-0.6B, at S=4096 in bf16
 FLASH_LM_HEADS = [(9, 3, 64), (16, 8, 128)]
 FLASH_LM_SEQ = 4096
-# bf16 edges of the tensor-core kernel's tiles (64 rows a warpgroup, 128
-# a query or key tile), each S at hd 64, 80 and 128, causal and
-# bidirectional, with (B, H, KV) = (1, 1, 1) and (3, 6, 2); checked against
-# the plain version only (with one KV head a wrong-head fault changes
-# nothing)
+# edges of both kernels' tiles (the tensor-core kernel: 64 rows a
+# warpgroup, 128 a query or key tile; the CUDA-core kernel: 128-row query
+# and 64-key tiles), each S at every head dim, in bf16 and float32, causal
+# and bidirectional, with (B, H, KV) = (1, 1, 1) and (3, 6, 2); checked
+# against the plain version only (with one KV head a wrong-head fault
+# changes nothing)
 FLASH_EDGE_SEQS = (1, 2, 63, 65, 127, 129, 255, 257, 2049)
-# StableLM-3B's 32 heads of 80 at S=4096: bf16 on the tensor-core kernel
-# (timed beside the CUDA-core body that served it before), and in float32
-# on the CUDA-core body; FLASH_HD32 in bf16 stays on the CUDA-core body.
-# Each is timed beside scaled_dot_product_attention
-FLASH_HD80 = (1, 4096, 32, 32, 80, True, 1024, 1024)
+FLASH_EDGE_HEAD_DIMS = (16, 32, 64, 80, 128)
+# bf16 on the tensor-core kernel at S=4096, causal, 32/32 heads of 16, 32
+# and 80 (StableLM-3B's heads; 32 those of the reduced configs), each
+# checked with the planted faults and timed beside
+# scaled_dot_product_attention (flash backend)
+FLASH_HD16 = (1, 4096, 32, 32, 16, True, 1024, 1024)
 FLASH_HD32 = (1, 4096, 32, 32, 32, True, 1024, 1024)
+FLASH_HD80 = (1, 4096, 32, 32, 80, True, 1024, 1024)
+FLASH_BF16_TIMED = {"hd16": FLASH_HD16, "hd32": FLASH_HD32,
+                    "hd80": FLASH_HD80}
+# float32 on the CUDA-core kernel at S=4096, causal: StableLM-3B's heads,
+# SmolLM-135M's (9/3 of 64) and Qwen3-0.6B's (16/8 of 128), each timed
+# beside scaled_dot_product_attention (the backend PyTorch picks)
+FLASH_F32_TIMED = {"f32_hd80": FLASH_HD80,
+                   "f32_hd64": (1, 4096, 9, 3, 64, True, 1024, 1024),
+                   "f32_hd128": (1, 4096, 16, 8, 128, True, 1024, 1024)}
+# timed cases of phase 9 where the kernel must take less time than
+# scaled_dot_product_attention on the same inputs
+FLASH_BEATS_LIBRARY = ("hd16", "hd32", "f32_hd80", "f32_hd64")
+# the special-function units' exponentials (16 a clock per SM, Hopper
+# white paper) at the boost clock: 132 SMs x 1.98 GHz
+SFU_EXPS_PER_S = 16 * 132 * 1.98e9
+# every time in this script is the least mean of TIMING_ROUNDS rounds of
+# calls: one stall of the shared host inside a round of 0.2 ms calls
+# would double that round's mean
+TIMING_ROUNDS = 3
 # words in the names of cuBLAS's and CUTLASS's matrix-product kernels, by
 # which the prefill profile sums the GEMMs' device time
 GEMM_KERNEL_WORDS = ("gemm", "nvjet", "cutlass", "xmma")
@@ -251,18 +282,23 @@ def pair_batch(rng, R, n, eth):
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    """ms per call of ``fn``: CUDA events around ``reps`` calls after
+    ``warmup``, the least mean of TIMING_ROUNDS such rounds."""
     import torch
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), \
         torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    best = math.inf
+    for _ in range(TIMING_ROUNDS):
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    return best
 
 
 def phase_env():
@@ -947,18 +983,29 @@ FLASH_FAULTS = {"a kv tile skipped": _fault_tile,
 LOGITS_FAULTS = ("a kv tile skipped", "the wrong KV head read")
 
 
+def _f32_share(got, want):
+    """(max |got - want|, the largest share of its tolerance an element
+    uses): FLASH_F32_TOL + FLASH_F32_TOL x |want|, ``_close``'s check."""
+    d = (got.float() - want.float()).abs()
+    return float(d.max()), float((d / (FLASH_F32_TOL * (
+        1 + want.float().abs()))).max())
+
+
 def _check_faults(what, q, k, v, causal, qc, kc, want):
-    """Each planted fault's share of the bf16 tolerance on these inputs;
-    raises if one passes."""
-    shares = {}
-    for name, fault in FLASH_FAULTS.items():
-        shares[name] = _flash_share(fault(q, k, v, causal, qc, kc), want)[1]
+    """Each planted fault's max |diff| and share of the tolerance of the
+    check its dtype gets (bf16: ``_flash_share``; float32: ``_f32_share``)
+    on these inputs; raises if one passes."""
+    import torch
+    share = _flash_share if q.dtype == torch.bfloat16 else _f32_share
+    got = {name: share(fault(q, k, v, causal, qc, kc), want)
+           for name, fault in FLASH_FAULTS.items()}
     log(f"planted faults, {what}: " + ", ".join(
-        f"{name} {s:.3g} x the tolerance" for name, s in shares.items()))
-    passed = [name for name, s in shares.items() if s <= 1]
+        f"{name} max |diff| {e:.3g}, {s:.3g} x the tolerance"
+        for name, (e, s) in got.items()))
+    passed = [name for name, (_, s) in got.items() if s <= 1]
     if passed:
-        raise AssertionError(f"{what}: planted faults pass the bf16 check: "
-                             f"{passed}")
+        raise AssertionError(f"{what}: planted faults pass the {q.dtype} "
+                             f"check: {passed}")
 
 
 def _qkv_inputs(rng, B, S, H, KV, hd, dtype):
@@ -986,12 +1033,20 @@ def flash_bound(q, k, causal):
                                  else "bytes")
 
 
+def exp_bound_ms(B, S, H, causal):
+    """The exponentials' bound, computed: one per (query, key) pair the
+    mask keeps and head, over the special-function units' rate
+    (SFU_EXPS_PER_S)."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return B * H * pairs / SFU_EXPS_PER_S * 1e3
+
+
 def _route(dtype, hd):
     """The kernel a CUDA input should reach (the rule the wrapper's
-    ``flash_kernel`` implements): the tensor-core kernel for bf16 at hd 64,
-    80 and 128, the CUDA-core body for the rest."""
+    ``flash_kernel`` implements): the tensor-core kernel for bf16, the
+    CUDA-core kernel for float32."""
     import torch
-    if dtype == torch.bfloat16 and hd in (64, 80, 128):
+    if dtype == torch.bfloat16:
         return "flash_attention_wgmma"
     return "flash_attention"
 
@@ -1015,113 +1070,82 @@ def _flash_launch(what, q, k, v, causal, qc, kc):
     return out
 
 
-def _cuda_core_flash(q, k, v, causal):
-    """The CUDA-core body through its C entry, on inputs the wrapper sends
-    to the tensor-core kernel (no launch counted): the body that served
-    them before the tensor-core kernel, checked and timed beside it."""
-    import torch
-    from repro_torch.kernels import build
-    B, S, H, hd = q.shape
-    out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
-    rc = build.entry("flash_attention_launch")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
-        k.shape[2], hd, 1, int(causal), 1.0 / math.sqrt(hd),
-        *q.stride()[:3], *k.stride()[:3], *out.stride()[:3],
-        torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(f"CUDA-core flash launch failed: {rc}")
-    return out
-
-
-def _sdpa(q, k, v, causal, flash_only):
+def _sdpa(q, k, v, causal):
     """``scaled_dot_product_attention`` on the layers' (B, S, heads, hd)
-    tensors: -> (output in that layout, ms per call, the backend's name).
-    ``flash_only`` holds it to the flash backend; else PyTorch picks, and
-    the name is its pick (``torch._fused_sdp_choice``)."""
+    tensors, held to one backend: flash for bf16; efficient attention for
+    float32, which the flash backend does not take, with k and v expanded
+    to q's heads before the timed calls (given ``enable_gqa`` PyTorch picks
+    the math backend, which forms the whole S x S score matrix).  -> (output
+    in that layout, ms per call as ``cuda_ms`` takes it, the backend's
+    name)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     qT, kT, vT = (t.transpose(1, 2) for t in (q, k, v))
-    gqa = q.shape[2] != k.shape[2]
+    rep = q.shape[2] // k.shape[2]
+    if q.dtype == torch.bfloat16:
+        name, gqa = "FLASH_ATTENTION", rep > 1
+    else:
+        name, gqa = "EFFICIENT_ATTENTION", False
+        if rep > 1:
+            kT, vT = (t.repeat_interleave(rep, 1) for t in (kT, vT))
 
     def call():
         return F.scaled_dot_product_attention(qT, kT, vT, is_causal=causal,
                                               enable_gqa=gqa)
-    if flash_only:
-        name, ctx = "FLASH_ATTENTION", sdpa_kernel(
-            [SDPBackend.FLASH_ATTENTION])
-    else:
-        pick = torch._fused_sdp_choice(qT, kT, vT, None, 0.0, causal,
-                                       enable_gqa=gqa)
-        name = next(n for n, b in SDPBackend.__members__.items()
-                    if int(b.value) == pick)
-        ctx = contextlib.nullcontext()
-    with ctx:
+    with sdpa_kernel([getattr(SDPBackend, name)]):
         out = call()
         ms = cuda_ms(call, 5, 1)
     return out.transpose(1, 2), ms, name
 
 
-def _time_hd80(q, k, v, causal, qc, kc):
-    """bf16 hd=80 (checked by the caller): the tensor-core kernel, the
-    CUDA-core body that served it before (checked here too) and
-    ``scaled_dot_product_attention`` (flash backend), timed on the same
-    inputs.  -> the numbers for the kernels JSON row."""
+def _time_flash(what, q, k, v, causal, qc, kc, err):
+    """The kernel these inputs go to (checked by the caller, max |diff|
+    ``err``), its plain version and ``scaled_dot_product_attention``
+    (``_sdpa``), timed on the same inputs, with the products' bound; the
+    exponentials' computed bound is logged beside them.  -> the numbers
+    for the kernels JSON row."""
     from repro_torch.kernels import ops
     ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
                                              q_chunk=qc, kv_chunk=kc), 5, 1)
-    core_share = _flash_close("the CUDA-core body at hd=80", _cuda_core_flash(
-        q, k, v, causal), _flash_plain(q, k, v, causal, qc, kc))[1]
-    core_ms = cuda_ms(lambda: _cuda_core_flash(q, k, v, causal), 3, 1)
-    _, lib_ms, _ = _sdpa(q, k, v, causal, flash_only=True)
+    plain_ms = cuda_ms(lambda: _flash_plain(q, k, v, causal, qc, kc), 1, 1)
+    _, lib_ms, backend = _sdpa(q, k, v, causal)
     b_ms, b_by = flash_bound(q, k, causal)
-    flops = attention_flops(*q.shape, causal)
-    log(f"timing flash_attention {tuple(q.shape)} causal={causal} bfloat16 "
-        f"(tensor cores): {ms:.4f} ms/call ({flops / ms / 1e9:.2f} TFLOP/s), "
-        f"the CUDA-core body {core_ms:.4f} ms ({core_share:.3g} x the "
-        f"tolerance; {core_ms / ms:.2f}x the time), "
-        f"scaled_dot_product_attention (flash backend) {lib_ms:.4f} ms "
-        f"({lib_ms / ms:.2f}x the kernel's time), bound {b_ms:.4f} ms "
-        f"({b_by}), {b_ms / ms:.2%} of bound")
-    return dict(shape=list(q.shape), causal=causal, ms=ms, core_ms=core_ms,
-                library_ms=lib_ms, bound_ms=b_ms)
+    e_ms = exp_bound_ms(q.shape[0], q.shape[1], q.shape[2], causal)
+    kernel = ops.flash_kernel(q.dtype, q.shape[3])
+    log(f"timing {what} ({kernel}): {ms:.4f} ms/call "
+        f"({attention_flops(*q.shape, causal) / ms / 1e9:.2f} TFLOP/s), "
+        f"plain {plain_ms:.3f} ms, scaled_dot_product_attention ({backend} "
+        f"backend) {lib_ms:.4f} ms (the kernel takes {ms / lib_ms:.2f}x its "
+        f"time), products' bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.2%} "
+        f"of bound; the exponentials' bound {e_ms:.4f} ms (computed at "
+        f"{SFU_EXPS_PER_S:.4g}/s)")
+    return dict(name="flash_attention", route="cuda",
+                source=f"src/repro_torch/kernels/csrc/{kernel}.cu",
+                replaces="src/repro/kernels/flash_attention.py:84",
+                shape=list(q.shape), dtype=str(q.dtype)[6:], causal=causal,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, library_backend=backend)
 
 
-def _time_cuda_core_body(rng):
-    """The shapes that stay on the CUDA-core body: FLASH_HD80's in float32
-    and FLASH_HD32's in bf16, each checked against its plain version and
-    timed beside ``scaled_dot_product_attention`` (float32: the backend
-    PyTorch picks; bf16: the flash backend).  -> {name: numbers}."""
+def _time_cuda_core(rng):
+    """FLASH_F32_TIMED on the CUDA-core kernel: each checked against its
+    plain version and the planted faults against that check, then timed
+    (``_time_flash``).  -> {name: numbers}."""
     import torch
-    from repro_torch.kernels import ops
     out = {}
-    for key, case, dtype in (("body_f32_hd80", FLASH_HD80, torch.float32),
-                             ("body_bf16_hd32", FLASH_HD32, torch.bfloat16)):
-        B, S, H, KV, hd, causal, qc, kc = case
-        q, k, v = _qkv_inputs(rng, B, S, H, KV, hd, dtype)
+    for key, (B, S, H, KV, hd, causal, qc, kc) in FLASH_F32_TIMED.items():
+        q, k, v = _qkv_inputs(rng, B, S, H, KV, hd, torch.float32)
         what = (f"flash_attention B={B} S={S} H={H} KV={KV} hd={hd} "
-                f"causal={causal} {str(dtype)[6:]}")
+                f"causal={causal} float32")
         got = _flash_launch(what, q, k, v, causal, qc, kc)
         want = _flash_plain(q, k, v, causal, qc, kc)
-        if dtype == torch.float32:
-            err = _close(what, got, want, FLASH_F32_TOL)
-            check = f"max |diff| {err:.3g} (tolerance {FLASH_F32_TOL})"
-        else:
-            err, share = _flash_close(what, got, want)
-            check = f"{share:.3g} x the tolerance"
-        ms = cuda_ms(lambda: ops.flash_attention(
-            q, k, v, causal=causal, q_chunk=qc, kv_chunk=kc), 3, 1)
-        _, lib_ms, backend = _sdpa(q, k, v, causal,
-                                   flash_only=dtype == torch.bfloat16)
-        b_ms, b_by = flash_bound(q, k, causal)
-        log(f"timing {what} (CUDA-core body): {check}; {ms:.4f} ms/call "
-            f"({attention_flops(*q.shape, causal) / ms / 1e9:.2f} TFLOP/s), "
-            f"scaled_dot_product_attention ({backend} backend) "
-            f"{lib_ms:.4f} ms ({ms / lib_ms:.2f}x its time in the body), "
-            f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.2%} of bound")
-        out[key] = dict(shape=list(q.shape), dtype=str(dtype)[6:],
-                        causal=causal, ms=ms, library_ms=lib_ms,
-                        library_backend=backend, bound_ms=b_ms)
+        err = _close(what, got, want, FLASH_F32_TOL)
+        log(f"parity {what}: max |diff| {err:.3g} (tolerance "
+            f"{FLASH_F32_TOL})")
+        _check_faults(what, q, k, v, causal, qc, kc, want)
+        out[key] = _time_flash(what, q, k, v, causal, qc, kc, err)
+        del q, k, v, got, want
     return out
 
 
@@ -1140,10 +1164,22 @@ def phase_flash_parity():
         got = _flash_launch(what, q, k, v, causal, qc, kc)
         err = _close(what, got, _flash_plain(q, k, v, causal, qc, kc),
                      FLASH_F32_TOL)
-        log(f"parity {what} (CUDA-core body): max |diff| {err:.3g} "
+        log(f"parity {what} (CUDA cores): max |diff| {err:.3g} "
             f"(tolerance {FLASH_F32_TOL} + {FLASH_F32_TOL} x |plain|)")
+    # float32 q, k, v 4 bytes past a 16-byte boundary: the CUDA-core
+    # kernel's 4-byte copies
+    B, S, H, KV, hd = 2, 300, 4, 2, 80
+    q, k, v = (torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[
+        1:].view(t.shape).copy_(t) for t in _qkv_inputs(
+            rng, B, S, H, KV, hd, torch.float32))
+    what = "flash_attention, float32 q, k, v off 16-byte alignment"
+    err = _close(what, _flash_launch(what, q, k, v, True, S, S),
+                 _flash_plain(q, k, v, True, S, S), FLASH_F32_TOL)
+    log(f"parity {what} (CUDA cores): max |diff| {err:.3g}")
     timing = {}
-    for B, S, H, KV, hd, causal, qc, kc in FLASH_BF16_SWEEP + [FLASH_HD80]:
+    timed = {case: key for key, case in FLASH_BF16_TIMED.items()}
+    for case in FLASH_BF16_SWEEP + list(FLASH_BF16_TIMED.values()):
+        B, S, H, KV, hd, causal, qc, kc = case
         q, k, v = _qkv_inputs(rng, B, S, H, KV, hd, torch.bfloat16)
         what = (f"flash_attention B={B} S={S} H={H} KV={KV} hd={hd} "
                 f"causal={causal} bfloat16")
@@ -1153,8 +1189,18 @@ def phase_flash_parity():
         log(f"parity {what} ({_route(q.dtype, hd)}): max |diff| {err:.3g}, "
             f"{share:.3g} x the tolerance")
         _check_faults(what, q, k, v, causal, qc, kc, want)
-    timing["hd80"] = _time_hd80(q, k, v, causal, qc, kc)
-    timing.update(_time_cuda_core_body(rng))
+        if case in timed:
+            timing[timed[case]] = _time_flash(what, q, k, v, causal, qc, kc,
+                                              err)
+    del q, k, v, got, want
+    timing.update(_time_cuda_core(rng))
+    slower = {key: (timing[key]["ms"], timing[key]["library_ms"])
+              for key in FLASH_BEATS_LIBRARY
+              if timing[key]["ms"] >= timing[key]["library_ms"]}
+    if slower:
+        raise AssertionError(f"flash kernels not faster than "
+                             f"scaled_dot_product_attention (ms, library "
+                             f"ms): {slower}")
     S = FLASH_LM_SEQ
     for H, KV, hd in FLASH_LM_HEADS:
         for causal in (True, False):
@@ -1194,22 +1240,29 @@ def phase_flash_parity():
         f"(tensor cores): max |diff| {err:.3g}, {share:.3g} x the "
         f"tolerance")
     del buf, q
-    worst, n = 0.0, 0
+    worst, worst_f32, n = 0.0, 0.0, 0
     for S in FLASH_EDGE_SEQS:
-        for hd in (64, 80, 128):
+        for hd in FLASH_EDGE_HEAD_DIMS:
             for causal in (True, False):
                 for B, H, KV in ((1, 1, 1), (3, 6, 2)):
-                    q, k, v = _qkv_inputs(rng, B, S, H, KV, hd,
-                                          torch.bfloat16)
-                    what = (f"flash_attention edge B={B} S={S} H={H} "
-                            f"KV={KV} hd={hd} causal={causal}")
-                    got = _flash_launch(what, q, k, v, causal, S, S)
-                    worst = max(worst, _flash_close(what, got, _flash_plain(
-                        q, k, v, causal, S, S))[1])
-                    n += 1
+                    for dtype in (torch.bfloat16, torch.float32):
+                        q, k, v = _qkv_inputs(rng, B, S, H, KV, hd, dtype)
+                        what = (f"flash_attention edge B={B} S={S} H={H} "
+                                f"KV={KV} hd={hd} causal={causal} "
+                                f"{str(dtype)[6:]}")
+                        got = _flash_launch(what, q, k, v, causal, S, S)
+                        want = _flash_plain(q, k, v, causal, S, S)
+                        if dtype == torch.bfloat16:
+                            worst = max(worst, _flash_close(what, got,
+                                                            want)[1])
+                        else:
+                            worst_f32 = max(worst_f32, _close(
+                                what, got, want, FLASH_F32_TOL))
+                        n += 1
     log(f"parity flash_attention on {n} edge cases, S in "
-        f"{FLASH_EDGE_SEQS} (tensor cores): at most {worst:.3g} x the "
-        f"tolerance")
+        f"{FLASH_EDGE_SEQS}, hd in {FLASH_EDGE_HEAD_DIMS}: bf16 (tensor "
+        f"cores) at most {worst:.3g} x the tolerance, float32 (CUDA cores) "
+        f"max |diff| {worst_f32:.3g} (tolerance {FLASH_F32_TOL})")
     # k and v as slices of one (B, S, 2 KV, hd) buffer: strided, aligned
     B, S, H, KV, hd = 2, 777, 8, 2, 128
     q, kv, _ = _qkv_inputs(rng, B, S, H, 2 * KV, hd, torch.bfloat16)
@@ -1408,9 +1461,9 @@ def _logits_check(prefill, params, toks, logits, tol):
 
 def _layer0(first, what):
     """The flash kernel on one prefill's layer-0 q, k, v: against its
-    plain version and the planted faults, then timed beside the CUDA-core
-    body, the plain version and ``scaled_dot_product_attention`` (flash
-    backend).  -> the numbers for the kernels JSON row."""
+    plain version and the planted faults, then timed beside the plain
+    version and ``scaled_dot_product_attention`` (flash backend).  -> the
+    numbers for the kernels JSON row."""
     import torch
     from repro_torch.kernels import ops
     q, k, v, causal, qc, kc = first
@@ -1423,25 +1476,18 @@ def _layer0(first, what):
     _check_faults(f"layer 0 of {what}", q, k, v, causal, qc, kc, want)
     ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
                                              q_chunk=qc, kv_chunk=kc), 5, 1)
-    core = _cuda_core_flash(q, k, v, causal)
-    torch.cuda.synchronize()
-    core_share = _flash_close(f"the CUDA-core body on layer 0 of {what}",
-                              core, want)[1]
-    del core, want
-    core_ms = cuda_ms(lambda: _cuda_core_flash(q, k, v, causal), 2, 1)
+    del want
     plain_ms = cuda_ms(lambda: _flash_plain(q, k, v, causal, qc, kc), 1, 1)
     bidir_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=False),
                        2, 1)
-    lib, lib_ms, _ = _sdpa(q, k, v, causal, flash_only=True)
+    lib, lib_ms, _ = _sdpa(q, k, v, causal)
     lib_err = float((lib.float() - got.float()).abs().max())
     b_ms, b_by = flash_bound(q, k, causal)
     log(f"flash_attention, layer 0 of {what}: q {tuple(q.shape)} "
         f"{q.dtype}: max |diff| against the plain version {err:.3g}, "
         f"{share:.3g} x the tolerance; {ms:.4f} ms/call "
         f"({attention_flops(*q.shape, causal) / ms / 1e9:.2f}"
-        f" TFLOP/s), the CUDA-core body {core_ms:.3f} ms ({core_share:.3g} x "
-        f"the tolerance; {core_ms / ms:.2f}x the time), plain "
-        f"{plain_ms:.3f} ms, scaled_dot_product_attention "
+        f" TFLOP/s), plain {plain_ms:.3f} ms, scaled_dot_product_attention "
         f"(flash backend) {lib_ms:.3f} ms (max |diff| to the kernel "
         f"{lib_err:.3g}; {lib_ms / ms:.2f}x the kernel's time), bound "
         f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.2%} of "
@@ -1451,7 +1497,7 @@ def _layer0(first, what):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms, shape=list(q.shape),
                 dtype=str(q.dtype)[6:], tolerance_share=share,
-                bidirectional_ms=bidir_ms, cuda_core_body_ms=core_ms)
+                bidirectional_ms=bidir_ms)
 
 
 def phase_lm(timing):
@@ -1516,11 +1562,9 @@ def phase_lm(timing):
                 launches=cfg.n_layers, **row,
                 prefill_tokens_per_s=LM_BATCH * LM_SEQ / dt,
                 prefill_profile=profile, hd128_s4096=timing["lm4096"],
-                cuda_core_body=dict(
-                    source="src/repro_torch/kernels/csrc/flash_attention.cu",
-                    serves="float32; bfloat16 at hd 16, 32",
-                    **{key: timing[key] for key in ("body_f32_hd80",
-                                                    "body_bf16_hd32")}))
+                hd16_s4096=timing["hd16"], hd32_s4096=timing["hd32"],
+                cuda_core_kernel={key: timing[key]
+                                  for key in FLASH_F32_TIMED})
 
 
 def phase_stablelm(timing):

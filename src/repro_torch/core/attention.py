@@ -1,5 +1,6 @@
 """Chunked online-softmax attention: the plain version of the flash-attention
-kernel (``kernels/csrc/flash_attention.cu``).
+kernels (``kernels/csrc/flash_attention.cu`` and
+``flash_attention_wgmma.cu``).
 
 It sits below both ``kernels.ops`` (whose wrapper runs it on CPU tensors)
 and ``models.layers`` (which re-exports it), as the WF and minimizer

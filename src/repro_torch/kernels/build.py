@@ -40,7 +40,7 @@ ENTRIES = {
                                 [_P] * 5 + [_I] * 7 + [_P]),
     "minimizer_launch": ("minimizer", [_P] * 3 + [_I] * 7 + [_P]),
     "flash_attention_launch": ("flash_attention",
-                               [_P] * 4 + [_I] * 7 + [_F] + [_L] * 9 + [_P]),
+                               [_P] * 4 + [_I] * 6 + [_F] + [_L] * 9 + [_P]),
     "flash_attention_wgmma_launch": ("flash_attention_wgmma",
                                      [_P] * 4 + [_I] * 6 + [_F] + [_L] * 9
                                      + [_P]),

@@ -1,10 +1,10 @@
-// Flash attention on Hopper's tensor cores: bfloat16, head_dim 64, 80 or
-// 128, causal or bidirectional, GQA.
+// Flash attention on Hopper's tensor cores: bfloat16, head_dim 16, 32, 64,
+// 80 or 128, causal or bidirectional, GQA.
 //
 // Replaces the Pallas kernel flash_attention_pallas
 // (src/repro/kernels/flash_attention.py:69, its body _kernel at :27) for the
-// inputs the LM prefill gives it; float32 inputs and bf16 at head dims 16
-// and 32 stay on the CUDA-core body, flash_attention.cu.  For each batch
+// bfloat16 inputs; float32 inputs go to the CUDA-core kernel,
+// flash_attention.cu.  For each batch
 // row b, query head h and query position i it computes
 //   softmax_j(q_i . k_j / sqrt(hd), j <= i when causal) . v_j
 // with k and v read from KV head h // (H / KV): f32 scores, masked scores
@@ -15,9 +15,9 @@
 // version it is held against.  Two places differ from the Pallas body by
 // rounding only:
 //   * the scale multiplies the f32 product q.k instead of q before it.
-//     At hd=64 the scale is 1/8, exact, so the scores equal the Pallas
-//     body's up to the order of the sum; at hd=80 and 128 they differ by
-//     at most an f32 ulp of each score;
+//     At hd 16 and 64 the scale (1/4, 1/8) is exact, so the scores equal
+//     the Pallas body's up to the order of the sum; at hd 32, 80 and 128
+//     they differ by at most an f32 ulp of each score;
 //   * the exp2 form: p = 2^(s * c - m * c) with c = scale * log2(e) folded
 //     into one f32 constant, the max m taken over the unscaled scores (c
 //     > 0, so the same key), and ex2.approx (relative error below 2^-22).
@@ -30,29 +30,37 @@
 // at S=32768, hd=64, far past the card's ~295 bf16 flops per byte.  The
 // bound is the products at the tensor cores' 989 TFLOP/s; the S(S+1)/2
 // exponentials per head on the special-function units (16 a clock per SM)
-// come close to it at hd=64 and are not counted in it.
+// come close to it at hd=64, pass it at hd 32 and 16 (1.85x and 3.7x the
+// products' time: there they set the pace), and are not counted in it.
 //
 // Design (FlashAttention-3's shape, without its ping-pong scheduling and
 // intra-warpgroup overlap of softmax and products):
 //   * one block of three warpgroups per (b, h, 128-row query tile): a
 //     producer (one thread issues every TMA load; setmaxnreg gives its
 //     warpgroup 40 registers) and two consumers of 64 query rows each (232
-//     registers).  Causal query tiles launch longest first, so that the
-//     short ones fill the tail;
+//     registers).  Blocks start in flash_common.cuh's order: every
+//     head's longest causal tiles first where the K and V of all heads
+//     fit in L2, else head by head;
 //   * TMA loads, 64-column boxes (128 bytes, two boxes at hd=80 and 128)
-//     with 128-byte swizzle, over the (B, S, heads, hd) layout with its
-//     strides (64-bit, so a 2^31-element batch stride works); KV head
-//     h // rep is read in place, L2 serving its reuse across the rep query
-//     heads.  Q is loaded once; K and V tiles of 128 keys stream through a
-//     ring of two stages with separate buffers and full/empty mbarriers, so
-//     V_j lands while S_j = Q.K_j^T runs and tile j+1 while tile j is used.
-//     TMA zero-fills rows past S and, at hd=80, columns 80-127 of the
-//     second box: the map's dim 0 is hd, so only the 16 real columns are
-//     read from device memory, and each box still completes its whole
-//     16 KB of transaction bytes;
+//     with 128-byte swizzle at every head dim, over the (B, S, heads, hd)
+//     layout with its strides (64-bit, so a 2^31-element batch stride
+//     works); KV head h // rep is read in place, L2 serving its reuse
+//     across the rep query heads.  Q is loaded once; K and V tiles of 128
+//     keys stream through a ring (two stages, six at hd <= 32) with
+//     separate buffers and full/empty mbarriers, so V_j lands while S_j =
+//     Q.K_j^T runs and the next tiles while tile j is used.
+//     TMA zero-fills rows past S and the columns of a box past hd: at
+//     hd=80 columns 80-127 of the second box, at hd 16 and 32 columns
+//     16-63 or 32-63 of the only one.  The map's dim 0 is hd, so only the
+//     real columns are read from device memory, and each box still
+//     completes its whole 16 KB of transaction bytes.  (Narrower boxes
+//     with the 32- or 64-byte swizzle would save shared-memory writes
+//     but need other descriptors; at hd <= 32 the exponentials, not the
+//     loads, set the pace);
 //   * S_j on wgmma m64n128k16 (bf16 x bf16 -> f32) with Q and K_j K-major
 //     in shared memory, hd / 16 k-steps of 32 bytes (five at hd=80, the
-//     fifth the first 32 bytes of box 1: no product on the zero fill);
+//     fifth the first 32 bytes of box 1; one and two at hd 16 and 32: no
+//     product on the zero fill);
 //   * the online softmax on the accumulator fragment in registers: each
 //     thread holds two rows, a quad of threads a row; the row max is
 //     reduced over the quad with shuffles, the row sum kept per thread
@@ -65,7 +73,8 @@
 //     S_j, converted pairwise to bf16, is the A fragment of P.V (the same
 //     row and column in the same thread): no shared-memory round trip.
 //     B = V_j in shared memory, MN-major through the transpose bit, N =
-//     hd (m64n80k16 at hd=80: box 0's 64 columns and box 1's first 16);
+//     hd (m64n80k16 at hd=80: box 0's 64 columns and box 1's first 16;
+//     m64n16k16 and m64n32k16 the first 16 or 32 columns of box 0);
 //   * the epilogue divides by max(l, 1e-30), rounds once to bf16 and
 //     stores the rows below S.
 #include <cstdint>
@@ -73,11 +82,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
 constexpr int BQ = 128;          // query rows per block: two warpgroups of 64
 constexpr int BK = 128;          // keys per K or V tile
-constexpr int STAGES = 2;        // depth of the K and V rings
 constexpr int THREADS = 384;     // producer warpgroup + two consumers
 constexpr int CONSUMERS = 256;   // threads that release a ring slot
 constexpr int BOX = 64;          // columns per TMA box: one 128-byte row
@@ -90,6 +100,10 @@ constexpr float NEG = -1e30f;
 // barriers.
 template <int HD>
 struct Layout {
+  // depth of the K and V rings: at hd <= 32 a tile's products and softmax
+  // are too short to cover the loads' latency two tiles ahead (six
+  // stages: 6-11% faster than two, tools/flash_variants.py on the H100)
+  static constexpr int STAGES = HD <= 32 ? 6 : 2;
   static constexpr int NBOX = (HD + BOX - 1) / BOX;
   static constexpr int Q_BOX = BQ * ROW_BYTES;
   static constexpr int KV_BOX = BK * ROW_BYTES;
@@ -231,6 +245,38 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D (64 x 16, f32) += A (64 x 16) . B (16 x 16); A bf16 in registers (the
+// accumulator layout, two values a register), B bf16 in shared memory,
+// MN-major (transposed), 128-byte swizzle: the first 16 columns of a box.
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 32, f32) += A (64 x 16) . B (16 x 32); as wgmma_rs_n16, the
+// first 32 columns of a box.
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // D (64 x 64, f32) += A (64 x 16) . B (16 x 64); A bf16 in registers (the
 // accumulator layout, two values a register), B bf16 in shared memory,
 // MN-major (transposed), 128-byte swizzle.
@@ -315,7 +361,8 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
 
 // S += or = the consumer's 64 query rows . K tile^T, over HD in steps of
 // 16: A (Q) and B (K) K-major, each step 32 bytes into a 128-byte row of a
-// box, the next box after four steps (at HD=80 one step into box 1).
+// box, the next box after four steps (at HD=80 one step into box 1; at HD
+// 16 and 32 one and two steps, all in box 0).
 template <int HD>
 __device__ __forceinline__ void scores(float (&s)[64], uint32_t q,
                                        uint32_t k) {
@@ -338,7 +385,11 @@ __device__ __forceinline__ void pv(float (&acc)[HD / 2], const uint32_t* p,
   for (int kt = 0; kt < BK / 16; ++kt) {
     const uint64_t d = sw128_desc(v + kt * 16 * ROW_BYTES,
                                   Layout<HD>::KV_BOX, 1024);
-    if constexpr (HD == 64)
+    if constexpr (HD == 16)
+      wgmma_rs_n16(acc, p + 4 * kt, d);
+    else if constexpr (HD == 32)
+      wgmma_rs_n32(acc, p + 4 * kt, d);
+    else if constexpr (HD == 64)
       wgmma_rs_n64(acc, p + 4 * kt, d);
     else if constexpr (HD == 80)
       wgmma_rs_n80(acc, p + 4 * kt, d);
@@ -352,8 +403,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
-                   __nv_bfloat16* __restrict__ o, int S, int rep, int causal,
-                   float c, int64_t osb, int64_t oss, int64_t osh) {
+                   __nv_bfloat16* __restrict__ o, int S, int H, int rep,
+                   int group, int causal, float c, int64_t osb, int64_t oss,
+                   int64_t osh) {
   using L = Layout<HD>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base =
@@ -361,9 +413,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       ~1023u;
   const uint32_t sq = base, bar = base + L::BAR_OFF;
 
-  const int nq = gridDim.x;
-  const int iq = causal ? nq - 1 - int(blockIdx.x) : int(blockIdx.x);
-  const int h = blockIdx.y, b = blockIdx.z;
+  int b, h, iq;
+  flash_tile(blockIdx.x, (S + BQ - 1) / BQ, group, H, causal, b, h, iq);
   const int q0 = iq * BQ;
   const int nk_all = (S + BK - 1) / BK;
   const int nk = causal ? min((q0 + BQ + BK - 1) / BK, nk_all) : nk_all;
@@ -371,7 +422,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q(bar), 1);
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < L::STAGES; ++s) {
       mbar_init(bar_k_full(bar, s), 1);
       mbar_init(bar_k_empty(bar, s), CONSUMERS);
       mbar_init(bar_v_full(bar, s), 1);
@@ -392,8 +443,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       for (int j = 0; j < nk; ++j) {
         // round j / STAGES of slot s waits for the consumers' release of
         // the round before; in round 0 that parity (1) is already done
-        const int s = j % STAGES;
-        const uint32_t ph = (j / STAGES) & 1;
+        const int s = j % L::STAGES;
+        const uint32_t ph = (j / L::STAGES) & 1;
         const uint32_t sk = base + L::K_OFF + s * L::KV_BYTES;
         const uint32_t sv = base + L::V_OFF + s * L::KV_BYTES;
         mbar_wait(bar_k_empty(bar, s), ph ^ 1);
@@ -425,8 +476,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
     mbar_wait(bar_q(bar), 0);
     for (int j = 0; j < nk; ++j) {
-      const int s = j % STAGES;
-      const uint32_t ph = (j / STAGES) & 1;
+      const int s = j % L::STAGES;
+      const uint32_t ph = (j / L::STAGES) & 1;
       const int k0 = j * BK;
       float sc[64];
       mbar_wait(bar_k_full(bar, s), ph);
@@ -558,10 +609,10 @@ cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km,
       flash_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_wgmma_kernel<HD><<<grid, THREADS, smem, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), S, H / KV, causal, c, osb,
-      oss, osh);
+  flash_wgmma_kernel<HD><<<(S + BQ - 1) / BQ * H * B, THREADS, smem,
+                           stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), S, H, H / KV,
+      flash_group(B, H, KV, S, HD, 2), causal, c, osb, oss, osh);
   return cudaGetLastError();
 }
 
@@ -572,7 +623,7 @@ bool tma_ok(const void* p, int64_t s0, int64_t s1, int64_t s2) {
 
 }  // namespace
 
-// bfloat16 only; hd 64, 80 or 128.  Strides are in elements: (batch, seq,
+// bfloat16 only; hd 16, 32, 64, 80 or 128.  Strides are in elements: (batch, seq,
 // head) of q, of k and v (equal), and of o; head_dim is contiguous.  q, k
 // and v must be 16-byte aligned with strides of a multiple of 16 bytes
 // (the TMA's rules): the wrapper checks, and so does this entry.
@@ -581,7 +632,8 @@ extern "C" int flash_attention_wgmma_launch(
     int H, int KV, int hd, int causal, float scale, int64_t qsb,
     int64_t qss, int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
     int64_t osb, int64_t oss, int64_t osh, void* stream) {
-  if (KV <= 0 || H % KV || (hd != 64 && hd != 80 && hd != 128))
+  if (KV <= 0 || H % KV ||
+      (hd != 16 && hd != 32 && hd != 64 && hd != 80 && hd != 128))
     return cudaErrorInvalidValue;
   if (!tma_ok(q, qsb, qss, qsh) || !tma_ok(k, ksb, kss, ksh) ||
       !tma_ok(v, ksb, kss, ksh))
@@ -595,6 +647,10 @@ extern "C" int flash_attention_wgmma_launch(
     return cudaErrorInvalidValue;
   const float c = scale * 1.4426950408889634f;  // scale * log2(e)
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd == 16)
+    return launch<16>(qm, km, vm, o, B, S, H, KV, causal, c, osb, oss, osh, s);
+  if (hd == 32)
+    return launch<32>(qm, km, vm, o, B, S, H, KV, causal, c, osb, oss, osh, s);
   if (hd == 64)
     return launch<64>(qm, km, vm, o, B, S, H, KV, causal, c, osb, oss, osh, s);
   if (hd == 80)

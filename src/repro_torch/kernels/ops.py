@@ -37,9 +37,8 @@ THREADS = 128               # linear / affine block size
 SMEM_DEFAULT = 48 * 1024    # shared memory a block gets without opting in
 MINI_THREADS = 256          # minimizer block size
 MINI_WINDOWS = 1024         # windows a minimizer block aims to cover
-FLASH_HEAD_DIMS = (16, 32, 64, 80, 128)  # head_dim instances compiled
-FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-FLASH_WGMMA_HEAD_DIMS = (64, 80, 128)  # bf16 head dims, tensor-core kernel
+FLASH_HEAD_DIMS = (16, 32, 64, 80, 128)  # head_dim instances of each kernel
+FLASH_DTYPES = (torch.float32, torch.bfloat16)
 TMA_ALIGN = 16              # bytes: a TMA load's base and strides
 
 
@@ -281,18 +280,17 @@ def affine_traceback(s1: torch.Tensor, s2_window: torch.Tensor, *,
 
 def flash_kernel(dtype: torch.dtype, hd: int) -> str:
     """The kernel ``flash_attention`` launches for CUDA inputs of ``dtype``
-    at head dim ``hd``: ``"flash_attention_wgmma"`` (tensor cores fed by
-    TMA) for bfloat16 at ``FLASH_WGMMA_HEAD_DIMS`` (64, 80, 128), else
-    ``"flash_attention"`` (the CUDA-core body: float32, and bfloat16 at the
-    other head dims of ``FLASH_HEAD_DIMS``).  Raises for what neither
-    takes."""
+    at head dim ``hd``, one of ``FLASH_HEAD_DIMS``:
+    ``"flash_attention_wgmma"`` (tensor cores fed by TMA) for bfloat16,
+    ``"flash_attention"`` (the CUDA cores) for float32.  Raises for what
+    neither takes."""
     if dtype not in FLASH_DTYPES:
         raise TypeError(f"no flash kernel for {dtype}")
-    if dtype == torch.bfloat16 and hd in FLASH_WGMMA_HEAD_DIMS:
-        return "flash_attention_wgmma"
     if hd not in FLASH_HEAD_DIMS:
         raise ValueError(f"head_dim={hd} has no compiled kernel instance; "
                          f"supported: {FLASH_HEAD_DIMS}")
+    if dtype == torch.bfloat16:
+        return "flash_attention_wgmma"
     return "flash_attention"
 
 
@@ -324,14 +322,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     compute ``_sdpa_chunked(..., f32_scores=True)``; on CPU tensors the
     wrapper runs ``_sdpa_chunked`` with the reference model's products in
     the inputs' dtype, the same function for float32 inputs.  Takes
-    float32 and bfloat16.  ``flash_kernel`` picks the kernel: bfloat16 at
-    head dim 64, 80 or 128 goes to the tensor-core kernel, the rest to the
-    CUDA-core body (head_dim instances ``FLASH_HEAD_DIMS``).  Strided
-    inputs are read in place as long as head_dim is contiguous; the
-    tensor-core kernel loads them by TMA and raises (no other kernel
-    stands in) unless each base and stride is a multiple of 16 bytes
-    (``check_tma``), which the layers' (B, S, heads, hd) tensors, each a
-    contiguous projection of its own, always meet.
+    float32 and bfloat16 at head dims ``FLASH_HEAD_DIMS``; ``flash_kernel``
+    picks the kernel: bfloat16 goes to the tensor-core kernel, float32 to
+    the CUDA-core kernel.  Strided inputs are read in place as long as
+    head_dim is contiguous; the tensor-core kernel loads them by TMA and
+    raises (no other kernel stands in) unless each base and stride is a
+    multiple of 16 bytes (``check_tma``), which the layers' (B, S, heads,
+    hd) tensors, each a contiguous projection of its own, always meet.
     ``LAUNCHES["flash_attention"]`` counts every launch,
     ``LAUNCHES["flash_attention_wgmma"]`` those of the tensor-core
     kernel."""
@@ -375,14 +372,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             check_tma(name, t.data_ptr(), t.stride()[:3], t.element_size())
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     if out.numel():
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, S, H, KV, hd)
-        if kernel == "flash_attention":     # the CUDA-core body's dtype
-            args += (FLASH_DTYPES[q.dtype],)
         with torch.cuda.device(q.device):
             rc = build.entry(f"{kernel}_launch")(
-                *args, int(causal), 1.0 / math.sqrt(hd), *q.stride()[:3],
-                *k.stride()[:3], *out.stride()[:3], _stream(q))
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+                S, H, KV, hd, int(causal), 1.0 / math.sqrt(hd),
+                *q.stride()[:3], *k.stride()[:3], *out.stride()[:3],
+                _stream(q))
         _raise_on(rc, kernel)
         LAUNCHES["flash_attention"] += 1
         if kernel == "flash_attention_wgmma":

@@ -15,8 +15,16 @@ Tolerances:
     often tie exactly, and a tie is broken by those few ulps;
   * decode against forward within the port: 1e-3, as the reference's
     ``tests/test_models_smoke.py`` holds it.
+  * bf16 attention, the wrapper on CPU tensors against the Pallas kernel:
+    2^-6 |ref| + 2^-5 x the RMS of the row (its hd outputs).  The
+    wrapper's plain version rounds Q.K^T and P.V to bf16 (the reference
+    model's einsums), the Pallas body keeps f32 scores, so a score moves
+    by up to 2^-8 of itself and p by about as much times the score; each
+    side also rounds its output to bf16 once.
 """
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -120,28 +128,49 @@ def test_configs_equal_reference():
 
 
 # --------------------------------------------------- the flash kernel
-@pytest.mark.parametrize("B,S,H,KV,hd,causal,qc,kc", [
-    (2, 128, 4, 2, 32, True, 64, 64),
-    (1, 256, 8, 8, 16, True, 64, 128),
-    (2, 128, 6, 2, 32, False, 32, 64),
-    (1, 64, 4, 1, 64, True, 64, 32),
+def _case(*case, dtype=torch.float32):
+    """A flash case with the id of its numbers (and "-bf16" for bf16)."""
+    name = "-".join(map(str, case))
+    return pytest.param(*case, dtype,
+                        id=name + ("-bf16" if dtype == torch.bfloat16
+                                   else ""))
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,qc,kc,dtype", [
+    _case(2, 128, 4, 2, 32, True, 64, 64),
+    _case(1, 256, 8, 8, 16, True, 64, 128),
+    _case(2, 128, 6, 2, 32, False, 32, 64),
+    _case(1, 64, 4, 1, 64, True, 64, 32),
     # StableLM-3B's head dim, on the tensor-core kernel in bf16
-    (1, 256, 4, 4, 80, True, 128, 128),
-    (1, 256, 4, 4, 80, False, 128, 128),
+    _case(1, 256, 4, 4, 80, True, 128, 128),
+    _case(1, 256, 4, 4, 80, False, 128, 128),
+    # bf16 at head dims 16 and 32, on the tensor-core kernel on the card
+    _case(2, 128, 4, 2, 32, True, 64, 64, dtype=torch.bfloat16),
+    _case(1, 256, 8, 8, 16, True, 64, 128, dtype=torch.bfloat16),
+    _case(2, 128, 6, 2, 32, False, 32, 64, dtype=torch.bfloat16),
+    _case(1, 256, 4, 2, 16, False, 128, 128, dtype=torch.bfloat16),
 ])
-def test_flash_attention_matches_pallas(B, S, H, KV, hd, causal, qc, kc):
+def test_flash_attention_matches_pallas(B, S, H, KV, hd, causal, qc, kc,
+                                        dtype):
     """The wrapper on CPU tensors (its plain version) against the Pallas
-    kernel in interpret mode, on the reference kernel test's shapes."""
+    kernel in interpret mode, on the reference kernel test's shapes, in
+    float32 (2e-3) and in bf16 (see the module docstring)."""
     q, k, v = _attn_inputs(np.random.default_rng(5), B, S, H, KV, hd)
-    want = jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
-                                jnp.asarray(v), causal=causal, q_chunk=qc,
-                                kv_chunk=kc)
+    jdtype = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = _np(jops.flash_attention(
+        *(jnp.asarray(a, jdtype) for a in (q, k, v)), causal=causal,
+        q_chunk=qc, kv_chunk=kc).astype(jnp.float32))
     tops.reset_launch_counts()
-    got = tops.flash_attention(_t(q), _t(k), _t(v), causal=causal,
-                               q_chunk=qc, kv_chunk=kc)
-    assert got.dtype == torch.float32 and got.shape == (B, S, H, hd)
-    np.testing.assert_allclose(got.numpy(), _np(want), atol=F32_TOL,
-                               rtol=F32_TOL)
+    got = tops.flash_attention(*(_t(a, dtype) for a in (q, k, v)),
+                               causal=causal, q_chunk=qc, kv_chunk=kc)
+    assert got.dtype == dtype and got.shape == (B, S, H, hd)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.numpy(), want, atol=F32_TOL,
+                                   rtol=F32_TOL)
+    else:
+        rms = np.sqrt(np.square(want).mean(-1, keepdims=True))
+        tol = 2.0**-6 * np.abs(want) + 2.0**-5 * rms
+        assert (np.abs(got.float().numpy() - want) <= tol).all()
     assert tops.LAUNCHES["flash_attention"] == 0
     assert tops.LAUNCHES["flash_attention_wgmma"] == 0
 
@@ -181,16 +210,19 @@ def test_kernel_arithmetic_matches_pallas_bf16(B, S, H, KV, hd, causal, qc,
 @pytest.mark.parametrize("dtype,hd,kernel", [
     (torch.bfloat16, 64, "flash_attention_wgmma"),
     (torch.bfloat16, 128, "flash_attention_wgmma"),
-    (torch.bfloat16, 16, "flash_attention"),
-    (torch.bfloat16, 32, "flash_attention"),
+    (torch.bfloat16, 16, "flash_attention_wgmma"),
+    (torch.bfloat16, 32, "flash_attention_wgmma"),
     (torch.bfloat16, 80, "flash_attention_wgmma"),
     (torch.float32, 64, "flash_attention"),
     (torch.float32, 80, "flash_attention"),
     (torch.float32, 128, "flash_attention"),
+    (torch.float32, 16, "flash_attention"),
+    (torch.float32, 32, "flash_attention"),
 ])
 def test_flash_kernel_route(dtype, hd, kernel):
-    """bf16 at hd 64, 80 and 128 goes to the tensor-core kernel, the rest
-    to the CUDA-core body, and both have a C entry in build.ENTRIES."""
+    """bf16 goes to the tensor-core kernel and float32 to the CUDA-core
+    kernel at every head dim, and both have a C entry in
+    build.ENTRIES."""
     assert tops.flash_kernel(dtype, hd) == kernel
     assert f"{kernel}_launch" in tbuild.ENTRIES
 
@@ -203,6 +235,39 @@ def test_flash_kernel_route(dtype, hd, kernel):
 def test_flash_kernel_route_refuses(dtype, hd, exc):
     with pytest.raises(exc):
         tops.flash_kernel(dtype, hd)
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports nothing of torch until it
+    runs)."""
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_checks_every_flash_route():
+    """Every (dtype, head dim) that ``flash_kernel`` sends to a kernel is
+    held to its plain version by one of chip_smoke.py's checked sweeps
+    (float32: FLASH_SWEEP; bf16: FLASH_BF16_SWEEP, whose cases also meet
+    the planted faults), and its edge shapes cover every head dim; the
+    faults' kv tile is each kernel's."""
+    cs = _chip_smoke()
+    checked = {(torch.float32, c[4]) for c in cs.FLASH_SWEEP}
+    checked |= {(torch.bfloat16, c[4]) for c in cs.FLASH_BF16_SWEEP}
+    routed = set()
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for hd in range(1, 257):
+            try:
+                kernel = tops.flash_kernel(dtype, hd)
+            except (TypeError, ValueError):
+                continue
+            routed.add((dtype, hd))
+            assert kernel in cs.FLASH_TILE
+            assert cs._route(dtype, hd) == kernel
+    assert routed and routed <= checked, routed - checked
+    assert {hd for _, hd in routed} == set(cs.FLASH_EDGE_HEAD_DIMS)
 
 
 def _bf16_view(offset, strides, shape=(2, 8, 4, 64)):

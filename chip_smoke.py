@@ -7,14 +7,19 @@ Phases, each fatal on failure:
 
 1. environment: the card's name and power limit (``nvidia-smi``);
 2. build: compiles the Hopper kernels of ``src/repro_torch/kernels/csrc``
-   and prints nvcc's ``-Xptxas -v`` report for each;
+   and prints nvcc's ``-Xptxas -v`` report for each, and the loops of the
+   linear kernel's SASS at eth=6 (``cuobjdump -sass``: instructions by
+   opcode);
 3. kernel parity: each kernel against its plain torch version on the same
    CUDA tensors: the WF kernels on random and near-match pairs at n=150,
    eth=6, sat=32, max_ops=302 (65,536 linear, 16,384 affine distance and
    affine with direction planes, 8,192 traceback instances) and on 1,000
-   pairs at n=37 and n=150 at every compiled eth (0..12); the minimizer
-   scan on 65,536 random reads of 150 bases (k=12, w=30) and a ragged
-   1,000 reads of 80 (k=8, w=16).
+   pairs at n=37 and n=150 at every compiled eth (0..12); the linear
+   kernel also on reads no longer than the band and just past it (n in
+   1, eth, eth+1, 2*eth+1) at every eth, with SENTINEL bytes and bytes
+   0..255 in reads and windows, and at the compacted engine's chunk of
+   1,048,576 instances; the minimizer scan on 65,536 random reads of 150
+   bases (k=12, w=30) and a ragged 1,000 reads of 80 (k=8, w=16).
    Equality must be exact.  Times each kernel and its plain version with
    CUDA events;
 4. end to end: a 64 Mb synthetic reference (GRCh38 cut to what the flat
@@ -102,10 +107,16 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 N, ETH, SAT, MAX_OPS = 150, 6, 32, 302
 K, W = 12, 30
 R_LINEAR, R_AFFINE, R_TRACEBACK = 65_536, 16_384, 8_192
+# the compacted engine's first chunk: 16,384 reads x 2 strands x 32
+# candidates, the linear kernel's main-path batch
+R_LINEAR_CHUNK = 1_048_576
 R_MINI = 65_536
 # phase 3 holds each WF kernel to its plain version at every compiled eth
 # on PARITY_R pairs of each read length
 PARITY_R, PARITY_NS = 1000, (37, N)
+# and the linear kernel on short reads at every eth, PARITY_EDGE_R pairs
+# (odd: a multiple of no block or pair of instances)
+PARITY_EDGE_R = 333
 # the card's peaks (H100 SXM): HBM rate from NVIDIA's data sheet.  The
 # int32 rate is not in the data sheet: its 67 TFLOP/s of float32 counts an
 # FMA as two ops on 128 float32 lanes per SM; Hopper has 64 int32 lanes
@@ -281,6 +292,24 @@ def pair_batch(rng, R, n, eth):
     return s1, s2
 
 
+def edge_batch(rng, R, n, eth):
+    """``pair_batch``'s pairs in every byte the wrappers take: a quarter
+    of the near-match pairs mapped through a random table of bytes 0..255
+    per row, a quarter of the random pairs drawn from 0..255, then a
+    tenth of all bytes set to SENTINEL (4)."""
+    from repro_torch.core.encoding import SENTINEL
+    s1, s2 = pair_batch(rng, R, n, eth)
+    q = R // 4
+    lut = rng.integers(0, 256, (q, 4)).astype(np.uint8)
+    s1[:q] = np.take_along_axis(lut, s1[:q], axis=1)
+    s2[:q] = np.take_along_axis(lut, s2[:q], axis=1)
+    s1[R - q:] = rng.integers(0, 256, (q, n))
+    s2[R - q:] = rng.integers(0, 256, (q, n + 2 * eth))
+    for s in (s1, s2):
+        s[rng.random(s.shape) < 0.1] = SENTINEL
+    return s1, s2
+
+
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     """ms per call of ``fn``: CUDA events around ``reps`` calls after
     ``warmup``, the least mean of TIMING_ROUNDS such rounds."""
@@ -323,6 +352,57 @@ def phase_build():
     for name, d in info.items():
         log(f"--- {name}: {d['seconds']:.2f} s, nvcc -Xptxas -v report:")
         log(d["log"].strip() or "(already built)")
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    kernel = f"linear_wf_kernelILi{ETH}E"
+    if not os.path.exists(tool):
+        log(f"sass: no {tool}, loops of {kernel} not counted")
+        return
+    sass = subprocess.run([tool, "-sass", info["linear_wf"]["path"]],
+                          capture_output=True, text=True,
+                          check=True).stdout
+    for lo, hi, ops in sass_loops(sass, kernel):
+        top = ", ".join(f"{op} {c}" for op, c in
+                        sorted(ops.items(), key=lambda x: -x[1]))
+        log(f"sass {kernel}: loop {lo:#06x}-{hi:#06x}: "
+            f"{sum(ops.values())} instructions: {top}")
+
+
+def sass_loops(sass, kernel):
+    """The loops of the function whose name holds ``kernel`` in
+    ``cuobjdump -sass`` output: [(first address, branch address, {opcode:
+    count})] for every backward branch over 8 or more instructions."""
+    funcs = re.split(r"\n\s*Function : ", sass)
+    body = next((f for f in funcs[1:] if kernel in f.split("\n", 1)[0]), "")
+    label_at, pending, insts = {}, [], []
+    for line in body.splitlines():
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                     r"([A-Z][A-Z0-9_]*)\S*(.*)", line)
+        if not m:
+            continue
+        addr = int(m.group(1), 16)
+        label_at.update((lab, addr) for lab in pending)
+        pending = []
+        insts.append((addr, m.group(2), m.group(3)))
+    loops = []
+    for addr, op, rest in insts:
+        t = re.search(r"(\.L_x_\d+)|(0x[0-9a-f]+)", rest) \
+            if op == "BRA" else None
+        if t is None:
+            continue
+        to = label_at.get(t.group(1)) if t.group(1) else int(t.group(2), 16)
+        if to is None or to > addr:
+            continue
+        ops = {}
+        for a, o, _ in insts:
+            if to <= a <= addr:
+                ops[o] = ops.get(o, 0) + 1
+        if sum(ops.values()) >= 8:
+            loops.append((to, addr, ops))
+    return sorted(loops)
 
 
 def _compare(name, got, want):
@@ -458,7 +538,11 @@ def phase_minimizer_parity():
 def phase_parity():
     """Each WF kernel against its plain version on generated pairs: at
     every compiled eth (``ops.SUPPORTED_ETH``) on PARITY_R pairs of each
-    of PARITY_NS read lengths, then on the main path's geometry (timed)."""
+    of PARITY_NS read lengths, then on the main path's geometry (timed).
+    The linear kernel takes ``edge_batch``'s bytes, also on PARITY_EDGE_R
+    reads of 1, eth, eth+1 and 2*eth+1 bases at every eth (the rows
+    before, at and past the end of its peeled prologue), and is timed at
+    the main path's chunk of R_LINEAR_CHUNK instances too."""
     import torch
     from repro_torch.kernels import ops
     rng = np.random.default_rng(11)
@@ -469,11 +553,16 @@ def phase_parity():
         # band; the traceback also with a max_ops that wraps
         cases = [(PARITY_R, n, eth, 2 * n + 2) for eth in eths
                  for n in PARITY_NS]
+        gen = pair_batch
         if name == "affine_traceback":
             cases.append((PARITY_R, 37, 4, 40))
+        if name == "linear_wf":
+            gen = edge_batch
+            cases += [(PARITY_EDGE_R, n, eth, 0) for eth in eths
+                      for n in sorted({1, eth, eth + 1, 2 * eth + 1} - {0})]
         cases.append((k["R"], N, ETH, MAX_OPS))
         for R, n, eth, mo in cases:
-            s1, s2 = pair_batch(rng, R, n, eth)
+            s1, s2 = (pair_batch if R == k["R"] else gen)(rng, R, n, eth)
             a, b = torch.from_numpy(s1).to(dev), torch.from_numpy(s2).to(dev)
             got = k["run"](a, b, eth, mo)
             torch.cuda.synchronize()
@@ -481,18 +570,30 @@ def phase_parity():
                      k["plain"](a, b, eth, mo))
         wrap = " (and 40 at n=37, eth=4)" if name == "affine_traceback" \
             else ""
+        if name == "linear_wf":
+            wrap = (f"; bytes 0..255 and SENTINEL; R={PARITY_EDGE_R}, n in "
+                    f"(1, eth, eth+1, 2eth+1) at every eth")
         log(f"parity {name}: R={PARITY_R}, n in {PARITY_NS}, every eth in "
             f"{eths[0]}..{eths[-1]}, max_ops 2n+2{wrap}; R={k['R']}, "
             f"n={N}, eth={ETH}: bit-identical (tolerance 0: "
             f"integer outputs)")
-        R = k["R"]
-        ms = cuda_ms(lambda: k["run"](a, b, ETH, MAX_OPS), k["reps"], 3)
-        plain_ms = cuda_ms(lambda: k["plain"](a, b, ETH, MAX_OPS), 2, 1)
-        steps = int(got[3].sum()) if name == "affine_traceback" else 0
-        b_ms, b_by = bound(name, R, N, ETH, MAX_OPS, steps)
-        log(f"timing {name} (generated pairs): R={R}: {ms:.4f} ms/call "
-            f"({R / ms * 1e3:,.0f} instances/s), plain {plain_ms:.2f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound")
+        timed = [(k["R"], a, b)]
+        if name == "linear_wf":
+            # the main-path chunk's size: the generated pairs repeated
+            a, b = (t.repeat(R_LINEAR_CHUNK // k["R"], 1) for t in (a, b))
+            _compare(f"{name} R={R_LINEAR_CHUNK}",
+                     k["run"](a, b, ETH, MAX_OPS),
+                     k["plain"](a, b, ETH, MAX_OPS))
+            timed.append((R_LINEAR_CHUNK, a, b))
+        for R, a, b in timed:
+            ms = cuda_ms(lambda: k["run"](a, b, ETH, MAX_OPS), k["reps"], 3)
+            plain_ms = cuda_ms(lambda: k["plain"](a, b, ETH, MAX_OPS), 2, 1)
+            steps = int(got[3].sum()) if name == "affine_traceback" else 0
+            b_ms, b_by = bound(name, R, N, ETH, MAX_OPS, steps)
+            log(f"timing {name} (generated pairs): R={R}: {ms:.4f} ms/call "
+                f"({R / ms * 1e3:,.0f} instances/s), plain {plain_ms:.2f} "
+                f"ms, bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of "
+                f"bound")
         if name == "affine_wf":
             log(f"timing affine_wf: a contiguous (R, n, band) copy of the "
                 f"direction planes, which the wrapper does not make: "

@@ -20,14 +20,15 @@ from repro_torch.kernels import ops as tops
 ETH, SAT = 6, 32
 
 
-def _pair_batch(rng, R, n, eth):
-    """Random and near-match pairs (the reference kernel tests' generator)."""
-    s1 = rng.integers(0, 4, (R, n)).astype(np.uint8)
-    s2 = rng.integers(0, 4, (R, n + 2 * eth)).astype(np.uint8)
+def _pair_batch(rng, R, n, eth, top=4):
+    """Random and near-match pairs (the reference kernel tests' generator),
+    of bytes below ``top``."""
+    s1 = rng.integers(0, top, (R, n)).astype(np.uint8)
+    s2 = rng.integers(0, top, (R, n + 2 * eth)).astype(np.uint8)
     s2[: R // 2, eth : eth + n] = s1[: R // 2]
     for r in range(R // 2):
         for _ in range(int(rng.integers(0, 4))):
-            s2[r, eth + int(rng.integers(0, n))] = rng.integers(0, 4)
+            s2[r, eth + int(rng.integers(0, n))] = rng.integers(0, top)
     return s1, s2
 
 
@@ -61,13 +62,25 @@ def _eq(got, want, what):
                                       err_msg=f"{what}[{name}]")
 
 
-@pytest.mark.parametrize("R,n,eth", [
-    (33, 24, 6), (64, 40, 6), (128, 50, 4), (16, 30, 8), (21, 24, 6),
+_LINEAR_CASES = [
+    (33, 24, 6, 4), (64, 40, 6, 4), (128, 50, 4, 4), (16, 30, 8, 4),
+    (21, 24, 6, 4),
     # the ends and the middle of the compiled range (ops.SUPPORTED_ETH)
-    (24, 30, 0), (24, 30, 5), (24, 30, 12),
-])
-def test_linear_wf_matches_pallas(R, n, eth):
-    s1, s2 = _pair_batch(np.random.default_rng(R * n + eth), R, n, eth)
+    (24, 30, 0, 4), (24, 30, 5, 4), (24, 30, 12, 4),
+    # reads no longer than the band and just past it: the rows whose band
+    # reaches left of column 0 are all of them, or all but the last
+    (16, 1, 12, 4), (16, 12, 12, 4), (16, 13, 12, 4), (17, 7, 6, 4),
+    # any byte: the wrappers take uint8 reads and windows, SENTINEL and up
+    (19, 29, 6, 256),
+]
+
+
+@pytest.mark.parametrize(
+    "R,n,eth,top", _LINEAR_CASES,
+    ids=[f"{R}-{n}-{eth}" + (f"-bytes{top}" if top != 4 else "")
+         for R, n, eth, top in _LINEAR_CASES])
+def test_linear_wf_matches_pallas(R, n, eth, top):
+    s1, s2 = _pair_batch(np.random.default_rng(R * n + eth), R, n, eth, top)
     want = jops.linear_wf(jnp.array(s1), jnp.array(s2), eth=eth,
                           block_r=16 if R < 32 else 32)
     got = tops.linear_wf(_t(s1), _t(s2), eth=eth)

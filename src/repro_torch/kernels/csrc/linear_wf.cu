@@ -4,14 +4,6 @@
 // (src/repro/kernels/linear_wf.py, body _kernel): D[n][n] and the min of
 // the last band row for every (read, window) instance.
 //
-// What bounds it on the H100: integer operations.  The recurrence needs
-// 7 int32 ops per band cell (the mismatch compare, diag+sub, up+1, left+1
-// and three mins, saturation included), n * (2*ETH+1) cells per instance,
-// against 312 input bytes and 8 output bytes: about 43 ops per byte at
-// n=150, ETH=6, far above the ~5 int32 ops/byte at which 16.7 Tops/s
-// meets 3.35 TB/s.  The kernel also runs the column masks of the first
-// ETH rows on every row, which the bound does not count.
-//
 // Design: one thread per instance, the band in registers (ETH is a
 // template parameter, the band loops unrolled), so the recurrence runs
 // without any memory traffic; the window slides through a register
@@ -19,6 +11,43 @@
 // shared memory with coalesced loads, because a thread reading its own
 // row from device memory would stride by n bytes across the warp.
 #include "wf_common.cuh"
+
+namespace {
+
+// One row i of the band, in place: B holds row i-1 on entry and row i on
+// exit; ch[d] = b[i-1+d] and c1 = a[i-1].  The values run unclamped: the
+// reference clamps to SAT after every step, but min(min(x, SAT) + 1, SAT)
+// = min(x + 1, SAT) and min commutes with min(., SAT), so min(B[d], SAT)
+// is the reference's cell at every row and only the two outputs need the
+// clamp.  For the same reason an operand >= SAT can be left out of a min:
+// off-band up, and the left neighbour of d = 0.  Nor do rows 1..ETH need
+// the reference's column masks: a cell left of column 0 (j < 0) starts
+// at SAT and takes the min of operands that are all >= SAT, and the
+// diagonal of a cell on column 0 comes from one of them, so every row
+// runs the same code.
+template <int ETH>
+__device__ __forceinline__ void band_row(int (&B)[2 * ETH + 1],
+                                         const int (&ch)[2 * ETH + 1],
+                                         int c1) {
+  constexpr int BAND = 2 * ETH + 1;
+  int run = 0;
+#pragma unroll
+  for (int d = 0; d < BAND; ++d) {
+    int v = B[d] + (c1 != ch[d]);
+    if (d + 1 < BAND) v = min(v, B[d + 1] + 1);
+    if (d > 0) v = min(v, run + 1);
+    B[d] = run = v;
+  }
+}
+
+template <int ETH>
+__device__ __forceinline__ void slide(int (&ch)[2 * ETH + 1], int next) {
+#pragma unroll
+  for (int d = 0; d < 2 * ETH; ++d) ch[d] = ch[d + 1];
+  ch[2 * ETH] = next;
+}
+
+}  // namespace
 
 template <int ETH>
 __global__ void linear_wf_kernel(const uint8_t* __restrict__ s1,
@@ -42,38 +71,20 @@ __global__ void linear_wf_kernel(const uint8_t* __restrict__ s1,
 
   int B[BAND], ch[BAND];
 #pragma unroll
-  for (int d = 0; d < BAND; ++d) B[d] = d < ETH ? SAT : min(d - ETH, SAT);
+  for (int d = 0; d < BAND; ++d) B[d] = d < ETH ? SAT : d - ETH;
 #pragma unroll
   for (int d = 0; d + 1 < BAND; ++d) ch[d + 1] = b[d];
 
   for (int i = 1; i <= n; ++i) {
-#pragma unroll
-    for (int d = 0; d + 1 < BAND; ++d) ch[d] = ch[d + 1];
-    ch[BAND - 1] = b[i - 1 + BAND - 1];
-    const int c1 = a[i - 1];
-    int cand[BAND];
-#pragma unroll
-    for (int d = 0; d < BAND; ++d) {
-      const int j = i + d - ETH;
-      const int diag = j >= 1 ? B[d] + (c1 != ch[d]) : SAT;
-      const int up_src = d + 1 < BAND ? B[d + 1] : SAT;
-      const int up = j >= 0 ? min(up_src + 1, SAT) : SAT;
-      cand[d] = min(min(diag, up), SAT);
-    }
-    // left propagation: the (min, +1) running scan across the band
-    int run = SAT;
-#pragma unroll
-    for (int d = 0; d < BAND; ++d) {
-      run = min(cand[d], min(run + 1, SAT));
-      B[d] = i + d - ETH >= 0 ? run : SAT;
-    }
+    slide<ETH>(ch, b[i - 1 + 2 * ETH]);
+    band_row<ETH>(B, ch, a[i - 1]);
   }
   int mn = B[0];
 #pragma unroll
   for (int d = 1; d < BAND; ++d) mn = min(mn, B[d]);
   const long long r = r0 + t;
-  out[r] = B[ETH];
-  out[R + r] = mn;
+  out[r] = min(B[ETH], SAT);
+  out[R + r] = min(mn, SAT);
 }
 
 extern "C" int linear_wf_launch(const void* s1, const void* s2, void* out,

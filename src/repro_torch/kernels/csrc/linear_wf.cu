@@ -47,6 +47,8 @@ __device__ __forceinline__ void slide(int (&ch)[2 * ETH + 1], int next) {
   ch[2 * ETH] = next;
 }
 
+constexpr int UNROLL = 4;
+
 }  // namespace
 
 template <int ETH>
@@ -75,7 +77,17 @@ __global__ void linear_wf_kernel(const uint8_t* __restrict__ s1,
 #pragma unroll
   for (int d = 0; d + 1 < BAND; ++d) ch[d + 1] = b[d];
 
-  for (int i = 1; i <= n; ++i) {
+  // unrolled by UNROLL rows, so that the window's slide is register
+  // renaming but at the loop's back edge
+  int i = 1;
+  for (; i + UNROLL - 1 <= n; i += UNROLL) {
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      slide<ETH>(ch, b[i - 1 + u + 2 * ETH]);
+      band_row<ETH>(B, ch, a[i - 1 + u]);
+    }
+  }
+  for (; i <= n; ++i) {
     slide<ETH>(ch, b[i - 1 + 2 * ETH]);
     band_row<ETH>(B, ch, a[i - 1]);
   }

@@ -48,49 +48,71 @@ __device__ __forceinline__ void slide(int (&ch)[2 * ETH + 1], int next) {
 }
 
 constexpr int UNROLL = 4;
+constexpr int THREADS = 128;       // instances a block
+constexpr int TILE = 32;           // columns a block stages at a time
+constexpr int PITCH = THREADS + 4;  // bytes a staged column takes
+
+// Rows of a staged tile: a[c * PITCH] and b[c * PITCH] are the read's and
+// the window's bytes of the tile's column c, for the row that column
+// ends.  Unrolled by UNROLL rows, so that the window's slide is register
+// renaming but at the loop's back edge.
+template <int ETH>
+__device__ __forceinline__ void tile_rows(int (&B)[2 * ETH + 1],
+                                          int (&ch)[2 * ETH + 1],
+                                          const uint8_t* a, const uint8_t* b,
+                                          int cols) {
+  int c = 0;
+  for (; c + UNROLL <= cols; c += UNROLL) {
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      slide<ETH>(ch, b[(c + u) * PITCH]);
+      band_row<ETH>(B, ch, a[(c + u) * PITCH]);
+    }
+  }
+  for (; c < cols; ++c) {
+    slide<ETH>(ch, b[c * PITCH]);
+    band_row<ETH>(B, ch, a[c * PITCH]);
+  }
+}
 
 }  // namespace
 
 template <int ETH>
-__global__ void linear_wf_kernel(const uint8_t* __restrict__ s1,
-                                 const uint8_t* __restrict__ s2,
-                                 int32_t* __restrict__ out, int R, int n) {
+__global__ void __launch_bounds__(THREADS)
+    linear_wf_kernel(const uint8_t* __restrict__ s1,
+                     const uint8_t* __restrict__ s2,
+                     int32_t* __restrict__ out, int R, int n) {
   constexpr int BAND = 2 * ETH + 1;
   constexpr int SAT = ETH + 1;
-  extern __shared__ uint8_t smem[];
+  __shared__ uint8_t a_t[TILE * PITCH], b_t[TILE * PITCH];
   const int W = n + 2 * ETH;
-  const long long r0 = (long long)blockIdx.x * blockDim.x;
-  const int rows = (int)min((long long)blockDim.x, (long long)R - r0);
-  uint8_t* a_sm = smem;
-  uint8_t* b_sm = smem + (long long)blockDim.x * n;
-  wf::stage_rows(a_sm, s1 + r0 * n, (long long)rows * n);
-  wf::stage_rows(b_sm, s2 + r0 * W, (long long)rows * W);
-  __syncthreads();
+  const long long r0 = (long long)blockIdx.x * THREADS;
+  const int rows = (int)min((long long)THREADS, (long long)R - r0);
+  const uint8_t* a_src = s1 + r0 * n;
+  const uint8_t* b_src = s2 + r0 * W;
   const int t = threadIdx.x;
-  if (t >= rows) return;
-  const uint8_t* a = a_sm + (long long)t * n;
-  const uint8_t* b = b_sm + (long long)t * W;
 
+  // the window's first 2*ETH bytes, which row 1 finds in place
+  wf::stage_cols<THREADS>(b_t, PITCH, b_src, W, 0, 2 * ETH, rows);
+  __syncthreads();
   int B[BAND], ch[BAND];
 #pragma unroll
   for (int d = 0; d < BAND; ++d) B[d] = d < ETH ? SAT : d - ETH;
 #pragma unroll
-  for (int d = 0; d + 1 < BAND; ++d) ch[d + 1] = b[d];
+  for (int d = 0; d + 1 < BAND; ++d) ch[d + 1] = b_t[d * PITCH + t];
 
-  // unrolled by UNROLL rows, so that the window's slide is register
-  // renaming but at the loop's back edge
-  int i = 1;
-  for (; i + UNROLL - 1 <= n; i += UNROLL) {
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      slide<ETH>(ch, b[i - 1 + u + 2 * ETH]);
-      band_row<ETH>(B, ch, a[i - 1 + u]);
-    }
+  // tile k holds the read's columns [32k, 32k + 32) and the window's
+  // columns 2*ETH further on: rows 32k + 1 .. 32k + 32.  Every instance of
+  // a launch has the same n, so the block's threads advance together.
+  for (int c0 = 0; c0 < n; c0 += TILE) {
+    const int cols = min(TILE, n - c0);
+    __syncthreads();  // the previous tile is read
+    wf::stage_cols<THREADS>(a_t, PITCH, a_src, n, c0, cols, rows);
+    wf::stage_cols<THREADS>(b_t, PITCH, b_src, W, c0 + 2 * ETH, cols, rows);
+    __syncthreads();
+    tile_rows<ETH>(B, ch, a_t + t, b_t + t, cols);
   }
-  for (; i <= n; ++i) {
-    slide<ETH>(ch, b[i - 1 + 2 * ETH]);
-    band_row<ETH>(B, ch, a[i - 1]);
-  }
+  if (t >= rows) return;
   int mn = B[0];
 #pragma unroll
   for (int d = 1; d < BAND; ++d) mn = min(mn, B[d]);
@@ -100,13 +122,12 @@ __global__ void linear_wf_kernel(const uint8_t* __restrict__ s1,
 }
 
 extern "C" int linear_wf_launch(const void* s1, const void* s2, void* out,
-                                int R, int n, int eth, int threads, int smem,
-                                void* stream) {
+                                int R, int n, int eth, void* stream) {
   auto* a = (const uint8_t*)s1;
   auto* b = (const uint8_t*)s2;
   auto* o = (int32_t*)out;
   return wf::by_eth(eth, [&](auto e) {
     return wf::launch<linear_wf_kernel<decltype(e)::value>>(
-        R, threads, smem, stream, a, b, o, R, n);
+        R, THREADS, 0, stream, a, b, o, R, n);
   });
 }

@@ -50,6 +50,25 @@ __device__ __forceinline__ void stage_rows(uint8_t* dst,
   for (long long x = threadIdx.x; x < nbytes; x += blockDim.x) dst[x] = src[x];
 }
 
+// Copy columns [col0, col0 + ncols) of a block's first `rows` rows (row t
+// at src + t * stride) into dst[c * pitch + t], ncols <= 32: the layout in
+// which each thread reads its own row a column at a time, a warp on 32
+// neighbouring bytes.  Each warp copies 32 neighbouring bytes of a row,
+// so the loads coalesce; with pitch / 4 odd its stores fall in 32
+// banks.  THREADS, the block's size, is a multiple of 32.
+template <int THREADS>
+__device__ __forceinline__ void stage_cols(uint8_t* dst, int pitch,
+                                           const uint8_t* __restrict__ src,
+                                           long long stride, int col0,
+                                           int ncols, int rows) {
+  const int c = threadIdx.x % 32;
+  if (c >= ncols) return;
+  const uint8_t* s = src + col0 + c;
+#pragma unroll
+  for (int t = threadIdx.x / 32; t < THREADS; t += THREADS / 32)
+    if (t < rows) dst[c * pitch + t] = s[(long long)t * stride];
+}
+
 // Banded affine (Gotoh) forward pass for one instance.  a: the read (n
 // bytes), b: the window (n + 2*ETH bytes).  With EMIT, the packed
 // direction byte of cell (i-1, d) goes to dirs[((i-1)*BAND + d) * stride]

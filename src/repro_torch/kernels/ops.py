@@ -33,7 +33,7 @@ LAUNCHES = {"linear_wf": 0, "affine_wf_dist": 0, "affine_wf": 0,
 SUPPORTED_ETH = tuple(range(13))  # instances 0..wf::MAX_ETH (wf_common.cuh)
 MAX_SAT = 85                # above it the reference's int8 values wrap
 SMEM_LIMIT = 232_448        # dynamic shared memory a Hopper block may use
-THREADS = 128               # linear / affine block size
+THREADS = 128               # affine block size; linear_wf.cu's too
 SMEM_DEFAULT = 48 * 1024    # shared memory a block gets without opting in
 MINI_THREADS = 256          # minimizer block size
 MINI_WINDOWS = 1024         # windows a minimizer block aims to cover
@@ -83,8 +83,9 @@ def _check_eth_sat(eth: int, sat: int | None) -> None:
 
 
 def _staged_smem(n: int, eth: int) -> int:
-    """Shared memory of a linear or affine block, which stages its THREADS
-    reads and windows; raises when it exceeds a block's."""
+    """Shared memory of an affine block, which stages its THREADS reads
+    and windows whole; raises when it exceeds a block's.  The linear
+    kernel stages 32 columns at a time but refuses the same reads."""
     smem = THREADS * (2 * n + 2 * eth)
     if smem > SMEM_LIMIT:
         raise ValueError(f"read_len={n}, eth={eth}: {THREADS} reads and "
@@ -133,13 +134,13 @@ def linear_wf(s1: torch.Tensor, s2_window: torch.Tensor, *, eth: int = 6):
     if not _on_card(s1, eth):
         return banded_wf(s1, s2_window, eth=eth)
     R, n = s1.shape
-    smem = _staged_smem(n, eth)
+    _staged_smem(n, eth)
     out = torch.empty((2, R), dtype=torch.int32, device=s1.device)
     if R:
         with torch.cuda.device(s1.device):
             rc = build.entry("linear_wf_launch")(
                 s1.data_ptr(), s2_window.data_ptr(), out.data_ptr(), R, n,
-                eth, THREADS, smem, _stream(s1))
+                eth, _stream(s1))
         _raise_on(rc, "linear_wf")
         LAUNCHES["linear_wf"] += 1
     return out[0], out[1]

@@ -14,64 +14,89 @@
 
 namespace {
 
-// One row i of the band, in place: B holds row i-1 on entry and row i on
-// exit; ch[d] = b[i-1+d] and c1 = a[i-1].  The values run unclamped: the
-// reference clamps to SAT after every step, but min(min(x, SAT) + 1, SAT)
-// = min(x + 1, SAT) and min commutes with min(., SAT), so min(B[d], SAT)
-// is the reference's cell at every row and only the two outputs need the
-// clamp.  For the same reason an operand >= SAT can be left out of a min:
-// off-band up, and the left neighbour of d = 0.  Nor do rows 1..ETH need
-// the reference's column masks: a cell left of column 0 (j < 0) starts
-// at SAT and takes the min of operands that are all >= SAT, and the
-// diagonal of a cell on column 0 comes from one of them, so every row
-// runs the same code.
+// Two instances a thread, one in each 16-bit half of a register, on
+// Hopper's DPX instructions for 16x2 lanes.
+constexpr uint32_t ONE = 0x00010001u;  // 1 in both halves
+
+// One row i of the band of both instances, in place: B holds row i-1 on
+// entry and row i on exit, E = B + 1; ch[d] = b[i-1+d] and c1 = a[i-1],
+// each byte in the low byte of its half.  Per pair of cells: the xor
+// (zero where the bytes match), B + (xor != 0) as min(xor + B, E), the
+// min of it, the up neighbour's E and the left one's, and E.
+//
+// The values run unclamped: the reference clamps to SAT after every
+// step, but min(min(x, SAT) + 1, SAT) = min(x + 1, SAT) and min commutes
+// with min(., SAT), so min(B[d], SAT) is the reference's cell at every
+// row and only the two outputs need the clamp; a value grows by at most
+// one a row, so n + SAT fits a 16-bit half.  For the same reason an
+// operand >= SAT can be left out of a min: off-band up, and the left
+// neighbour of d = 0.  Nor do rows 1..ETH need the reference's column
+// masks: a cell left of column 0 (j < 0) starts at SAT and takes the min
+// of operands that are all >= SAT, and the diagonal of a cell on column
+// 0 comes from one of them, so every row runs the same code.
 template <int ETH>
-__device__ __forceinline__ void band_row(int (&B)[2 * ETH + 1],
-                                         const int (&ch)[2 * ETH + 1],
-                                         int c1) {
+__device__ __forceinline__ void band_row(uint32_t (&B)[2 * ETH + 1],
+                                         uint32_t (&E)[2 * ETH + 1],
+                                         const uint32_t (&ch)[2 * ETH + 1],
+                                         uint32_t c1) {
   constexpr int BAND = 2 * ETH + 1;
-  int run = 0;
+  uint32_t left = 0;  // E of the cell to the left, this row
 #pragma unroll
   for (int d = 0; d < BAND; ++d) {
-    int v = B[d] + (c1 != ch[d]);
-    if (d + 1 < BAND) v = min(v, B[d + 1] + 1);
-    if (d > 0) v = min(v, run + 1);
-    B[d] = run = v;
+    const uint32_t diag = __viaddmin_s16x2(ch[d] ^ c1, B[d], E[d]);
+    uint32_t v = diag;
+    if (d > 0 && d + 1 < BAND)
+      v = __vimin3_s16x2(diag, E[d + 1], left);
+    else if (d + 1 < BAND)
+      v = __vmins2(diag, E[d + 1]);
+    else if (d > 0)
+      v = __vmins2(diag, left);
+    B[d] = v;
+    E[d] = left = v + ONE;
   }
 }
 
 template <int ETH>
-__device__ __forceinline__ void slide(int (&ch)[2 * ETH + 1], int next) {
+__device__ __forceinline__ void slide(uint32_t (&ch)[2 * ETH + 1],
+                                      uint32_t next) {
 #pragma unroll
   for (int d = 0; d < 2 * ETH; ++d) ch[d] = ch[d + 1];
   ch[2 * ETH] = next;
 }
 
 constexpr int UNROLL = 4;
-constexpr int THREADS = 128;       // instances a block
-constexpr int TILE = 32;           // columns a block stages at a time
-constexpr int PITCH = THREADS + 4;  // bytes a staged column takes
+constexpr int THREADS = 128;            // a block: 2 * THREADS instances
+constexpr int ROWS = 2 * THREADS;
+constexpr int TILE = 32;                // columns a block stages at a time
+constexpr int PITCH = ROWS + 4;         // bytes a staged column takes
 
-// Rows of a staged tile: a[c * PITCH] and b[c * PITCH] are the read's and
-// the window's bytes of the tile's column c, for the row that column
-// ends.  Unrolled by UNROLL rows, so that the window's slide is register
-// renaming but at the loop's back edge.
+// The bytes of a thread's two instances at column c of a staged tile
+// (two neighbouring bytes), one in the low byte of each half.
+__device__ __forceinline__ uint32_t pair_at(const uint8_t* p, int c) {
+  return __byte_perm(*(const uint16_t*)(p + c * PITCH), 0, 0x4140);
+}
+
+// Rows of a staged tile: column c of a and b holds the read's and the
+// window's bytes of the row that column ends.  Unrolled by UNROLL rows,
+// so that the window's slide is register renaming but at the loop's
+// back edge.
 template <int ETH>
-__device__ __forceinline__ void tile_rows(int (&B)[2 * ETH + 1],
-                                          int (&ch)[2 * ETH + 1],
+__device__ __forceinline__ void tile_rows(uint32_t (&B)[2 * ETH + 1],
+                                          uint32_t (&E)[2 * ETH + 1],
+                                          uint32_t (&ch)[2 * ETH + 1],
                                           const uint8_t* a, const uint8_t* b,
                                           int cols) {
   int c = 0;
   for (; c + UNROLL <= cols; c += UNROLL) {
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
-      slide<ETH>(ch, b[(c + u) * PITCH]);
-      band_row<ETH>(B, ch, a[(c + u) * PITCH]);
+      slide<ETH>(ch, pair_at(b, c + u));
+      band_row<ETH>(B, E, ch, pair_at(a, c + u));
     }
   }
   for (; c < cols; ++c) {
-    slide<ETH>(ch, b[c * PITCH]);
-    band_row<ETH>(B, ch, a[c * PITCH]);
+    slide<ETH>(ch, pair_at(b, c));
+    band_row<ETH>(B, E, ch, pair_at(a, c));
   }
 }
 
@@ -84,22 +109,26 @@ __global__ void __launch_bounds__(THREADS)
                      int32_t* __restrict__ out, int R, int n) {
   constexpr int BAND = 2 * ETH + 1;
   constexpr int SAT = ETH + 1;
-  __shared__ uint8_t a_t[TILE * PITCH], b_t[TILE * PITCH];
+  __shared__ __align__(4) uint8_t a_t[TILE * PITCH];
+  __shared__ __align__(4) uint8_t b_t[TILE * PITCH];
   const int W = n + 2 * ETH;
-  const long long r0 = (long long)blockIdx.x * THREADS;
-  const int rows = (int)min((long long)THREADS, (long long)R - r0);
+  const long long r0 = (long long)blockIdx.x * ROWS;
+  const int rows = (int)min((long long)ROWS, (long long)R - r0);
   const uint8_t* a_src = s1 + r0 * n;
   const uint8_t* b_src = s2 + r0 * W;
-  const int t = threadIdx.x;
+  const int t2 = 2 * threadIdx.x;  // the thread's first instance
 
   // the window's first 2*ETH bytes, which row 1 finds in place
-  wf::stage_cols<THREADS>(b_t, PITCH, b_src, W, 0, 2 * ETH, rows);
+  wf::stage_cols<ROWS, THREADS>(b_t, PITCH, b_src, W, 0, 2 * ETH, rows);
   __syncthreads();
-  int B[BAND], ch[BAND];
+  uint32_t B[BAND], E[BAND], ch[BAND];
 #pragma unroll
-  for (int d = 0; d < BAND; ++d) B[d] = d < ETH ? SAT : d - ETH;
+  for (int d = 0; d < BAND; ++d) {
+    B[d] = (d < ETH ? SAT : d - ETH) * ONE;
+    E[d] = B[d] + ONE;
+  }
 #pragma unroll
-  for (int d = 0; d + 1 < BAND; ++d) ch[d + 1] = b_t[d * PITCH + t];
+  for (int d = 0; d + 1 < BAND; ++d) ch[d + 1] = pair_at(b_t + t2, d);
 
   // tile k holds the read's columns [32k, 32k + 32) and the window's
   // columns 2*ETH further on: rows 32k + 1 .. 32k + 32.  Every instance of
@@ -107,18 +136,26 @@ __global__ void __launch_bounds__(THREADS)
   for (int c0 = 0; c0 < n; c0 += TILE) {
     const int cols = min(TILE, n - c0);
     __syncthreads();  // the previous tile is read
-    wf::stage_cols<THREADS>(a_t, PITCH, a_src, n, c0, cols, rows);
-    wf::stage_cols<THREADS>(b_t, PITCH, b_src, W, c0 + 2 * ETH, cols, rows);
+    wf::stage_cols<ROWS, THREADS>(a_t, PITCH, a_src, n, c0, cols, rows);
+    wf::stage_cols<ROWS, THREADS>(b_t, PITCH, b_src, W, c0 + 2 * ETH, cols,
+                                  rows);
     __syncthreads();
-    tile_rows<ETH>(B, ch, a_t + t, b_t + t, cols);
+    tile_rows<ETH>(B, E, ch, a_t + t2, b_t + t2, cols);
   }
-  if (t >= rows) return;
-  int mn = B[0];
+  uint32_t mn = B[0];
 #pragma unroll
-  for (int d = 1; d < BAND; ++d) mn = min(mn, B[d]);
-  const long long r = r0 + t;
-  out[r] = min(B[ETH], SAT);
-  out[R + r] = min(mn, SAT);
+  for (int d = 1; d < BAND; ++d) mn = __vmins2(mn, B[d]);
+  const uint32_t end = __vmins2(B[ETH], SAT * ONE);
+  mn = __vmins2(mn, SAT * ONE);
+  const long long r = r0 + t2;
+  if (t2 < rows) {
+    out[r] = (int)(end & 0xffff);
+    out[R + r] = (int)(mn & 0xffff);
+  }
+  if (t2 + 1 < rows) {
+    out[r + 1] = (int)(end >> 16);
+    out[R + r + 1] = (int)(mn >> 16);
+  }
 }
 
 extern "C" int linear_wf_launch(const void* s1, const void* s2, void* out,
@@ -126,8 +163,9 @@ extern "C" int linear_wf_launch(const void* s1, const void* s2, void* out,
   auto* a = (const uint8_t*)s1;
   auto* b = (const uint8_t*)s2;
   auto* o = (int32_t*)out;
+  // one thread a pair of instances
   return wf::by_eth(eth, [&](auto e) {
     return wf::launch<linear_wf_kernel<decltype(e)::value>>(
-        R, THREADS, 0, stream, a, b, o, R, n);
+        (R + 1) / 2, THREADS, 0, stream, a, b, o, R, n);
   });
 }

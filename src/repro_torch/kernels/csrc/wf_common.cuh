@@ -51,12 +51,12 @@ __device__ __forceinline__ void stage_rows(uint8_t* dst,
 }
 
 // Copy columns [col0, col0 + ncols) of a block's first `rows` rows (row t
-// at src + t * stride) into dst[c * pitch + t], ncols <= 32: the layout in
-// which each thread reads its own row a column at a time, a warp on 32
-// neighbouring bytes.  Each warp copies 32 neighbouring bytes of a row,
-// so the loads coalesce; with pitch / 4 odd its stores fall in 32
-// banks.  THREADS, the block's size, is a multiple of 32.
-template <int THREADS>
+// at src + t * stride, t < ROWS) into dst[c * pitch + t], ncols <= 32:
+// the layout in which each thread reads its own rows a column at a time,
+// a warp on neighbouring bytes.  Each warp copies 32 neighbouring bytes
+// of a row, so the loads coalesce; with pitch / 4 odd its stores fall in
+// 32 banks.  THREADS, the block's size, is a multiple of 32.
+template <int ROWS, int THREADS>
 __device__ __forceinline__ void stage_cols(uint8_t* dst, int pitch,
                                            const uint8_t* __restrict__ src,
                                            long long stride, int col0,
@@ -64,8 +64,8 @@ __device__ __forceinline__ void stage_cols(uint8_t* dst, int pitch,
   const int c = threadIdx.x % 32;
   if (c >= ncols) return;
   const uint8_t* s = src + col0 + c;
-#pragma unroll
-  for (int t = threadIdx.x / 32; t < THREADS; t += THREADS / 32)
+#pragma unroll 16
+  for (int t = threadIdx.x / 32; t < ROWS; t += THREADS / 32)
     if (t < rows) dst[c * pitch + t] = s[(long long)t * stride];
 }
 

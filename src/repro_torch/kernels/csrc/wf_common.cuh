@@ -64,9 +64,10 @@ __device__ __forceinline__ void stage_cols(uint8_t* dst, int pitch,
   const int c = threadIdx.x % 32;
   if (c >= ncols) return;
   const uint8_t* s = src + col0 + c;
+  // rows past `rows` copy the last row: no branch in the loop
 #pragma unroll 16
   for (int t = threadIdx.x / 32; t < ROWS; t += THREADS / 32)
-    if (t < rows) dst[c * pitch + t] = s[(long long)t * stride];
+    dst[c * pitch + t] = s[(long long)min(t, rows - 1) * stride];
 }
 
 // Banded affine (Gotoh) forward pass for one instance.  a: the read (n

@@ -59,15 +59,25 @@ __device__ __forceinline__ void stage_rows(uint8_t* dst,
 template <int ROWS, int THREADS>
 __device__ __forceinline__ void stage_cols(uint8_t* dst, int pitch,
                                            const uint8_t* __restrict__ src,
-                                           long long stride, int col0,
-                                           int ncols, int rows) {
+                                           int stride, int col0, int ncols,
+                                           int rows) {
+  constexpr int STEP = THREADS / 32;  // rows a block's warps take at once
   const int c = threadIdx.x % 32;
   if (c >= ncols) return;
+  const int t0 = threadIdx.x / 32;
   const uint8_t* s = src + col0 + c;
-  // rows past `rows` copy the last row: no branch in the loop
+  uint8_t* d = dst + c * pitch + t0;
+  if (rows == ROWS) {
+    // offsets within the block's rows fit 32 bits (ROWS * stride)
 #pragma unroll 16
-  for (int t = threadIdx.x / 32; t < ROWS; t += THREADS / 32)
-    dst[c * pitch + t] = s[(long long)min(t, rows - 1) * stride];
+    for (int k = 0; k < ROWS / STEP; ++k)
+      d[k * STEP] = s[(t0 + k * STEP) * stride];
+  } else {
+    // rows past `rows` copy the last one: no branch in the loop
+#pragma unroll 16
+    for (int k = 0; k < ROWS / STEP; ++k)
+      d[k * STEP] = s[min(t0 + k * STEP, rows - 1) * stride];
+  }
 }
 
 // Banded affine (Gotoh) forward pass for one instance.  a: the read (n

@@ -43,7 +43,7 @@ __device__ __forceinline__ void band_row(uint32_t (&B)[2 * ETH + 1],
   uint32_t left = 0;  // E of the cell to the left, this row
 #pragma unroll
   for (int d = 0; d < BAND; ++d) {
-    const uint32_t diag = __viaddmin_s16x2(ch[d] ^ c1, B[d], E[d]);
+    const uint32_t diag = __vmins2((ch[d] ^ c1) + B[d], E[d]);
     uint32_t v = diag;
     if (d > 0 && d + 1 < BAND)
       v = __vimin3_s16x2(diag, E[d + 1], left);

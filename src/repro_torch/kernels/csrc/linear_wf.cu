@@ -38,7 +38,7 @@ template <int ETH>
 __device__ __forceinline__ void band_row(uint32_t (&B)[2 * ETH + 1],
                                          uint32_t (&E)[2 * ETH + 1],
                                          const uint32_t (&ch)[2 * ETH + 1],
-                                         uint32_t c1, uint32_t one) {
+                                         uint32_t c1) {
   constexpr int BAND = 2 * ETH + 1;
   uint32_t left = 0;  // E of the cell to the left, this row
 #pragma unroll
@@ -52,7 +52,7 @@ __device__ __forceinline__ void band_row(uint32_t (&B)[2 * ETH + 1],
     else if (d > 0)
       v = __vmins2(diag, left);
     B[d] = v;
-    E[d] = left = v * one + ONE;
+    E[d] = left = v + ONE;
   }
 }
 
@@ -85,18 +85,18 @@ __device__ __forceinline__ void tile_rows(uint32_t (&B)[2 * ETH + 1],
                                           uint32_t (&E)[2 * ETH + 1],
                                           uint32_t (&ch)[2 * ETH + 1],
                                           const uint8_t* a, const uint8_t* b,
-                                          int cols, uint32_t one) {
+                                          int cols) {
   int c = 0;
   for (; c + UNROLL <= cols; c += UNROLL) {
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       slide<ETH>(ch, pair_at(b, c + u));
-      band_row<ETH>(B, E, ch, pair_at(a, c + u), one);
+      band_row<ETH>(B, E, ch, pair_at(a, c + u));
     }
   }
   for (; c < cols; ++c) {
     slide<ETH>(ch, pair_at(b, c));
-    band_row<ETH>(B, E, ch, pair_at(a, c), one);
+    band_row<ETH>(B, E, ch, pair_at(a, c));
   }
 }
 
@@ -106,7 +106,7 @@ template <int ETH>
 __global__ void __launch_bounds__(THREADS)
     linear_wf_kernel(const uint8_t* __restrict__ s1,
                      const uint8_t* __restrict__ s2,
-                     int32_t* __restrict__ out, int R, int n, uint32_t one) {
+                     int32_t* __restrict__ out, int R, int n) {
   constexpr int BAND = 2 * ETH + 1;
   constexpr int SAT = ETH + 1;
   __shared__ __align__(4) uint8_t a_t[TILE * PITCH];
@@ -140,7 +140,7 @@ __global__ void __launch_bounds__(THREADS)
     wf::stage_cols<ROWS, THREADS>(b_t, PITCH, b_src, W, c0 + 2 * ETH, cols,
                                   rows);
     __syncthreads();
-    tile_rows<ETH>(B, E, ch, a_t + t2, b_t + t2, cols, one);
+    tile_rows<ETH>(B, E, ch, a_t + t2, b_t + t2, cols);
   }
   uint32_t mn = B[0];
 #pragma unroll
@@ -166,6 +166,6 @@ extern "C" int linear_wf_launch(const void* s1, const void* s2, void* out,
   // one thread a pair of instances
   return wf::by_eth(eth, [&](auto e) {
     return wf::launch<linear_wf_kernel<decltype(e)::value>>(
-        (R + 1) / 2, THREADS, 0, stream, a, b, o, R, n, 1u);
+        (R + 1) / 2, THREADS, 0, stream, a, b, o, R, n);
   });
 }

@@ -68,11 +68,10 @@ __device__ __forceinline__ void stage_cols(uint8_t* dst, int pitch,
   const uint8_t* s = src + col0 + c;
   uint8_t* d = dst + c * pitch + t0;
   if (rows == ROWS) {
-    // offsets within the block's rows fit 32 bits (ROWS * stride)
-    const unsigned off = (unsigned)t0 * stride, step = (unsigned)STEP * stride;
+    const uint8_t* p = s + (long long)t0 * stride;
+    const long long step = (long long)STEP * stride;
 #pragma unroll 16
-    for (int k = 0; k < ROWS / STEP; ++k)
-      d[k * STEP] = s[off + (unsigned)k * step];
+    for (int k = 0; k < ROWS / STEP; ++k, p += step) d[k * STEP] = *p;
   } else {
     // rows past `rows` copy the last one: no branch in the loop
 #pragma unroll 16

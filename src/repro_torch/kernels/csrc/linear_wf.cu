@@ -4,12 +4,31 @@
 // (src/repro/kernels/linear_wf.py, body _kernel): D[n][n] and the min of
 // the last band row for every (read, window) instance.
 //
-// Design: one thread per instance, the band in registers (ETH is a
-// template parameter, the band loops unrolled), so the recurrence runs
-// without any memory traffic; the window slides through a register
-// array, one new byte per row.  A block first stages its rows into
-// shared memory with coalesced loads, because a thread reading its own
-// row from device memory would stride by n bytes across the warp.
+// What bounds it on the H100: integer instructions, not bytes (n=150,
+// ETH=6: 1,950 band cells against 320 bytes an instance).  A thread holds
+// two instances, one in each 16-bit half of its registers, and runs
+// Hopper's DPX instructions on both: per pair of cells an xor, an add-min
+// (VIADDMNMX), a three-input min (VIMNMX3) and an add, of which three are
+// integer-pipe instructions (chip_smoke.py's bound, LIN_PIPE_PER_CELL).
+// The steady loop at ETH=6 is 250 SASS instructions for 4 rows of both
+// instances, 2.4 a cell, and staging adds about 0.5 a cell (cuobjdump,
+// chip_smoke.py phase 2).
+//
+// Design, step by step, each timed by chip_smoke.py phase 3 at 1,048,576
+// instances of n=150, ETH=6 on an H100 80GB HBM3 at 700 W (PERF.md; one
+// instance a thread with every row masked took 1.93 ms, 159 SASS
+// instructions a row):
+//   - band values unclamped, so that the clamps go to the two outputs and
+//     the column masks of rows 1..ETH from every row (band_row says why):
+//     93 instructions a row, 1.84 ms;
+//   - rows unrolled by UNROLL, so that the window's slide is register
+//     renaming: 65 a row, 1.63 ms;
+//   - rows staged TILE columns at a time into a [column][instance] layout
+//     (wf::stage_cols), not whole: 8,448 B of shared memory a block, not
+//     39,936, 1.06 ms;
+//   - two instances a thread on 16x2 DPX lanes: 0.57 ms;
+//   - the staging loops without branches, then with a pointer stepped by
+//     a constant for full blocks: 0.41 ms.
 #include "wf_common.cuh"
 
 namespace {
@@ -28,7 +47,8 @@ constexpr uint32_t ONE = 0x00010001u;  // 1 in both halves
 // step, but min(min(x, SAT) + 1, SAT) = min(x + 1, SAT) and min commutes
 // with min(., SAT), so min(B[d], SAT) is the reference's cell at every
 // row and only the two outputs need the clamp; a value grows by at most
-// one a row, so n + SAT fits a 16-bit half.  For the same reason an
+// one a row, so xor + B stays far below 2^15 at any read length the
+// wrappers take (ops.check_wf_geometry).  For the same reason an
 // operand >= SAT can be left out of a min: off-band up, and the left
 // neighbour of d = 0.  Nor do rows 1..ETH need the reference's column
 // masks: a cell left of column 0 (j < 0) starts at SAT and takes the min
@@ -64,7 +84,7 @@ __device__ __forceinline__ void slide(uint32_t (&ch)[2 * ETH + 1],
   ch[2 * ETH] = next;
 }
 
-constexpr int UNROLL = 4;
+constexpr int UNROLL = 8;
 constexpr int THREADS = 128;            // a block: 2 * THREADS instances
 constexpr int ROWS = 2 * THREADS;
 constexpr int TILE = 32;                // columns a block stages at a time

@@ -1,9 +1,10 @@
 // Shared pieces of the banded Wagner-Fischer kernels for Hopper (sm_90a).
 //
 // One thread owns one WF instance (a read of n bases against a reference
-// window of n + 2*ETH bases).  The 2*ETH+1 band cells of the current row
-// live in registers: ETH is a template parameter, every loop over the
-// band is unrolled, so the arrays below never touch local memory.
+// window of n + 2*ETH bases; the linear kernel's threads own two).  The
+// 2*ETH+1 band cells of the current row live in registers: ETH is a
+// template parameter, every loop over the band is unrolled, so the arrays
+// below never touch local memory.
 //
 // The recurrences reproduce the int8 arithmetic of the reference
 // (repro.core.linear_wf.banded_wf, repro.core.affine_wf._banded_affine_impl)
@@ -61,13 +62,14 @@ __device__ __forceinline__ void stage_cols(uint8_t* dst, int pitch,
                                            const uint8_t* __restrict__ src,
                                            int stride, int col0, int ncols,
                                            int rows) {
-  constexpr int STEP = THREADS / 32;  // rows a block's warps take at once
+  constexpr int STEP = THREADS / 32;  // rows the block's warps take at once
   const int c = threadIdx.x % 32;
   if (c >= ncols) return;
   const int t0 = threadIdx.x / 32;
   const uint8_t* s = src + col0 + c;
   uint8_t* d = dst + c * pitch + t0;
   if (rows == ROWS) {
+    // a pointer stepped by a constant: one IMAD.WIDE a byte
     const uint8_t* p = s + (long long)t0 * stride;
     const long long step = (long long)STEP * stride;
 #pragma unroll 16

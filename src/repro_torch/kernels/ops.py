@@ -33,7 +33,7 @@ LAUNCHES = {"linear_wf": 0, "affine_wf_dist": 0, "affine_wf": 0,
 SUPPORTED_ETH = tuple(range(13))  # instances 0..wf::MAX_ETH (wf_common.cuh)
 MAX_SAT = 85                # above it the reference's int8 values wrap
 SMEM_LIMIT = 232_448        # dynamic shared memory a Hopper block may use
-THREADS = 128               # affine block size; linear_wf.cu's too
+THREADS = 128               # affine block size
 SMEM_DEFAULT = 48 * 1024    # shared memory a block gets without opting in
 MINI_THREADS = 256          # minimizer block size
 MINI_WINDOWS = 1024         # windows a minimizer block aims to cover

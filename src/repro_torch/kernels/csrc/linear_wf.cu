@@ -64,15 +64,10 @@ __device__ __forceinline__ void band_row(uint32_t (&B)[2 * ETH + 1],
 #pragma unroll
   for (int d = 0; d < BAND; ++d) {
     const uint32_t diag = __viaddmin_s16x2(ch[d] ^ c1, B[d], E[d]);
-    uint32_t v = diag;
-    if (d > 0 && d + 1 < BAND)
-      v = __vimin3_s16x2(diag, E[d + 1], left);
-    else if (d + 1 < BAND)
-      v = __vmins2(diag, E[d + 1]);
-    else if (d > 0)
-      v = __vmins2(diag, left);
+    uint32_t v = d + 1 < BAND ? __vmins2(diag, E[d + 1]) : diag;
+    if (d > 0) v = __viaddmin_s16x2(B[d - 1], ONE, v);
     B[d] = v;
-    E[d] = left = v + ONE;
+    E[d] = v + ONE;
   }
 }
 
@@ -84,7 +79,7 @@ __device__ __forceinline__ void slide(uint32_t (&ch)[2 * ETH + 1],
   ch[2 * ETH] = next;
 }
 
-constexpr int UNROLL = 8;
+constexpr int UNROLL = 4;
 constexpr int THREADS = 128;            // a block: 2 * THREADS instances
 constexpr int ROWS = 2 * THREADS;
 constexpr int TILE = 32;                // columns a block stages at a time

@@ -64,10 +64,15 @@ __device__ __forceinline__ void band_row(uint32_t (&B)[2 * ETH + 1],
 #pragma unroll
   for (int d = 0; d < BAND; ++d) {
     const uint32_t diag = __viaddmin_s16x2(ch[d] ^ c1, B[d], E[d]);
-    uint32_t v = d + 1 < BAND ? __vmins2(diag, E[d + 1]) : diag;
-    if (d > 0) v = __viaddmin_s16x2(B[d - 1], ONE, v);
+    uint32_t v = diag;
+    if (d > 0 && d + 1 < BAND)
+      v = __vimin3_s16x2(diag, E[d + 1], left);
+    else if (d + 1 < BAND)
+      v = __vmins2(diag, E[d + 1]);
+    else if (d > 0)
+      v = __vmins2(diag, left);
     B[d] = v;
-    E[d] = v + ONE;
+    E[d] = left = v + ONE;
   }
 }
 

@@ -72,7 +72,7 @@ __device__ __forceinline__ void stage_cols(uint8_t* dst, int pitch,
     // a pointer stepped by a constant: one IMAD.WIDE a byte
     const uint8_t* p = s + (long long)t0 * stride;
     const long long step = (long long)STEP * stride;
-#pragma unroll 32
+#pragma unroll 16
     for (int k = 0; k < ROWS / STEP; ++k, p += step) d[k * STEP] = *p;
   } else {
     // rows past `rows` copy the last one: no branch in the loop

@@ -85,7 +85,7 @@ __device__ __forceinline__ void slide(uint32_t (&ch)[2 * ETH + 1],
 }
 
 constexpr int UNROLL = 4;
-constexpr int THREADS = 64;             // a block: 2 * THREADS instances
+constexpr int THREADS = 256;            // a block: 2 * THREADS instances
 constexpr int ROWS = 2 * THREADS;
 constexpr int TILE = 32;                // columns a block stages at a time
 constexpr int PITCH = ROWS + 4;         // bytes a staged column takes

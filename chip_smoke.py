@@ -7,9 +7,8 @@ Phases, each fatal on failure:
 
 1. environment: the card's name and power limit (``nvidia-smi``);
 2. build: compiles the Hopper kernels of ``src/repro_torch/kernels/csrc``
-   and prints nvcc's ``-Xptxas -v`` report for each, and the loops of the
-   linear kernel's SASS at eth=6 (``cuobjdump -sass``: instructions by
-   opcode);
+   and prints nvcc's ``-Xptxas -v`` report for each (``phase_sass``, which
+   the full run does not call, counts the linear kernel's SASS loops);
 3. kernel parity: each kernel against its plain torch version on the same
    CUDA tensors: the WF kernels on random and near-match pairs at n=150,
    eth=6, sat=32, max_ops=302 (65,536 linear, 16,384 affine distance and
@@ -141,6 +140,19 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # The masks of the first eth rows and the clamps the scan makes redundant
 # are left out: the kernels run them, the recurrence does not need them.
 LIN_OPS_PER_CELL = 7
+# The linear kernel's bound is on other lanes: it holds two instances in
+# the 16-bit halves of a register and runs Hopper's DPX instructions,
+# which fuse an add into a min (VIADDMNMX) or take three inputs (VIMNMX3),
+# and clamps only its outputs.  A pair of cells then takes four
+# instructions: the mismatch xor, diag+sub as one add-min (min(xor + B,
+# B + 1)), the three-input min of diag, up+1 and left+1, and B + 1 (the
+# next row's up+1 and this row's next left+1).  The add can run on the
+# FMA pipe (IMAD); the other three are integer-pipe instructions at the
+# int32 rate (NVIDIA publishes no DPX rate; on an H100 the kernel with
+# its add-min split into an IMAD and a min took the same time), so the
+# least time is 1.5 integer-pipe instructions a cell at INT32_OPS_PER_S.
+# LIN_OPS_PER_CELL over the same rate, the int32 bound, is logged beside.
+LIN_PIPE_PER_CELL = 1.5
 AFF_OPS_PER_CELL = 14
 DIR_OPS_PER_CELL = 8
 WALK_OPS_PER_STEP = 16
@@ -352,6 +364,14 @@ def phase_build():
     for name, d in info.items():
         log(f"--- {name}: {d['seconds']:.2f} s, nvcc -Xptxas -v report:")
         log(d["log"].strip() or "(already built)")
+
+
+def phase_sass():
+    """The loops of the linear kernel's SASS at eth=ETH, instructions by
+    opcode (``cuobjdump -sass`` on the built library), for work on that
+    kernel; not part of the full run."""
+    from repro_torch.kernels import build
+    info = build.build()
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     kernel = f"linear_wf_kernelILi{ETH}E"
     if not os.path.exists(tool):
@@ -472,12 +492,13 @@ def _kernels():
 
 def bound(name, R, n, eth, max_ops, steps=0):
     """(bound_ms, bound_by): the larger of the recurrence's int32
-    operations over the int32 rate and the bytes read and written once
-    over the HBM rate.  ``steps``: the traceback's walk lengths summed."""
+    operations (the linear kernel's: its integer-pipe instructions) over
+    the int32 rate and the bytes read and written once over the HBM rate.
+    ``steps``: the traceback's walk lengths summed."""
     cells = R * n * (2 * eth + 1)
     n_bytes = R * (2 * n + 2 * eth + 8)
     if name == "linear_wf":
-        n_ops = LIN_OPS_PER_CELL * cells
+        n_ops = LIN_PIPE_PER_CELL * cells
     elif name == "affine_wf_dist":
         n_ops = AFF_OPS_PER_CELL * cells
     elif name == "affine_wf":
@@ -491,6 +512,12 @@ def bound(name, R, n, eth, max_ops, steps=0):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
+
+
+def lin_int32_ms(R, n, eth):
+    """The linear recurrence's 7 int32 operations a cell over the int32
+    rate: its bound on int32 lanes, one instance a thread."""
+    return LIN_OPS_PER_CELL * R * n * (2 * eth + 1) / INT32_OPS_PER_S * 1e3
 
 
 def minimizer_bound(R, L, k, w):
@@ -540,9 +567,10 @@ def phase_parity():
     every compiled eth (``ops.SUPPORTED_ETH``) on PARITY_R pairs of each
     of PARITY_NS read lengths, then on the main path's geometry (timed).
     The linear kernel takes ``edge_batch``'s bytes, also on PARITY_EDGE_R
-    reads of 1, eth, eth+1 and 2*eth+1 bases at every eth (the rows
-    before, at and past the end of its peeled prologue), and is timed at
-    the main path's chunk of R_LINEAR_CHUNK instances too."""
+    reads of 1, eth, eth+1 and 2*eth+1 bases at every eth (every row's
+    band reaching left of column 0, all but the last's, and rows past
+    them), and is timed at the main path's chunk of R_LINEAR_CHUNK
+    instances too."""
     import torch
     from repro_torch.kernels import ops
     rng = np.random.default_rng(11)
@@ -562,7 +590,7 @@ def phase_parity():
                       for n in sorted({1, eth, eth + 1, 2 * eth + 1} - {0})]
         cases.append((k["R"], N, ETH, MAX_OPS))
         for R, n, eth, mo in cases:
-            s1, s2 = (pair_batch if R == k["R"] else gen)(rng, R, n, eth)
+            s1, s2 = gen(rng, R, n, eth)
             a, b = torch.from_numpy(s1).to(dev), torch.from_numpy(s2).to(dev)
             got = k["run"](a, b, eth, mo)
             torch.cuda.synchronize()
@@ -590,10 +618,15 @@ def phase_parity():
             plain_ms = cuda_ms(lambda: k["plain"](a, b, ETH, MAX_OPS), 2, 1)
             steps = int(got[3].sum()) if name == "affine_traceback" else 0
             b_ms, b_by = bound(name, R, N, ETH, MAX_OPS, steps)
+            i32 = ""
+            if name == "linear_wf":
+                i32_ms = lin_int32_ms(R, N, ETH)
+                i32 = (f"; int32 bound {i32_ms:.4f} ms, "
+                       f"{i32_ms / ms:.1%}")
             log(f"timing {name} (generated pairs): R={R}: {ms:.4f} ms/call "
                 f"({R / ms * 1e3:,.0f} instances/s), plain {plain_ms:.2f} "
                 f"ms, bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of "
-                f"bound")
+                f"bound{i32}")
         if name == "affine_wf":
             log(f"timing affine_wf: a contiguous (R, n, band) copy of the "
                 f"direction planes, which the wrapper does not make: "
@@ -953,6 +986,9 @@ def phase_mainpath_kernels(runs):
         if name == "affine_wf":
             extra = (f"; a contiguous copy of its direction planes "
                      f"{cuda_ms(lambda: got[2].contiguous(), 20, 2):.4f} ms")
+        if name == "linear_wf":
+            i32_ms = lin_int32_ms(R, n, ETH)
+            extra = f"; int32 bound {i32_ms:.4f} ms, {i32_ms / ms:.1%}"
         log(f"main path {name}: first {k['engine']} batch, R={R}: "
             f"bit-identical to the plain version; {ms:.4f} ms/call "
             f"({R / ms * 1e3:,.0f} instances/s), plain {plain_ms:.2f} ms, "

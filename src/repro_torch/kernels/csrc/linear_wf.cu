@@ -12,7 +12,7 @@
 // integer-pipe instructions (chip_smoke.py's bound, LIN_PIPE_PER_CELL).
 // The steady loop at ETH=6 is 250 SASS instructions for 4 rows of both
 // instances, 2.4 a cell, and staging adds about 0.5 a cell (cuobjdump,
-// chip_smoke.py phase 2).
+// chip_smoke.py phase_sass).
 //
 // Design, step by step, each timed by chip_smoke.py phase 3 at 1,048,576
 // instances of n=150, ETH=6 on an H100 80GB HBM3 at 700 W (PERF.md; one
@@ -85,7 +85,7 @@ __device__ __forceinline__ void slide(uint32_t (&ch)[2 * ETH + 1],
 }
 
 constexpr int UNROLL = 4;
-constexpr int THREADS = 256;            // a block: 2 * THREADS instances
+constexpr int THREADS = 128;            // a block: 2 * THREADS instances
 constexpr int ROWS = 2 * THREADS;
 constexpr int TILE = 32;                // columns a block stages at a time
 constexpr int PITCH = ROWS + 4;         // bytes a staged column takes

@@ -85,7 +85,10 @@ def _check_eth_sat(eth: int, sat: int | None) -> None:
 def _staged_smem(n: int, eth: int) -> int:
     """Shared memory of an affine block, which stages its THREADS reads
     and windows whole; raises when it exceeds a block's.  The linear
-    kernel stages 32 columns at a time but refuses the same reads."""
+    kernel stages 32 columns at a time but refuses the same reads, and
+    needs this refusal: it holds band values in 16-bit lanes, exact only
+    while n stays well below 32,767 - 255 - eth, and the limit here caps
+    n below 908."""
     smem = THREADS * (2 * n + 2 * eth)
     if smem > SMEM_LIMIT:
         raise ValueError(f"read_len={n}, eth={eth}: {THREADS} reads and "

@@ -113,9 +113,11 @@ R_MINI = 65_536
 # phase 3 holds each WF kernel to its plain version at every compiled eth
 # on PARITY_R pairs of each read length
 PARITY_R, PARITY_NS = 1000, (37, N)
-# and the linear kernel on short reads at every eth, PARITY_EDGE_R pairs
-# (odd: a multiple of no block or pair of instances)
+# and the linear and traceback kernels on short reads at every eth,
+# PARITY_EDGE_R pairs (odd: a multiple of no block or pair of instances);
+# the traceback also on PARITY_SMALL_R pairs, fewer than a block holds
 PARITY_EDGE_R = 333
+PARITY_SMALL_R = 20
 # the card's peaks (H100 SXM): HBM rate from NVIDIA's data sheet.  The
 # int32 rate is not in the data sheet: its 67 TFLOP/s of float32 counts an
 # FMA as two ops on 128 float32 lanes per SM; Hopper has 64 int32 lanes
@@ -367,24 +369,25 @@ def phase_build():
 
 
 def phase_sass():
-    """The loops of the linear kernel's SASS at eth=ETH, instructions by
-    opcode (``cuobjdump -sass`` on the built library), for work on that
-    kernel; not part of the full run."""
+    """The loops of the linear and traceback kernels' SASS at eth=ETH,
+    instructions by opcode (``cuobjdump -sass`` on the built libraries),
+    for work on those kernels; not part of the full run."""
     from repro_torch.kernels import build
     info = build.build()
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
-    kernel = f"linear_wf_kernelILi{ETH}E"
     if not os.path.exists(tool):
-        log(f"sass: no {tool}, loops of {kernel} not counted")
+        log(f"sass: no {tool}, loops not counted")
         return
-    sass = subprocess.run([tool, "-sass", info["linear_wf"]["path"]],
-                          capture_output=True, text=True,
-                          check=True).stdout
-    for lo, hi, ops in sass_loops(sass, kernel):
-        top = ", ".join(f"{op} {c}" for op, c in
-                        sorted(ops.items(), key=lambda x: -x[1]))
-        log(f"sass {kernel}: loop {lo:#06x}-{hi:#06x}: "
-            f"{sum(ops.values())} instructions: {top}")
+    for lib, kernel in (("linear_wf", f"linear_wf_kernelILi{ETH}E"),
+                        ("traceback", f"affine_traceback_kernelILi{ETH}E")):
+        sass = subprocess.run([tool, "-sass", info[lib]["path"]],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        for lo, hi, ops in sass_loops(sass, kernel):
+            top = ", ".join(f"{op} {c}" for op, c in
+                            sorted(ops.items(), key=lambda x: -x[1]))
+            log(f"sass {kernel}: loop {lo:#06x}-{hi:#06x}: "
+                f"{sum(ops.values())} instructions: {top}")
 
 
 def sass_loops(sass, kernel):
@@ -441,8 +444,9 @@ def _compare(name, got, want):
 
 
 def _kernels():
-    """Each WF kernel's wrapper, plain version, provenance and the engine
-    whose run gives its main-path row; every callable takes (s1,
+    """Each WF kernel's wrapper, plain version, provenance, the engine
+    whose run gives its main-path row and, where phase 3 times it there
+    too, its main-path batch (``chunk``); every callable takes (s1,
     s2_window, eth, max_ops)."""
     from repro_torch.core.affine_wf import (banded_affine, banded_affine_dist,
                                             traceback)
@@ -461,7 +465,7 @@ def _kernels():
             plain=lambda a, b, eth, mo: banded_wf(a, b, eth=eth),
             source="src/repro_torch/kernels/csrc/linear_wf.cu",
             replaces="src/repro/kernels/linear_wf.py:76",
-            engine="compacted"),
+            engine="compacted", chunk=R_LINEAR_CHUNK),
         "affine_wf_dist": dict(
             R=R_AFFINE, reps=50,
             run=lambda a, b, eth, mo: ops.affine_wf_dist(a, b, eth=eth,
@@ -486,7 +490,7 @@ def _kernels():
             plain=plain_tb,
             source="src/repro_torch/kernels/csrc/traceback.cu",
             replaces="src/repro/kernels/traceback.py:108",
-            engine="compacted"),
+            engine="compacted", chunk=CHUNK),
     }
 
 
@@ -562,61 +566,96 @@ def phase_minimizer_parity():
         f"{b_ms / ms:.1%} of bound")
 
 
-def phase_parity():
-    """Each WF kernel against its plain version on generated pairs: at
-    every compiled eth (``ops.SUPPORTED_ETH``) on PARITY_R pairs of each
-    of PARITY_NS read lengths, then on the main path's geometry (timed).
-    The linear kernel takes ``edge_batch``'s bytes, also on PARITY_EDGE_R
-    reads of 1, eth, eth+1 and 2*eth+1 bases at every eth (every row's
-    band reaching left of column 0, all but the last's, and rows past
-    them), and is timed at the main path's chunk of R_LINEAR_CHUNK
-    instances too."""
+def _edge_ns(eth):
+    """Read lengths no longer than the band and just past it: every
+    row's band reaching left of column 0, all but the last's, and rows
+    past them."""
+    return sorted({1, eth, eth + 1, 2 * eth + 1} - {0})
+
+
+def _parity_cases(name, k, eths):
+    """Phase 3's (R, n, eth, max_ops values) for one kernel: ragged R
+    (off every block size), short and main-path reads, every band; the
+    main path's geometry last."""
+    mos = (lambda n: (1, 3, 2 * n + 2)) if name == "affine_traceback" \
+        else (lambda n: (2 * n + 2,))
+    cases = [(PARITY_R, n, eth, mos(n)) for eth in eths for n in PARITY_NS]
+    if name in ("linear_wf", "affine_traceback"):
+        cases += [(PARITY_EDGE_R, n, eth, mos(n)) for eth in eths
+                  for n in _edge_ns(eth)]
+    if name == "affine_traceback":
+        cases += [(PARITY_SMALL_R, 2 * eth + 1, eth, mos(2 * eth + 1))
+                  for eth in eths]
+        cases.append((PARITY_R, 37, 4, (40,)))
+    cases.append((k["R"], N, ETH, (MAX_OPS,)))
+    return cases
+
+
+def _plain_at(name, k, a, b, eth):
+    """The plain version of kernel ``name`` on (a, b) as a function of
+    max_ops; the traceback's forward pass runs once for all of them."""
+    if name != "affine_traceback":
+        return lambda mo: k["plain"](a, b, eth, mo)
+    from repro_torch.core.affine_wf import banded_affine, traceback
+    de, dm, dirs = banded_affine(a, b, eth=eth, sat=SAT)
+    return lambda mo: (de, dm, *traceback(dirs, eth, mo))
+
+
+def phase_parity(names=None):
+    """Each WF kernel (those in ``names``, by default all) against its
+    plain version on generated pairs: at every compiled eth
+    (``ops.SUPPORTED_ETH``) on PARITY_R pairs of each of PARITY_NS read
+    lengths, then on the main path's geometry (timed).  The linear and
+    traceback kernels take ``edge_batch``'s bytes, also on PARITY_EDGE_R
+    reads of 1, eth, eth+1 and 2*eth+1 bases at every eth, and are timed
+    at their main-path batch (``chunk``) too; the traceback at max_ops
+    1, 3 and 2n+2 in each case, and on PARITY_SMALL_R reads of 2*eth+1
+    bases."""
     import torch
     from repro_torch.kernels import ops
     rng = np.random.default_rng(11)
     dev = torch.device("cuda")
     eths = ops.SUPPORTED_ETH
     for name, k in _kernels().items():
-        # ragged: R off every block size, short and main-path reads, every
-        # band; the traceback also with a max_ops that wraps
-        cases = [(PARITY_R, n, eth, 2 * n + 2) for eth in eths
-                 for n in PARITY_NS]
-        gen = pair_batch
-        if name == "affine_traceback":
-            cases.append((PARITY_R, 37, 4, 40))
-        if name == "linear_wf":
-            gen = edge_batch
-            cases += [(PARITY_EDGE_R, n, eth, 0) for eth in eths
-                      for n in sorted({1, eth, eth + 1, 2 * eth + 1} - {0})]
-        cases.append((k["R"], N, ETH, MAX_OPS))
-        for R, n, eth, mo in cases:
+        if names is not None and name not in names:
+            continue
+        gen = edge_batch if name in ("linear_wf", "affine_traceback") \
+            else pair_batch
+        for R, n, eth, mos in _parity_cases(name, k, eths):
             s1, s2 = gen(rng, R, n, eth)
             a, b = torch.from_numpy(s1).to(dev), torch.from_numpy(s2).to(dev)
-            got = k["run"](a, b, eth, mo)
-            torch.cuda.synchronize()
-            _compare(f"{name} R={R} n={n} eth={eth} max_ops={mo}", got,
-                     k["plain"](a, b, eth, mo))
-        wrap = " (and 40 at n=37, eth=4)" if name == "affine_traceback" \
-            else ""
+            plain = _plain_at(name, k, a, b, eth)
+            for mo in mos:
+                got = k["run"](a, b, eth, mo)
+                torch.cuda.synchronize()
+                _compare(f"{name} R={R} n={n} eth={eth} max_ops={mo}", got,
+                         plain(mo))
+        what = ""
         if name == "linear_wf":
-            wrap = (f"; bytes 0..255 and SENTINEL; R={PARITY_EDGE_R}, n in "
+            what = (f"; bytes 0..255 and SENTINEL; R={PARITY_EDGE_R}, n in "
                     f"(1, eth, eth+1, 2eth+1) at every eth")
+        if name == "affine_traceback":
+            what = (f" (and 40 at n=37, eth=4), max_ops 1 and 3 in every "
+                    f"case; bytes 0..255 and SENTINEL; R={PARITY_EDGE_R}, n "
+                    f"in (1, eth, eth+1, 2eth+1) and R={PARITY_SMALL_R}, "
+                    f"n=2eth+1 at every eth")
         log(f"parity {name}: R={PARITY_R}, n in {PARITY_NS}, every eth in "
-            f"{eths[0]}..{eths[-1]}, max_ops 2n+2{wrap}; R={k['R']}, "
+            f"{eths[0]}..{eths[-1]}, max_ops 2n+2{what}; R={k['R']}, "
             f"n={N}, eth={ETH}: bit-identical (tolerance 0: "
             f"integer outputs)")
         timed = [(k["R"], a, b)]
-        if name == "linear_wf":
-            # the main-path chunk's size: the generated pairs repeated
-            a, b = (t.repeat(R_LINEAR_CHUNK // k["R"], 1) for t in (a, b))
-            _compare(f"{name} R={R_LINEAR_CHUNK}",
+        if "chunk" in k:
+            # the main-path batch's size: the generated pairs repeated
+            a, b = (t.repeat(k["chunk"] // k["R"], 1) for t in (a, b))
+            _compare(f"{name} R={k['chunk']}",
                      k["run"](a, b, ETH, MAX_OPS),
                      k["plain"](a, b, ETH, MAX_OPS))
-            timed.append((R_LINEAR_CHUNK, a, b))
+            timed.append((k["chunk"], a, b))
         for R, a, b in timed:
             ms = cuda_ms(lambda: k["run"](a, b, ETH, MAX_OPS), k["reps"], 3)
             plain_ms = cuda_ms(lambda: k["plain"](a, b, ETH, MAX_OPS), 2, 1)
-            steps = int(got[3].sum()) if name == "affine_traceback" else 0
+            steps = int(k["run"](a, b, ETH, MAX_OPS)[3].sum()) \
+                if name == "affine_traceback" else 0
             b_ms, b_by = bound(name, R, N, ETH, MAX_OPS, steps)
             i32 = ""
             if name == "linear_wf":

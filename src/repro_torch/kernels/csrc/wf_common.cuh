@@ -154,6 +154,84 @@ __device__ __forceinline__ void affine_band(const uint8_t* a, const uint8_t* b,
   dist_min = mn;
 }
 
+// The traceback kernel's band pass: affine_band's recurrence a row at a
+// time, with the direction bytes (4 meaningful bits each) packed 8 to a
+// 32-bit word.
+template <int ETH>
+__host__ __device__ constexpr int dir_words() {
+  return (2 * ETH + 8) / 8;  // words a row: ceil((2*ETH+1) / 8)
+}
+
+// affine_band's row 0.
+template <int ETH>
+__device__ __forceinline__ void affine_init(int (&D)[2 * ETH + 1],
+                                            int (&M1)[2 * ETH + 1],
+                                            int sat) {
+#pragma unroll
+  for (int d = 0; d < 2 * ETH + 1; ++d) {
+    const int j0 = d - ETH;
+    D[d] = j0 < 0 ? sat : min(j0 == 0 ? 0 : 1 + j0, sat);
+    M1[d] = sat;
+  }
+}
+
+// Row i of affine_band, in place: D and M1 hold row i-1 on entry and row
+// i on exit; ch[d] = b[i-1+d], c1 = a[i-1].  Cell d's direction byte goes
+// to bits [4*(d%8), 4*(d%8)+4) of words[d/8].  MASK: the row reaches left
+// of column 0 (i <= ETH) and needs affine_band's column masks; a row past
+// ETH computes the same bits without them.  D's clamp to sat is left
+// out: m1n and m2 are clamped, so their min with sub is too.
+template <int ETH, bool MASK>
+__device__ __forceinline__ void affine_row(int (&D)[2 * ETH + 1],
+                                           int (&M1)[2 * ETH + 1],
+                                           const int (&ch)[2 * ETH + 1],
+                                           int c1, int i, int sat,
+                                           uint32_t (&words)[dir_words<ETH>()]) {
+  constexpr int BAND = 2 * ETH + 1;
+  const int big = sat + 40;
+  int m1n[BAND];
+  uint32_t dm1[BAND];
+#pragma unroll
+  for (int d = 0; d < BAND; ++d) {
+    const int e = (d + 1 < BAND ? M1[d + 1] : big) + 1;  // raw
+    const int o = (d + 1 < BAND ? D[d + 1] : big) + 2;   // raw
+    m1n[d] = (MASK && i + d - ETH < 0) ? sat : min(min(e, o), sat);
+    dm1[d] = o < e;
+  }
+#pragma unroll
+  for (int w = 0; w < dir_words<ETH>(); ++w) words[w] = 0;
+  int dl = big, ml = big;
+#pragma unroll
+  for (int d = 0; d < BAND; ++d) {
+    const int jj = i + d - ETH;
+    const int m2e = ml + 1, m2o = dl + 2;  // raw
+    // min(ml + 1, sat) does not wait for dl
+    const int m2 = (MASK && jj <= 0) ? sat : min(min(m2e, sat), m2o);
+    const int dg = D[d];
+    const int sub = dg + 1;
+    const int dmin = min(min(sub, m1n[d]), m2);
+    const bool mt = c1 == ch[d];
+    int dval = mt ? dg : dmin;
+    // dD (0 match, 1 sub, 2 enter M1, 3 enter M2) in bit arithmetic: a
+    // nested select here compiles to a branch a cell, and the branches
+    // keep the scheduler from overlapping cells and rows
+    const uint32_t ns = dmin != sub, nm = dmin != m1n[d];
+    uint32_t dd = (1 + ns + (ns & nm)) & (mt ? 0u : 3u);
+    if (MASK) {
+      dval = jj == 0 ? m1n[d] : (jj < 0 ? sat : dval);
+      dd = jj == 0 ? 2u : dd;
+    }
+    uint32_t nib = dd | (dm1[d] << 2) | ((uint32_t)(m2o < m2e) << 3);
+    if (MASK) nib = jj < 0 ? 0u : nib;
+    words[d / 8] |= nib << (4 * (d % 8));
+    D[d] = dval;
+    dl = dval;
+    ml = m2;
+  }
+#pragma unroll
+  for (int d = 0; d < BAND; ++d) M1[d] = m1n[d];
+}
+
 // Launch on the caller's current device and stream, and report the launch
 // status: a launch refused for its shared memory never runs, and only
 // cudaGetLastError tells.  Above the default 48 KB a kernel needs its

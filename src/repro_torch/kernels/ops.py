@@ -36,6 +36,7 @@ SMEM_LIMIT = 232_448        # dynamic shared memory a Hopper block may use
 THREADS = 128               # affine block size
 SMEM_DEFAULT = 48 * 1024    # shared memory a block gets without opting in
 MINI_THREADS = 256          # minimizer block size
+TB_THREADS = (128, 64, 32)  # fused traceback block sizes, largest first
 MINI_WINDOWS = 1024         # windows a minimizer block aims to cover
 FLASH_HEAD_DIMS = (16, 32, 64, 80, 128)  # head_dim instances of each kernel
 FLASH_DTYPES = (torch.float32, torch.bfloat16)
@@ -103,7 +104,8 @@ def check_wf_geometry(eth: int, read_len: int, sat: int, *,
     reads of ``read_len`` at band half-width ``eth`` and affine saturation
     ``sat`` on the card: ``eth`` in ``SUPPORTED_ETH``, ``sat`` in [0,
     ``MAX_SAT``], a block's staged rows within its shared memory and, with
-    ``traceback``, the fused traceback's direction bytes too
+    ``traceback``, the fused traceback's directions (a 32-bit word per 8
+    band cells of a row) for a block of at least 32 instances too
     (``traceback_threads``).  Sessions call it before any work, so that a
     configuration the kernels refuse fails before the index build rather
     than at the first launch; the plain versions take any of them."""
@@ -240,23 +242,36 @@ def minimizer_scan(seqs: torch.Tensor, *, k: int = 12, w: int = 30):
     return hashes, pos
 
 
+def traceback_smem(n: int, eth: int, threads: int) -> int:
+    """Shared memory of a fused traceback block of ``threads`` instances:
+    each instance's directions, one 32-bit word per 8 band cells of each
+    of its n rows."""
+    return threads * n * 4 * ((2 * eth + 8) // 8)
+
+
 def traceback_threads(n: int, eth: int) -> int:
-    """Threads per block of the fused traceback kernel: the most of 64
-    and 32 whose direction bytes (n * band per thread) fit in shared
-    memory."""
-    per_thread = n * (2 * eth + 1)
-    for threads in (64, 32):
-        if threads * per_thread <= SMEM_LIMIT:
+    """Threads per block of the fused traceback kernel: the most of
+    ``TB_THREADS`` whose shared memory (``traceback_smem``) fits a
+    block's."""
+    for threads in TB_THREADS:
+        if traceback_smem(n, eth, threads) <= SMEM_LIMIT:
             return threads
-    raise ValueError(f"read_len={n}, eth={eth}: {per_thread} direction "
-                     f"bytes per instance do not fit 32 instances in "
-                     f"{SMEM_LIMIT} B of shared memory")
+    raise ValueError(f"read_len={n}, eth={eth}: "
+                     f"{traceback_smem(n, eth, TB_THREADS[-1])} B of "
+                     f"directions for {TB_THREADS[-1]} instances do not fit "
+                     f"in {SMEM_LIMIT} B of shared memory")
 
 
 def affine_traceback(s1: torch.Tensor, s2_window: torch.Tensor, *,
                      eth: int = 6, sat: int = 32, max_ops: int):
     """Fused banded affine WF + traceback.  -> (dist_end (R,), dist_min
-    (R,), ops (R, max_ops) int32 END-aligned, op_count (R,) int32)."""
+    (R,), ops (R, max_ops) int32 END-aligned, op_count (R,) int32).
+
+    The kernel runs one instance a thread in blocks of
+    ``traceback_threads(n, eth)``; a block keeps its instances' direction
+    nibbles in shared memory, 8 to a 32-bit word laid out [row][word]
+    [instance] (``traceback_smem``), and fills its op rows with OP_NONE
+    before the walks write their ops."""
     _check(s1, s2_window, eth)
     if max_ops < 1:
         raise ValueError(f"max_ops={max_ops} must be >= 1")
@@ -271,7 +286,7 @@ def affine_traceback(s1: torch.Tensor, s2_window: torch.Tensor, *,
     ops_ = torch.empty((R, max_ops), dtype=torch.int32, device=dev)
     cnt = torch.empty((R,), dtype=torch.int32, device=dev)
     if R:
-        smem = threads * n * (2 * eth + 1)
+        smem = traceback_smem(n, eth, threads)
         with torch.cuda.device(dev):
             rc = build.entry("affine_traceback_launch")(
                 s1.data_ptr(), s2_window.data_ptr(), dists.data_ptr(),

@@ -8,17 +8,20 @@ Phases, each fatal on failure:
 1. environment: the card's name and power limit (``nvidia-smi``);
 2. build: compiles the Hopper kernels of ``src/repro_torch/kernels/csrc``
    and prints nvcc's ``-Xptxas -v`` report for each (``phase_sass``, which
-   the full run does not call, counts the linear kernel's SASS loops);
+   the full run does not call, counts the linear and traceback kernels'
+   SASS loops);
 3. kernel parity: each kernel against its plain torch version on the same
    CUDA tensors: the WF kernels on random and near-match pairs at n=150,
    eth=6, sat=32, max_ops=302 (65,536 linear, 16,384 affine distance and
    affine with direction planes, 8,192 traceback instances) and on 1,000
-   pairs at n=37 and n=150 at every compiled eth (0..12); the linear
-   kernel also on reads no longer than the band and just past it (n in
-   1, eth, eth+1, 2*eth+1) at every eth, with SENTINEL bytes and bytes
-   0..255 in reads and windows, and at the compacted engine's chunk of
-   1,048,576 instances; the minimizer scan on 65,536 random reads of 150
-   bases (k=12, w=30) and a ragged 1,000 reads of 80 (k=8, w=16).
+   pairs at n=37 and n=150 at every compiled eth (0..12); the linear and
+   traceback kernels also on reads no longer than the band and just past
+   it (n in 1, eth, eth+1, 2*eth+1) at every eth, with SENTINEL bytes and
+   bytes 0..255 in reads and windows, and at their main-path batch (the
+   compacted engine's chunk of 1,048,576 instances, its 16,384 winners);
+   the traceback at max_ops 1, 3 and 2n+2 in each case and on 20 reads,
+   fewer than a block holds; the minimizer scan on 65,536 random reads of
+   150 bases (k=12, w=30) and a ragged 1,000 reads of 80 (k=8, w=16).
    Equality must be exact.  Times each kernel and its plain version with
    CUDA events;
 4. end to end: a 64 Mb synthetic reference (GRCh38 cut to what the flat
@@ -635,10 +638,10 @@ def phase_parity(names=None):
             what = (f"; bytes 0..255 and SENTINEL; R={PARITY_EDGE_R}, n in "
                     f"(1, eth, eth+1, 2eth+1) at every eth")
         if name == "affine_traceback":
-            what = (f" (and 40 at n=37, eth=4), max_ops 1 and 3 in every "
-                    f"case; bytes 0..255 and SENTINEL; R={PARITY_EDGE_R}, n "
-                    f"in (1, eth, eth+1, 2eth+1) and R={PARITY_SMALL_R}, "
-                    f"n=2eth+1 at every eth")
+            what = (f", 1 and 3 (and 40 at n=37, eth=4); bytes 0..255 and "
+                    f"SENTINEL; R={PARITY_EDGE_R}, n in (1, eth, eth+1, "
+                    f"2eth+1) and R={PARITY_SMALL_R}, n=2eth+1 at every eth, "
+                    f"max_ops 1, 3 and 2n+2")
         log(f"parity {name}: R={PARITY_R}, n in {PARITY_NS}, every eth in "
             f"{eths[0]}..{eths[-1]}, max_ops 2n+2{what}; R={k['R']}, "
             f"n={N}, eth={ETH}: bit-identical (tolerance 0: "

@@ -218,7 +218,7 @@ def test_wrappers_reject_bad_input():
     with pytest.raises(ValueError):
         twfb.linear_wf_dist(s1, s2, eth=ETH, backend="pallas")
     # no launch happened on the CPU: the counters count kernels only
-    assert tops.traceback_threads(150, 6) == 64
+    assert tops.traceback_threads(150, 6) == 128
     with pytest.raises(ValueError):
         tops.traceback_threads(1000, 8)
 
@@ -241,12 +241,16 @@ def test_supported_eth_is_the_compiled_range():
     (-1, 150, 32, True, "eth"),
     (6, 150, 86, True, "sat"),              # past MAX_SAT
     (6, 150, -1, True, "sat"),
-    (6, 559, 32, True, "read_len"),         # the traceback's direction bytes
+    (8, 606, 32, True, "read_len"),         # the traceback's direction words
+    (12, 455, 32, True, "read_len"),
     (0, 909, 32, False, "read_len"),        # a block's staged rows
     (6, 150, 32, True, None),
     (0, 908, 32, True, None),
     (12, 150, 85, True, None),
     (6, 558, 32, True, None),
+    (6, 559, 32, True, None),               # refused while a byte a cell
+    (12, 454, 32, True, None),
+    (8, 606, 32, False, None),              # no traceback: the padded engine
     (6, 600, 32, False, None),              # no traceback: the padded engine
 ])
 def test_check_wf_geometry(eth, read_len, sat, traceback, field):

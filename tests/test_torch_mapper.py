@@ -215,9 +215,9 @@ def test_eth_past_the_kernels_maps_on_cpu_and_is_refused_on_the_card(world):
     (dict(), None),
     (dict(eth=13), "eth"),
     (dict(sat_affine=86), "sat"),
-    (dict(read_len=600), "read_len"),          # the fused traceback's bound
-    (dict(read_len=600, engine="padded"), None),    # runs no such kernel
-    (dict(read_len=600, cigar_mode="off"), None),
+    (dict(eth=12, read_len=500), "read_len"),  # the fused traceback's bound
+    (dict(eth=12, read_len=500, engine="padded"), None),  # runs no such kernel
+    (dict(eth=12, read_len=500, cigar_mode="off"), None),
     (dict(eth=13, wf_backend="torch"), None),
 ])
 def test_check_card_geometry(overrides, field):

@@ -20,36 +20,43 @@ Phases, each fatal on failure:
    bytes 0..255 in reads and windows, and at their main-path batch (the
    compacted engine's chunk of 1,048,576 instances, its 16,384 winners);
    the traceback at max_ops 1, 3 and 2n+2 in each case and on 20 reads,
-   fewer than a block holds; the minimizer scan on 65,536 random reads of
-   150 bases (k=12, w=30) and a ragged 1,000 reads of 80 (k=8, w=16).
+   fewer than a block holds; the minimizer scan, hashes and k-mer codes,
+   on 65,536 random reads of 150 bases (k=12, w=30), a ragged 1,000
+   reads of 80 (k=8, w=16), bytes 0..255 and SENTINEL, k=16, w=1, rows
+   of exactly one window, 20 rows and one, and the index build's rows.
    Equality must be exact.  Times each kernel and its plain version with
-   CUDA events;
+   CUDA events (the minimizer scan at seeding's chunk of 32,768 rows and
+   at 262,144);
 4. end to end: a 64 Mb synthetic reference (GRCh38 cut to what the flat
    host-side index build handles inside this run), the port's
-   ``build_index``, 131,072 reads on both strands mapped through
-   ``Mapper.map`` on the compacted and the fused engines.  Checks that
-   every kernel launched on each engine, that the engines agree, that the
-   first chunk mapped on the plain torch backend is identical, and that
+   ``build_index`` (the minimizer kernel once a tile; its first tile
+   timed on the kernel and on the plain route), 131,072 reads on both
+   strands mapped through ``Mapper.map`` on the compacted and the fused
+   engines.  Checks that every kernel launched on each engine (the
+   minimizer scan once a chunk), that the engines agree, that the first
+   chunk mapped on the plain torch backend is identical, and that
    position+strand accuracy is at least 0.95;
 5. padded engine: the first 16,384 reads, one batch of 32,768 rows
    (both strands) through ``Mapper(engine="padded")``.  Checks that it
-   launched the linear and the dirs-emitting affine kernel and neither
-   of the other two, that it equals the compacted engine on every
-   result field, and that on the first 2,048 reads the plain torch
-   backend gives the same; reads/s;
-6. minimizer scan: ``ops.minimizer_scan`` on the forward and reverse-
-   complement encodings of the 131,072 reads (262,144 rows: what seeding
-   sees), held against its plain version;
+   launched the linear and the dirs-emitting affine kernel and the
+   minimizer scan once, and neither of the other two, that it equals the
+   compacted engine on every result field, and that on the first 2,048
+   reads the plain torch backend gives the same; reads/s;
+6. minimizer scan on generated input: ``ops.minimizer_scan`` on the
+   forward and reverse-complement encodings of the 131,072 reads in one
+   call (262,144 rows), both routes held against the plain version;
 7. ``map_fastq``: the reference written as a two-contig FASTA (with a run
    of N) and the reads as a FASTQ with the port's writers, then
    ``repro_torch.launch.map_fastq.main`` in-process on each engine with
-   ``--chunk-reads 16384``.  Checks that each engine's kernels launched,
-   that the three SAMs are equal line for line apart from ``@PG``, that
-   ``validate_sam`` passes, and that position+strand accuracy read back
-   from the SAM is at least 0.95; reads/s with and without the index
-   build;
+   ``--chunk-reads 16384``, and on the compacted engine with
+   ``--wf-backend torch``.  Checks that each engine's kernels launched
+   (the minimizer scan once a tile of the index build and once a chunk),
+   that the three SAMs and the plain route's are equal line for line
+   apart from ``@PG``, that ``validate_sam`` passes, and that
+   position+strand accuracy read back from the SAM is at least 0.95;
+   reads/s with and without the index build;
 8. main-path kernels: a second run of each engine keeps a copy of every
-   WF kernel input; each kernel is held against its plain version and
+   mapper kernel input; each kernel is held against its plain version and
    timed on the first batch's inputs (the compacted engine's first
    chunk; the padded batch for the affine kernel with direction planes),
    and every launch of a run is timed again on its own inputs to give
@@ -81,7 +88,7 @@ Phases, each fatal on failure:
    prefill against the plain version's and the planted faults'.
 
 Each phase prints its seconds.  The last lines are the kernels JSON line
-(phases 6, 8, 9 and 10, with each kernel's bound computed from its
+(phases 8, 9 and 10, with each kernel's bound computed from its
 inputs; the flash row also holds the timed cases of phase 9, the
 float32 ones under ``cuda_core_kernel``) and the contract line ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, when no CUDA device is present or anything fails.
@@ -113,6 +120,9 @@ R_LINEAR, R_AFFINE, R_TRACEBACK = 65_536, 16_384, 8_192
 # candidates, the linear kernel's main-path batch
 R_LINEAR_CHUNK = 1_048_576
 R_MINI = 65_536
+# the minimizer scan's main-path batch (one chunk of 16,384 reads on both
+# strands) and phase 6's: every read of phase 4 on both strands
+MINI_CHUNK, MINI_BIG = 32_768, 262_144
 # phase 3 holds each WF kernel to its plain version at every compiled eth
 # on PARITY_R pairs of each read length
 PARITY_R, PARITY_NS = 1000, (37, N)
@@ -173,11 +183,14 @@ FIELDS = ("position", "distance", "distance2", "mapped", "strand", "ops",
           "op_count", "n_candidates")
 # kernels each engine launches, and those it must not
 ENGINE_KERNELS = {
-    "compacted": ("linear_wf", "affine_wf_dist", "affine_traceback"),
-    "fused": ("linear_wf", "affine_wf_dist", "affine_traceback"),
-    "padded": ("linear_wf", "affine_wf"),
+    "compacted": ("linear_wf", "affine_wf_dist", "affine_traceback",
+                  "minimizer_scan"),
+    "fused": ("linear_wf", "affine_wf_dist", "affine_traceback",
+              "minimizer_scan"),
+    "padded": ("linear_wf", "affine_wf", "minimizer_scan"),
 }
 WF_KERNELS = ("linear_wf", "affine_wf_dist", "affine_wf", "affine_traceback")
+MAPPER_KERNELS = WF_KERNELS + ("minimizer_scan",)
 
 # LM serving (phase 9) and StableLM-3B's prefill (phase 10)
 LM_ARCH = "smollm-135m"
@@ -541,32 +554,70 @@ def minimizer_bound(R, L, k, w):
                                  else "bytes")
 
 
-def _minimizer_plain(seqs, k, w):
+def _minimizer_plain(seqs, k, w, codes=False):
+    """The minimizer kernel's plain version: ``minimizers``' (hashes,
+    positions), or with ``codes`` its (k-mer codes, positions)."""
     from repro_torch.core.minimizers import minimizers
-    h, _, p = minimizers(seqs, k=k, w=w)
-    return h, p
+    h, c, p = minimizers(seqs, k=k, w=w)
+    return (c if codes else h), p
+
+
+def _mini_rows(rng, R, L, top=4):
+    """R rows of L random bytes below ``top``; with ``top`` > 4 a tenth
+    of the bytes are SENTINEL (4) as well."""
+    from repro_torch.core.encoding import SENTINEL
+    s = rng.integers(0, top, (R, L)).astype(np.uint8)
+    if top > 4:
+        s[rng.random(s.shape) < 0.1] = SENTINEL
+    return s
+
+
+def _mini_parity_cases():
+    """(R, L, k, w, top) of phase 3's minimizer parity: ragged R, the
+    main path's geometry, every byte (SENTINEL, 0..255), k=16 (the codes
+    fill 32 bits and wrap), w=1, a row of exactly one window, fewer rows
+    than a block holds, and the index build's rows (``_SCAN_ROW``
+    windows)."""
+    from repro_torch.core.index import _SCAN_ROW
+    return [(1000, 80, 8, 16, 4), (R_MINI, N, K, W, 4),
+            (PARITY_EDGE_R, N, K, W, 256), (PARITY_EDGE_R, N, 16, W, 256),
+            (PARITY_EDGE_R, N, 16, 7, 4), (PARITY_EDGE_R, N, K, 1, 256),
+            (PARITY_EDGE_R, W + K - 1, K, W, 256),
+            (PARITY_EDGE_R, W + 15, 16, W, 4),
+            (PARITY_SMALL_R, N, K, W, 256), (PARITY_SMALL_R, N, K, W, 4),
+            (1, N, K, W, 4), (64, _SCAN_ROW + W + K - 2, K, W, 4),
+            (7, _SCAN_ROW + W + K - 2, K, W, 256)]
 
 
 def phase_minimizer_parity():
-    """The minimizer scan against its plain version on random reads."""
+    """The minimizer scan against its plain version, both routes of its
+    first output (hashes; k-mer codes), on ``_mini_parity_cases``; then
+    timed on random reads at seeding's chunk (MINI_CHUNK rows, k-mer
+    codes: the main path's route) and at MINI_BIG rows (both routes)."""
     import torch
     from repro_torch.kernels import ops
     rng = np.random.default_rng(12)
-    for R, L, k, w in ((1000, 80, 8, 16), (R_MINI, N, K, W)):
-        seqs = torch.from_numpy(rng.integers(0, 4, (R, L)).astype(
-            np.uint8)).cuda()
-        got = ops.minimizer_scan(seqs, k=k, w=w)
-        torch.cuda.synchronize()
-        _compare(f"minimizer_scan R={R} L={L} k={k} w={w}", got,
-                 _minimizer_plain(seqs, k, w))
-        log(f"parity minimizer_scan: R={R} L={L} k={k} w={w}: "
-            f"bit-identical (tolerance 0: integer outputs)")
-    ms = cuda_ms(lambda: ops.minimizer_scan(seqs, k=K, w=W), 50, 3)
-    plain_ms = cuda_ms(lambda: _minimizer_plain(seqs, K, W), 2, 1)
-    b_ms, b_by = minimizer_bound(R_MINI, N, K, W)
-    log(f"timing minimizer_scan (random reads): R={R_MINI}: {ms:.4f} "
-        f"ms/call, plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by}), "
-        f"{b_ms / ms:.1%} of bound")
+    for R, L, k, w, top in _mini_parity_cases():
+        seqs = torch.from_numpy(_mini_rows(rng, R, L, top)).cuda()
+        for codes in (False, True):
+            got = ops.minimizer_scan(seqs, k=k, w=w, codes=codes)
+            torch.cuda.synchronize()
+            _compare(f"minimizer_scan R={R} L={L} k={k} w={w} bytes<{top} "
+                     f"codes={codes}", got,
+                     _minimizer_plain(seqs, k, w, codes))
+    log(f"parity minimizer_scan: {len(_mini_parity_cases())} cases (R, L, "
+        f"k, w, bytes below): {_mini_parity_cases()}, hashes and k-mer "
+        f"codes: bit-identical (tolerance 0: integer outputs)")
+    big = torch.from_numpy(_mini_rows(rng, MINI_BIG, N)).cuda()
+    for R, codes in ((MINI_CHUNK, True), (MINI_BIG, True), (MINI_BIG, False)):
+        seqs = big[:R]
+        ms = cuda_ms(lambda: ops.minimizer_scan(seqs, k=K, w=W, codes=codes),
+                     50, 3)
+        plain_ms = cuda_ms(lambda: _minimizer_plain(seqs, K, W, codes), 2, 1)
+        b_ms, b_by = minimizer_bound(R, N, K, W)
+        log(f"timing minimizer_scan (random reads, codes={codes}): R={R}: "
+            f"{ms:.4f} ms/call, plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}), {b_ms / ms:.1%} of bound")
 
 
 def _edge_ns(eth):
@@ -677,12 +728,13 @@ def phase_parity(names=None):
 
 class KernelInputs:
     """Keeps a copy of the inputs of every kernel launch made inside it, by
-    wrapping the four WF wrappers of ``repro_torch.kernels.ops`` that
-    ``core.wf_backend`` calls; the wrappers and their launch counters
-    are unchanged."""
+    wrapping the mapper's wrappers of ``repro_torch.kernels.ops`` that
+    ``core.wf_backend`` calls (the four WF kernels' and
+    ``minimizer_scan``); the wrappers and their launch counters are
+    unchanged."""
 
     def __init__(self):
-        self.calls = {name: [] for name in WF_KERNELS}
+        self.calls = {name: [] for name in MAPPER_KERNELS}
 
     def __enter__(self):
         from repro_torch.kernels import ops
@@ -697,6 +749,18 @@ class KernelInputs:
             setattr(ops, name, fn)
 
     def _keep(self, name, fn):
+        if name == "minimizer_scan":
+            def scan(seqs, **kw):
+                if (kw.get("k"), kw.get("w"), kw.get("codes")) != (K, W,
+                                                                  True):
+                    raise AssertionError(f"minimizer_scan called with {kw}, "
+                                         f"not the main path's k={K}, "
+                                         f"w={W}, codes=True")
+                if seqs.is_cuda:
+                    self.calls[name].append(seqs.clone())
+                return fn(seqs, **kw)
+            return scan
+
         def wrapped(s1, s2_window, **kw):
             if kw.get("eth") != ETH or kw.get("sat", SAT) != SAT:
                 raise AssertionError(f"{name} called with {kw}, not the "
@@ -708,12 +772,45 @@ class KernelInputs:
         return wrapped
 
 
-def _check_launches(what, engine, launches):
-    """Each kernel of ``engine`` launched, and no other WF kernel."""
-    for name in WF_KERNELS:
+def _check_launches(what, engine, launches, minimizer=None):
+    """Each kernel of ``engine`` launched, and no other mapper kernel; the
+    minimizer scan ``minimizer`` times where that is given."""
+    for name in MAPPER_KERNELS:
         if (launches[name] > 0) != (name in ENGINE_KERNELS[engine]):
             raise AssertionError(f"{what}: {engine} launched {name} "
                                  f"{launches[name]} times: {launches}")
+    if minimizer is not None and launches["minimizer_scan"] != minimizer:
+        raise AssertionError(f"{what}: {engine} launched minimizer_scan "
+                             f"{launches['minimizer_scan']} times, not "
+                             f"{minimizer}: {launches}")
+
+
+def _scan_tiles(ref):
+    """Tiles of the index build's minimizer scan over ``ref``: its
+    launches of the kernel."""
+    from repro_torch.core.index import _SCAN_TILE
+    return -(-(len(ref) - (W + K - 1) + 1) // _SCAN_TILE)
+
+
+def _time_index_scan(ref):
+    """The index build's scan of its first tile, kernel route against
+    plain route on the same tile: equal outputs; ms of each."""
+    import torch
+    from repro_torch.core import index
+    dev = torch.device("cuda")
+    w1 = min(index._SCAN_TILE, len(ref) - (W + K - 1) + 1)
+    got = index._scan_tile(ref, 0, w1, K, W, dev, "cuda")
+    _compare(f"index scan tile of {w1:,} windows", got,
+             index._scan_tile(ref, 0, w1, K, W, dev, "torch"))
+    ms = cuda_ms(lambda: index._scan_tile(ref, 0, w1, K, W, dev, "cuda"),
+                 5, 1)
+    plain_ms = cuda_ms(lambda: index._scan_tile(ref, 0, w1, K, W, dev,
+                                                "torch"), 1, 1)
+    log(f"index build scan, tile of {w1:,} windows (rows of "
+        f"{index._SCAN_ROW}): kernel route {ms:.3f} ms, plain route "
+        f"{plain_ms:.3f} ms, equal (both with the tile's host-to-device "
+        f"copy)")
+    return dict(windows=w1, ms=ms, plain_ms=plain_ms)
 
 
 def phase_e2e():
@@ -731,11 +828,19 @@ def phase_e2e():
     t0 = time.perf_counter()
     ref = make_reference(GENOME_BASES, seed=0, repeat_frac=0.02)
     t1 = time.perf_counter()
+    ops.reset_launch_counts()
     idx = build_index(ref)
     t2 = time.perf_counter()
+    n_scan = ops.LAUNCHES["minimizer_scan"]
     log(f"reference {t1 - t0:.2f} s; build_index {t2 - t1:.2f} s: "
         f"{len(idx.uniq_kmers):,} minimizers, {len(idx.positions):,} "
-        f"occurrences, segments {idx.segments.nbytes / 1e9:.3f} GB")
+        f"occurrences, segments {idx.segments.nbytes / 1e9:.3f} GB; "
+        f"minimizer_scan launched {n_scan} times")
+    if n_scan != _scan_tiles(ref):
+        raise AssertionError(f"build_index launched minimizer_scan {n_scan} "
+                             f"times, not once for each of its "
+                             f"{_scan_tiles(ref)} tiles")
+    scan = _time_index_scan(ref)
     rs = sample_reads(ref, N_READS, seed=1, both_strands=True)
     log(f"sample_reads: {N_READS:,} reads in "
         f"{time.perf_counter() - t2:.2f} s")
@@ -755,7 +860,8 @@ def phase_e2e():
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)
-        _check_launches("Mapper.map", engine, launches)
+        _check_launches("Mapper.map", engine, launches,
+                        minimizer=res.stats["n_chunks"])
         log(f"{engine}: {N_READS:,} reads in {dt:.3f} s = "
             f"{N_READS / dt:,.0f} reads/s; launches {launches}; "
             f"{res.stats['n_chunks']} chunks; candidates "
@@ -775,6 +881,7 @@ def phase_e2e():
             raise AssertionError(f"{engine}: a second run differs")
         runs[engine]["calls"] = kept.calls
 
+    runs["compacted"]["index_scan"] = scan
     a, b = results["compacted"], results["fused"]
     for f in FIELDS:
         if not np.array_equal(getattr(a, f), getattr(b, f)):
@@ -830,7 +937,7 @@ def phase_padded(idx, rs, compacted):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
-    _check_launches("Mapper.map", "padded", launches)
+    _check_launches("Mapper.map", "padded", launches, minimizer=1)
     log(f"padded: {CHUNK:,} reads ({2 * CHUNK:,} rows) in {dt:.3f} s = "
         f"{CHUNK / dt:,.0f} reads/s (first batch: nothing of it ran "
         f"before); launches {launches}; peak device memory "
@@ -860,37 +967,39 @@ def phase_padded(idx, rs, compacted):
 
 
 def phase_minimizer_mainpath(rs):
-    """``ops.minimizer_scan`` on what seeding sees: every read's forward
-    and reverse-complement encodings.  -> the kernel's JSON row."""
+    """``ops.minimizer_scan`` on generated input of seeding's kind: every
+    read's forward and reverse-complement encodings in one call (262,144
+    rows; seeding itself scans a chunk of them a launch), both routes of
+    its first output held against the plain version.  -> its timings."""
     import torch
     from repro_torch.core.encoding import revcomp
     from repro_torch.kernels import ops
 
     seqs = torch.from_numpy(np.concatenate([rs.reads, revcomp(rs.reads)])
                             ).cuda()
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    got = ops.minimizer_scan(seqs, k=K, w=W)
-    torch.cuda.synchronize()
-    launches = ops.LAUNCHES["minimizer_scan"]
-    if launches != 1:
-        raise AssertionError(f"minimizer_scan launched {launches} times")
-    err = _compare(f"minimizer_scan main path R={len(seqs)}", got,
-                   _minimizer_plain(seqs, K, W))
-    ms = cuda_ms(lambda: ops.minimizer_scan(seqs, k=K, w=W), 20, 3)
-    plain_ms = cuda_ms(lambda: _minimizer_plain(seqs, K, W), 1, 1)
     R, L = seqs.shape
     b_ms, b_by = minimizer_bound(R, L, K, W)
-    log(f"main path minimizer_scan: R={R:,} reads of {L}: bit-identical to "
-        f"the plain version; {ms:.4f} ms/call ({R / ms * 1e3:,.0f} reads/s)"
-        f", plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by}), "
-        f"{b_ms / ms:.1%} of bound")
-    return dict(name="minimizer_scan", route="cuda",
-                source="src/repro_torch/kernels/csrc/minimizer.cu",
-                replaces="src/repro/kernels/minimizer.py:59",
-                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                instances=int(R))
+    out = dict(instances=int(R), bound_ms=b_ms)
+    for codes in (True, False):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        got = ops.minimizer_scan(seqs, k=K, w=W, codes=codes)
+        torch.cuda.synchronize()
+        launches = ops.LAUNCHES["minimizer_scan"]
+        if launches != 1:
+            raise AssertionError(f"minimizer_scan launched {launches} times")
+        _compare(f"minimizer_scan R={R} codes={codes}", got,
+                 _minimizer_plain(seqs, K, W, codes))
+        ms = cuda_ms(lambda: ops.minimizer_scan(seqs, k=K, w=W, codes=codes),
+                     20, 3)
+        plain_ms = cuda_ms(lambda: _minimizer_plain(seqs, K, W, codes), 1, 1)
+        out["codes_ms" if codes else "hashes_ms"] = ms
+        log(f"minimizer_scan on seeding's encodings, codes={codes}: "
+            f"R={R:,} reads of {L}: bit-identical to the plain version; "
+            f"{ms:.4f} ms/call ({R / ms * 1e3:,.0f} reads/s), plain "
+            f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"{b_ms / ms:.1%} of bound")
+    return out
 
 
 def _sam_accuracy(text, truth):
@@ -909,14 +1018,60 @@ def _sam_accuracy(text, truth):
     return ok / len(truth)
 
 
-def phase_map_fastq(ref, rs):
-    """``map_fastq`` in-process on each engine, from FASTA and FASTQ files
-    written by the port's writers; -> {engine: launches}."""
+class BuildLaunches:
+    """Inside it, ``core.index.build_index`` (which ``map_fastq`` imports
+    when it runs) records the minimizer kernel's launches of each build
+    and the tiles of its reference."""
+
+    def __enter__(self):
+        from repro_torch.core import index
+        from repro_torch.kernels import ops
+        self.builds, self._saved = [], index.build_index
+
+        def build_index(ref, *a, **kw):
+            before = ops.LAUNCHES["minimizer_scan"]
+            idx = self._saved(ref, *a, **kw)
+            self.builds.append((ops.LAUNCHES["minimizer_scan"] - before,
+                                _scan_tiles(ref)))
+            return idx
+        index.build_index = build_index
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import index
+        index.build_index = self._saved
+
+
+def _map_fastq_run(args, what):
+    """``map_fastq.main(args)`` in-process -> (wall s, its stderr, the
+    launches during it, minimizer launches of its index build)."""
     import torch
-    from repro_torch.data.genome import write_fasta, write_fastq
-    from repro_torch.io.sam import validate_sam
     from repro_torch.kernels import ops
     from repro_torch.launch import map_fastq
+    err = io.StringIO()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err), BuildLaunches() as built:
+        rc = map_fastq.main(args)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"map_fastq {what}: exit {rc}\n{err.getvalue()}")
+    (n_build, tiles), = built.builds
+    if n_build != tiles:
+        raise AssertionError(f"map_fastq {what}: its index build launched "
+                             f"minimizer_scan {n_build} times for {tiles} "
+                             f"tiles")
+    return dt, err.getvalue(), dict(ops.LAUNCHES), n_build
+
+
+def phase_map_fastq(ref, rs):
+    """``map_fastq`` in-process on each engine, from FASTA and FASTQ files
+    written by the port's writers, and on the compacted engine with
+    ``--wf-backend torch`` (the all-plain route); -> {engine: launches}."""
+    from repro_torch.data.genome import write_fasta, write_fastq
+    from repro_torch.io.sam import validate_sam
 
     work = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
@@ -936,23 +1091,15 @@ def phase_map_fastq(ref, rs):
                  ("chr2", int(p) - half, int(s))
                  for p, s in zip(rs.true_pos, rs.strand)]
         bodies, launches = {}, {}
+        chunks = -(-N_READS // CHUNK)
         for engine in ("compacted", "fused", "padded"):
             out = os.path.join(work, f"{engine}.sam")
-            err = io.StringIO()
-            torch.cuda.synchronize()
-            ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stderr(err):
-                rc = map_fastq.main([fa, fq, "-o", out, "--engine", engine,
-                                     "--chunk-reads", str(CHUNK)])
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            launches[engine] = dict(ops.LAUNCHES)
-            if rc != 0:
-                raise AssertionError(f"map_fastq --engine {engine}: exit "
-                                     f"{rc}\n{err.getvalue()}")
-            _check_launches("map_fastq", engine, launches[engine])
-            done = [ln for ln in err.getvalue().splitlines()
+            dt, err, launches[engine], n_build = _map_fastq_run(
+                [fa, fq, "-o", out, "--engine", engine, "--chunk-reads",
+                 str(CHUNK)], f"--engine {engine}")
+            _check_launches("map_fastq", engine, launches[engine],
+                            minimizer=n_build + chunks)
+            done = [ln for ln in err.splitlines()
                     if ln.startswith("done:")][0]
             m = re.search(r"; (\d+) reads/s mapping", done)
             with open(out) as f:
@@ -964,7 +1111,8 @@ def phase_map_fastq(ref, rs):
                 f"{N_READS / dt:,.0f} reads/s with the FASTA load and "
                 f"index build, {int(m.group(1)):,} reads/s mapping and SAM "
                 f"without them; accuracy from the SAM {acc:.5f}; launches "
-                f"{launches[engine]}")
+                f"{launches[engine]}, minimizer_scan {n_build} of them in "
+                f"the index build")
             log(f"  {done}")
             if acc < ACCURACY_BAR:
                 raise AssertionError(f"map_fastq {engine}: accuracy {acc} "
@@ -978,16 +1126,78 @@ def phase_map_fastq(ref, rs):
         log(f"map_fastq: the three SAMs are equal apart from @PG; "
             f"validate_sam passed: {stats['n_mapped']:,} mapped, "
             f"{stats['n_reverse']:,} reverse")
+        out = os.path.join(work, "plain.sam")
+        dt, _, plain, _ = _map_fastq_run(
+            [fa, fq, "-o", out, "--wf-backend", "torch", "--chunk-reads",
+             str(CHUNK)], "--wf-backend torch")
+        if any(plain[name] for name in MAPPER_KERNELS):
+            raise AssertionError(f"map_fastq --wf-backend torch launched "
+                                 f"kernels: {plain}")
+        with open(out) as f:
+            body = [ln for ln in f.read().splitlines()
+                    if not ln.startswith("@PG")]
+        if body != bodies["compacted"]:
+            raise AssertionError("map_fastq: the --wf-backend torch SAM "
+                                 "differs from the kernel route's")
+        log(f"map_fastq --wf-backend torch (no kernel launched, index build "
+            f"included): {dt:.2f} s wall; its SAM equals the kernel "
+            f"route's apart from @PG")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return launches
 
 
-def phase_mainpath_kernels(runs):
-    """Each WF kernel on the inputs the main path gave it: parity and times
-    on the first batch of its engine (the compacted engine's first chunk;
-    the padded batch for the kernel only the padded engine runs), and
-    every launch of each engine's run timed again on its own inputs."""
+def _minimizer_row(runs, generated):
+    """The minimizer kernel on the inputs seeding gave it: every launch of
+    each engine's run timed again on its own rows, and the compacted
+    engine's first chunk held against the plain version and timed.  ->
+    its kernels JSON row (with phase 6's timings and the index build's
+    scan beside)."""
+    import torch
+    from repro_torch.kernels import ops
+    name = "minimizer_scan"
+
+    def run(seqs):
+        return ops.minimizer_scan(seqs, k=K, w=W, codes=True)
+    for engine, r in runs.items():
+        calls = r["calls"][name]
+        total = sum(cuda_ms(lambda: run(seqs), 5, 1) for seqs in calls)
+        r.setdefault("kernel_ms", {})[name] = total
+        log(f"main path {engine} {name}: {len(calls)} launches, rows "
+            f"{[c.shape[0] for c in calls]}, device time {total:.3f} ms = "
+            f"{total / 1e3 / r['wall_s']:.2%} of the run's "
+            f"{r['wall_s']:.3f} s wall")
+    seqs = runs["compacted"]["calls"][name][0]
+    R, L = seqs.shape
+    got = run(seqs)
+    torch.cuda.synchronize()
+    err = _compare(f"{name} main-path R={R}", got,
+                   _minimizer_plain(seqs, K, W, codes=True))
+    ms = cuda_ms(lambda: run(seqs), 20, 3)
+    plain_ms = cuda_ms(lambda: _minimizer_plain(seqs, K, W, True), 1, 1)
+    b_ms, b_by = minimizer_bound(R, L, K, W)
+    log(f"main path {name}: first compacted chunk, R={R} rows of {L}, "
+        f"k-mer codes: bit-identical to the plain version; {ms:.4f} "
+        f"ms/call ({R / ms * 1e3:,.0f} rows/s), plain {plain_ms:.2f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound")
+    return dict(
+        name=name, route="cuda",
+        source="src/repro_torch/kernels/csrc/minimizer.cu",
+        replaces="src/repro/kernels/minimizer.py:59",
+        launches=runs["compacted"]["launches"][name], max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, instances=int(R), engine="compacted",
+        launches_by_engine={e: r["launches"][name] for e, r in runs.items()},
+        run_ms={e: r["kernel_ms"][name] for e, r in runs.items()},
+        generated=generated, index_scan=runs["compacted"]["index_scan"])
+
+
+def phase_mainpath_kernels(runs, generated):
+    """Each mapper kernel on the inputs the main path gave it: parity and
+    times on the first batch of its engine (the compacted engine's first
+    chunk; the padded batch for the kernel only the padded engine runs),
+    and every launch of each engine's run timed again on its own inputs.
+    ``generated``: phase 6's minimizer timings, kept in its row."""
     import torch
     rows = {}
     for name, k in _kernels().items():
@@ -1035,6 +1245,7 @@ def phase_mainpath_kernels(runs):
             f"bit-identical to the plain version; {ms:.4f} ms/call "
             f"({R / ms * 1e3:,.0f} instances/s), plain {plain_ms:.2f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound{extra}")
+    rows["minimizer_scan"] = _minimizer_row(runs, generated)
     for engine, run in runs.items():
         total = sum(run["kernel_ms"].values())
         log(f"main path {engine}: kernels {total:.3f} ms of "
@@ -1806,12 +2017,11 @@ def main() -> int:
     phase_done("4 end to end")
     runs["padded"] = phase_padded(idx, rs, compacted)
     phase_done("5 padded engine")
-    mini_row = phase_minimizer_mainpath(rs)
+    generated = phase_minimizer_mainpath(rs)
     phase_done("6 minimizer scan")
     phase_map_fastq(ref, rs)
     phase_done("7 map_fastq")
-    rows = phase_mainpath_kernels(runs)
-    rows["minimizer_scan"] = mini_row
+    rows = phase_mainpath_kernels(runs, generated)
     del runs, compacted                     # the kept kernel inputs
     phase_done("8 main-path kernels")
     timing = phase_flash_parity()

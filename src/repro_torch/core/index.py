@@ -21,12 +21,16 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import wf_backend as wfb
 from .device import resolve_device
 from .encoding import SENTINEL
-from .minimizers import minimizers
 
 # windows per tile of the minimizer scan: bounds the scan's working set
 _SCAN_TILE = 1 << 22
+# windows per row of a tile: the minimizer kernel stages a row whole in a
+# block's shared memory, so a tile is scanned as rows of this many
+# windows, overlapping by w + k - 2 bases
+_SCAN_ROW = 2048
 # segment rows gathered per copy
 _GATHER_ROWS = 1 << 18
 
@@ -103,7 +107,29 @@ class GenomeIndex:
                    segments=segments, read_len=read_len, k=k, w=w, eth=eth)
 
 
-def _occurrences(ref: np.ndarray, k: int, w: int, device: torch.device):
+def _scan_tile(ref: np.ndarray, w0: int, w1: int, k: int, w: int,
+               device: torch.device, backend: str):
+    """Minimizers (k-mer codes, positions in ``ref``) of windows [w0, w1)
+    of ``ref``: the tile cut into rows of ``_SCAN_ROW`` windows (``L =
+    _SCAN_ROW + w + k - 2`` bases, neighbours overlapping by ``w + k -
+    2``), all rows in one call, the padded tail's windows dropped.
+    Windows are independent, so the rows give the values one row would."""
+    span = w + k - 1
+    n = w1 - w0
+    rows = -(-n // _SCAN_ROW)
+    seq = torch.zeros(rows * _SCAN_ROW + span - 1, dtype=torch.uint8,
+                      device=device)
+    seq[: n + span - 1] = torch.from_numpy(ref[w0 : w1 + span - 1]).to(
+        device)
+    km, pos = wfb.minimizers(seq.unfold(0, _SCAN_ROW + span - 1, _SCAN_ROW),
+                             k=k, w=w, backend=backend)
+    pos = pos + (torch.arange(rows, device=device)[:, None] * _SCAN_ROW
+                 + w0)
+    return km.reshape(-1)[:n], pos.reshape(-1)[:n]
+
+
+def _occurrences(ref: np.ndarray, k: int, w: int, device: torch.device,
+                 backend: str):
     """Distinct minimizer occurrences of ``ref``: (kmer codes, positions),
     int64, ordered by position.
 
@@ -117,9 +143,7 @@ def _occurrences(ref: np.ndarray, k: int, w: int, device: torch.device):
     last = -1
     for w0 in range(0, max(n_win, 0), _SCAN_TILE):
         w1 = min(w0 + _SCAN_TILE, n_win)
-        seq = torch.from_numpy(ref[w0 : w1 + span - 1]).to(device)
-        _, km, pos = minimizers(seq, k=k, w=w)
-        pos = pos + w0
+        km, pos = _scan_tile(ref, w0, w1, k, w, device, backend)
         keep = torch.ones_like(pos, dtype=torch.bool)
         keep[1:] = pos[1:] != pos[:-1]
         keep[0] = bool(pos[0] != last)
@@ -133,18 +157,20 @@ def _occurrences(ref: np.ndarray, k: int, w: int, device: torch.device):
 
 def build_index(ref: np.ndarray, read_len: int = 150, k: int = 12,
                 w: int = 30, eth: int = 6, max_pls_per_minimizer: int = 256,
-                *, device=None) -> GenomeIndex:
+                *, device=None, backend: str = "cuda") -> GenomeIndex:
     """Scan the reference, collect minimizer occurrences, materialize
     segments — ``repro.core.index.build_index``, same values.
 
     The minimizer scan runs on ``device`` (the card unless asked
-    otherwise); the CSR and the segment table are built on the host.
+    otherwise), through the minimizer kernel on ``backend="cuda"`` and
+    the plain version on ``"torch"`` (``core.wf_backend.minimizers``);
+    the CSR and the segment table are built on the host.
     ``max_pls_per_minimizer`` caps hyper-repetitive minimizers, keeping
     the lowest positions of each.
     """
     validate_geometry(read_len=read_len, k=k, w=w, eth=eth)
     ref = np.ascontiguousarray(ref, dtype=np.uint8)
-    kmers, pos = _occurrences(ref, k, w, resolve_device(device))
+    kmers, pos = _occurrences(ref, k, w, resolve_device(device), backend)
     # (kmer, position) order, as the reference's np.unique over the pairs
     order = np.argsort(kmers, kind="stable")
     kmers, pos = kmers[order], pos[order]

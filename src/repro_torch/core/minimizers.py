@@ -30,6 +30,20 @@ def hash32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
+def unhash32(x: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``hash32`` on int64 tensors holding uint32 values:
+    ``unhash32(hash32(x)) == x & 0xFFFFFFFF``.  Each step undoes one of
+    hash32's in reverse order (the xor-shifts by 16 are their own
+    inverses; ``x ^ (x >> 15) ^ (x >> 30)`` undoes ``x ^ (x >> 15)`` on
+    32 bits; the multipliers are the inverses of hash32's modulo 2**32),
+    so the minimizer kernel can return a window's k-mer code from its
+    smallest hash."""
+    x = x & _M32
+    x = ((x ^ (x >> 16)) * 0x43021123) & _M32
+    x = ((x ^ (x >> 15) ^ (x >> 30)) * 0x1D69E2A5) & _M32
+    return x ^ (x >> 16)
+
+
 def sliding_argmin(values: torch.Tensor, window: int):
     """Sliding-window (min, leftmost argmin) along the last axis via
     (value, index) pair doubling — the reference's schedule, so ties break
@@ -62,17 +76,21 @@ def minimizers(seq: torch.Tensor, k: int = 12, w: int = 30):
 
 
 def unique_read_minimizers(reads: torch.Tensor, k: int = 12, w: int = 30,
-                           max_uniq: int = 24):
+                           max_uniq: int = 24, backend: str = "cuda"):
     """Unique minimizers of each read of a batch (R, L), static-shape
     padded — ``repro.core.minimizers.unique_read_minimizers`` with the
     read axis written out.
 
     Keeps the ``max_uniq`` smallest distinct k-mer codes (stable sort by
-    code, first occurrence of each), not the first by position.  Returns
-    (kmers, positions, valid), each (R, max_uniq); kmers and positions
-    int64.
+    code, first occurrence of each), not the first by position.  The
+    window minimizers come from ``core.wf_backend.minimizers``: the
+    minimizer kernel on ``"cuda"`` (CUDA tensors), ``minimizers`` on
+    ``"torch"``.  Returns (kmers, positions, valid), each (R, max_uniq);
+    kmers and positions int64.
     """
-    _, kmer, pos = minimizers(reads, k=k, w=w)
+    # imported here: wf_backend reaches this module through kernels.ops
+    from .wf_backend import minimizers as window_minimizers
+    kmer, pos = window_minimizers(reads, k=k, w=w, backend=backend)
     n_win = kmer.shape[-1]
     ks, order = torch.sort(kmer, dim=-1, stable=True)
     ps = pos.gather(-1, order)

@@ -308,7 +308,8 @@ def map_reads_padded(uniq_kmers, offsets, positions, segments, reads,
     R = reads.shape[0]
     M, n, eth = cfg.max_minis, cfg.read_len, cfg.eth
     sat = cfg.sat_affine
-    seeds = seed_reads(uniq_kmers, offsets, reads, cfg.seed_params)
+    seeds = seed_reads(uniq_kmers, offsets, reads, cfg.seed_params,
+                       backend=cfg.wf_backend)
     occ_idx, occ_valid = seeds["occ_idx"], seeds["occ_valid"]
     mini_pos = seeds["mini_pos"]
 
@@ -527,7 +528,7 @@ class _ChunkPipeline:
             _sync(reads)
         t0 = streaming.timed(times, "h2d", t0)
         seeds = seed_reads(self.dev[0], self.dev[1], reads,
-                           self.cfg.seed_params)
+                           self.cfg.seed_params, backend=self.cfg.wf_backend)
         if times is not None:
             _sync(reads)
         streaming.timed(times, "seed", t0)

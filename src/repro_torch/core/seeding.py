@@ -23,9 +23,12 @@ class SeedParams:
 
 
 def seed_reads(uniq_kmers: torch.Tensor, offsets: torch.Tensor,
-               reads: torch.Tensor, params: SeedParams = SeedParams()):
+               reads: torch.Tensor, params: SeedParams = SeedParams(),
+               backend: str = "cuda"):
     """Seed a batch of reads (R, L) uint8 against the index's sorted
     ``uniq_kmers`` (U,) and CSR ``offsets`` (U+1,), both int64.
+    ``backend`` (``MapperConfig.wf_backend``) picks the minimizer kernel
+    (``"cuda"``, for CUDA tensors) or the plain version (``"torch"``).
 
     Returns a dict with, per read:
       mini_kmers  (R, M)      int64   minimizer k-mer codes
@@ -37,7 +40,8 @@ def seed_reads(uniq_kmers: torch.Tensor, offsets: torch.Tensor,
     """
     M, P = params.max_minis, params.max_pls
     kmers, pos, valid = unique_read_minimizers(reads, k=params.k,
-                                               w=params.w, max_uniq=M)
+                                               w=params.w, max_uniq=M,
+                                               backend=backend)
     idx = torch.searchsorted(uniq_kmers, kmers)
     idx = torch.clamp(idx, max=uniq_kmers.shape[0] - 1)
     found = (uniq_kmers[idx] == kmers) & valid

@@ -1,5 +1,6 @@
 """WF backend dispatch: ``"cuda"`` kernels | ``"torch"`` plain versions —
-the twin of ``repro.core.wf_backend``'s ``"pallas"`` | ``"jnp"``.
+the twin of ``repro.core.wf_backend``'s ``"pallas"`` | ``"jnp"``, and the
+same choice for the minimizer scan of seeding and the index build.
 
   * ``"cuda"``  — the hand-written Hopper kernels of
     ``repro_torch.kernels``: launched for CUDA tensors; CPU tensors get
@@ -16,6 +17,7 @@ import torch
 from ..kernels import ops
 from .affine_wf import banded_affine, banded_affine_dist, traceback
 from .linear_wf import banded_wf
+from .minimizers import minimizers as plain_minimizers
 
 BACKENDS = ("cuda", "torch")
 
@@ -87,3 +89,22 @@ def affine_traceback(s1: torch.Tensor, s2_window: torch.Tensor, *, eth: int,
                                              sat=sat, max_ops=max_ops)
     return (de.reshape(lead), dm.reshape(lead),
             ops_.reshape(lead + (max_ops,)), cnt.reshape(lead))
+
+
+def minimizers(seq: torch.Tensor, *, k: int, w: int, backend: str = "cuda"):
+    """Window minimizers of ``seq`` (..., L) uint8 -> (k-mer codes,
+    positions), each (..., L - (w + k - 1) + 1) int64: what seeding and
+    the index build consume of ``core.minimizers.minimizers``.
+
+    On ``"cuda"`` the minimizer kernel writes the codes itself
+    (``ops.minimizer_scan(..., codes=True)``); on ``"torch"`` the plain
+    ``core.minimizers.minimizers`` runs, which stays the kernel's
+    yardstick and never dispatches.
+    """
+    _check(backend)
+    if backend == "torch":
+        return plain_minimizers(seq, k=k, w=w)[1:]
+    lead = seq.shape[:-1]
+    codes, pos = ops.minimizer_scan(seq.reshape(-1, seq.shape[-1])
+                                    .contiguous(), k=k, w=w, codes=True)
+    return codes.reshape(lead + (-1,)), pos.reshape(lead + (-1,))

@@ -38,7 +38,7 @@ ENTRIES = {
     "affine_wf_launch": ("affine_wf", [_P] * 4 + [_I] * 6 + [_P]),
     "affine_traceback_launch": ("traceback",
                                 [_P] * 5 + [_I] * 7 + [_P]),
-    "minimizer_launch": ("minimizer", [_P] * 3 + [_I] * 7 + [_P]),
+    "minimizer_launch": ("minimizer", [_P] * 3 + [_I] * 8 + [_P]),
     "flash_attention_launch": ("flash_attention",
                                [_P] * 4 + [_I] * 6 + [_F] + [_L] * 9 + [_P]),
     "flash_attention_wgmma_launch": ("flash_attention_wgmma",

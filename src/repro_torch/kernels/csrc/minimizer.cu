@@ -7,7 +7,10 @@
 // every window of w consecutive k-mers the smallest hash and the position
 // of its leftmost occurrence.  Outputs are int64 (hash, position) rows of
 // n_win = L - (w + k - 1) + 1 windows, the dtypes of the plain version
-// repro_torch.core.minimizers.minimizers.
+// repro_torch.core.minimizers.minimizers.  Compiled twice: with CODES the
+// first output is the minimizer's k-mer code, which seeding and the index
+// build consume, recovered from its hash by unhash32 (hash32 is a
+// bijection on 32 bits).
 //
 // What bounds it on the H100: memory.  A read is L bytes in and 16 bytes
 // out per window (two int64s): 1,910 bytes at L=150, k=12, w=30, against
@@ -34,6 +37,14 @@ __device__ __forceinline__ uint32_t hash32(uint32_t x) {
   return x ^ (x >> 16);
 }
 
+// the inverse of hash32 (repro_torch.core.minimizers.unhash32)
+__device__ __forceinline__ uint32_t unhash32(uint32_t x) {
+  x = (x ^ (x >> 16)) * 0x43021123u;
+  x = (x ^ (x >> 15) ^ (x >> 30)) * 0x1D69E2A5u;
+  return x ^ (x >> 16);
+}
+
+template <bool CODES>
 __global__ void minimizer_kernel(const uint8_t* __restrict__ seq,
                                  int64_t* __restrict__ out_hash,
                                  int64_t* __restrict__ out_pos, int R, int L,
@@ -76,18 +87,19 @@ __global__ void minimizer_kernel(const uint8_t* __restrict__ seq,
         arg = j;
       }
     }
-    out_hash[o0 + x] = (int64_t)best;
+    out_hash[o0 + x] = (int64_t)(CODES ? unhash32(best) : best);
     out_pos[o0 + x] = (int64_t)(t + arg);
   }
 }
 
-extern "C" int minimizer_launch(const void* seq, void* out_hash, void* out_pos,
-                                int R, int L, int k, int w,
-                                int reads_per_block, int threads, int smem,
-                                void* stream) {
+extern "C" int minimizer_launch(const void* seq, void* out_first,
+                                void* out_pos, int R, int L, int k, int w,
+                                int codes, int reads_per_block, int threads,
+                                int smem, void* stream) {
   const int blocks = (R + reads_per_block - 1) / reads_per_block;
-  minimizer_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)seq, (int64_t*)out_hash, (int64_t*)out_pos, R, L, k, w,
-      reads_per_block);
+  auto kernel = codes ? minimizer_kernel<true> : minimizer_kernel<false>;
+  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)seq, (int64_t*)out_first, (int64_t*)out_pos, R, L, k,
+      w, reads_per_block);
   return (int)cudaGetLastError();
 }

@@ -15,7 +15,9 @@ parse identically.  Single-end records carry FLAG 0x4/0x10 and MAPQ 255.
 
 The command line is the reference's, with these differences:
 
-* ``--wf-backend`` takes ``cuda|torch`` (default ``cuda``);
+* ``--wf-backend`` takes ``cuda|torch`` (default ``cuda``), for the
+  index build's minimizer scan and seeding as for the WF stages:
+  ``torch`` is the all-plain route;
 * ``--device`` picks the torch device (default: the CUDA card; with no
   GPU and no ``--device`` the run fails rather than drop to the CPU);
 * flags whose machinery is not ported yet exit non-zero naming their
@@ -120,7 +122,7 @@ def run(args) -> int:
         _say(f"map_fastq: skipped contig {cname!r}: {why}")
     refmap = ReferenceMap(contigs)
     idx = build_index(ref, read_len=rl, k=args.k, w=args.w, eth=args.eth,
-                      device=device)
+                      device=device, backend=args.wf_backend)
     mapper = Mapper(idx, cfg, device=device)
     _say(f"map_fastq: {len(contigs)} contig(s), {len(ref)} indexed bases "
          f"(in-memory index), read_len={rl}, topology={mapper.topology}, "

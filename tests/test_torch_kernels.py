@@ -321,6 +321,59 @@ def test_minimizer_scan_matches_pallas(R, L, k, w, block_r):
     np.testing.assert_array_equal(got_p.numpy(), np.asarray(mp))
 
 
+@pytest.mark.parametrize("R,L,k,w,top", [
+    (8, 150, 12, 30, 4),
+    (13, 150, 12, 30, 256),     # every byte, SENTINEL included
+    (9, 150, 16, 30, 256),      # codes fill 32 bits and wrap
+    (7, 150, 12, 1, 4),         # w=1: each k-mer its own window
+    (5, 41, 12, 30, 4),         # one window a row
+])
+def test_minimizer_scan_codes_match_plain(R, L, k, w, top):
+    """With ``codes`` the wrapper's first output is the minimizer's k-mer
+    code: ``minimizers(...)[1:]`` exactly; without, the hashes."""
+    from repro_torch.core.minimizers import minimizers
+    seqs = _t(np.random.default_rng(R + L + k + w).integers(
+        0, top, (R, L)).astype(np.uint8))
+    h, c, p = minimizers(seqs, k=k, w=w)
+    _eq(tops.minimizer_scan(seqs, k=k, w=w, codes=True), (c, p), "codes")
+    _eq(tops.minimizer_scan(seqs, k=k, w=w), (h, p), "hashes")
+    for backend in ("cuda", "torch"):
+        _eq(twfb.minimizers(seqs.reshape(1, R, L), k=k, w=w,
+                            backend=backend),
+            (c.reshape(1, R, -1), p.reshape(1, R, -1)), backend)
+    assert tops.LAUNCHES["minimizer_scan"] == 0
+
+
+@pytest.mark.parametrize("eth", range(13))
+def test_minimizer_takes_every_card_read_length(eth):
+    """No read length that the card's WF geometry takes
+    (``check_wf_geometry``, the padded engine's rule without the
+    traceback's, which takes the longest) reaches the minimizer kernel's
+    refusal, at the mapper's k and w or the extremes of k and w; nor do
+    the index build's rows; and the first length past the minimizer's
+    limit is refused naming ``read_len``."""
+    from repro_torch.core.index import _SCAN_ROW
+    n = 1
+    while True:
+        try:
+            tops.check_wf_geometry(eth, n + 1, 32, traceback=False)
+        except ValueError:
+            break
+        n += 1
+    for k, w in ((12, 30), (1, 1), (16, 1), (16, 64)):
+        tops.minimizer_layout(n, k, w)
+        tops.minimizer_layout(_SCAN_ROW + w + k - 2, k, w)
+    top = n
+    while True:
+        try:
+            tops.minimizer_layout(top + 1, 12, 30)
+        except ValueError as e:
+            assert str(e).startswith("read_len="), e
+            break
+        top += 1
+    assert top > n
+
+
 @pytest.mark.parametrize("backend", ["cuda", "torch"])
 def test_affine_wf_dirs_leading_dims(backend):
     """``wf_backend.affine_wf_dirs`` takes leading batch dims on both

@@ -41,6 +41,22 @@ def test_hash32_matches_reference():
     np.testing.assert_array_equal(got, _np(jmin.hash32(jnp.asarray(x))))
 
 
+@pytest.mark.parametrize("words", ["12-mer codes", "random"])
+def test_unhash32_inverts_hash32(words):
+    """hash32 is a bijection on 32 bits: unhash32 recovers every 12-mer
+    code and a million random 32-bit words, so the minimizer kernel can
+    return a window's k-mer code from its smallest hash."""
+    if words == "random":
+        x = torch.from_numpy(np.random.default_rng(3).integers(
+            0, 2 ** 32, 10 ** 6, dtype=np.int64))
+    else:
+        x = torch.arange(1 << 24, dtype=torch.int64)
+    np.testing.assert_array_equal(tmin.unhash32(tmin.hash32(x)).numpy(),
+                                  x.numpy())
+    np.testing.assert_array_equal(tmin.hash32(tmin.unhash32(x)).numpy(),
+                                  x.numpy())
+
+
 @pytest.mark.parametrize("k,w,L", [(12, 30, 150), (8, 16, 80), (16, 5, 40)])
 def test_minimizers_match_reference(k, w, L):
     """Sentinel bases (4) included: they spill into the neighbouring 2-bit
@@ -103,6 +119,24 @@ def test_build_index_caps_and_tiles(monkeypatch):
                                       err_msg=f)
 
 
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_build_index_scan_rows_match_reference(monkeypatch, backend):
+    """The index build's scan cut into rows of ``_SCAN_ROW`` windows (37,
+    which divides no tile of 777 windows, and a last tile shorter than a
+    row) on both backends: the reference's index, field for field."""
+    import repro_torch.core.index as tindex
+    ref = make_reference(9_000, seed=6, repeat_frac=0.2, repeat_len=150)
+    ref[4_000:4_050] = 4                     # a run of N
+    want = jbuild(ref, read_len=60, k=10, w=12, eth=4)
+    monkeypatch.setattr(tindex, "_SCAN_TILE", 777)
+    monkeypatch.setattr(tindex, "_SCAN_ROW", 37)
+    got = tbuild(ref, read_len=60, k=10, w=12, eth=4, device="cpu",
+                 backend=backend)
+    for f in ("uniq_kmers", "offsets", "positions", "segments"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                      err_msg=f)
+
+
 def test_build_index_rejects_bad_geometry():
     with pytest.raises(ValueError, match="k=20"):
         tbuild(np.zeros(1000, np.uint8), k=20, device="cpu")
@@ -128,6 +162,40 @@ def test_seed_reads_matches_reference(world, max_minis, max_pls):
     for f in want:
         np.testing.assert_array_equal(np.asarray(got[f]).astype(np.int64),
                                       _np(want[f]), err_msg=f)
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_seed_reads_backends_match_reference(world, backend):
+    """``seed_reads`` on either minimizer backend (on the CPU ``"cuda"``
+    reaches the kernel's wrapper, which runs the plain version there):
+    the reference's seeds."""
+    ref, ji, ti = world
+    rs = sample_reads(ref, 12, seed=8, both_strands=True)
+    reads = rs.reads.copy()
+    reads[0, 40:60] = 4                      # N bases in a read
+    want = jseed(jnp.asarray(ji.uniq_kmers), jnp.asarray(ji.offsets),
+                 jnp.asarray(reads), JSeedParams())
+    got = tseed(torch.from_numpy(ti.uniq_kmers.astype(np.int64)),
+                torch.from_numpy(ti.offsets), torch.from_numpy(reads),
+                SeedParams(), backend=backend)
+    for f in want:
+        np.testing.assert_array_equal(np.asarray(got[f]).astype(np.int64),
+                                      _np(want[f]), err_msg=f)
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_unique_read_minimizers_backends_match_reference(backend):
+    reads = np.random.default_rng(21).integers(0, 4, (9, 150)).astype(
+        np.uint8)
+    reads[4] = np.tile([3, 1, 0, 2], 38)[:150]
+    got = tmin.unique_read_minimizers(torch.from_numpy(reads), max_uniq=16,
+                                      backend=backend)
+    for i in range(len(reads)):
+        want = jmin.unique_read_minimizers(jnp.asarray(reads[i]),
+                                           max_uniq=16)
+        for g, w_, name in zip(got, want, ("kmers", "pos", "valid")):
+            np.testing.assert_array_equal(g[i].numpy().astype(np.int64),
+                                          _np(w_), err_msg=f"{i}:{name}")
 
 
 def test_genome_simulator_is_the_reference_one():

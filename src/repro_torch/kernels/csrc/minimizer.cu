@@ -44,22 +44,35 @@ __device__ __forceinline__ uint32_t unhash32(uint32_t x) {
   return x ^ (x >> 16);
 }
 
+// where the staged bytes start in a block's shared memory, after the
+// hashes: 16-byte aligned (ops.minimizer_layout sizes the block to match)
+__device__ __forceinline__ int stage_offset(int reads_per_block, int n_kmers) {
+  return (4 * reads_per_block * n_kmers + 15) & ~15;
+}
+
 template <bool CODES>
 __global__ void minimizer_kernel(const uint8_t* __restrict__ seq,
                                  int64_t* __restrict__ out_hash,
                                  int64_t* __restrict__ out_pos, int R, int L,
                                  int k, int w, int reads_per_block) {
-  extern __shared__ uint32_t sm[];
+  extern __shared__ __align__(16) uint32_t sm[];
   const int n_kmers = L - k + 1;
   const int n_win = n_kmers - w + 1;
   const long long r0 = (long long)blockIdx.x * reads_per_block;
   const int rows = (int)min((long long)reads_per_block, (long long)R - r0);
   uint32_t* h = sm;  // [read][k-mer] hashes, then the reads' bytes
-  uint8_t* s = (uint8_t*)(sm + (long long)reads_per_block * n_kmers);
+  uint8_t* s = (uint8_t*)sm + stage_offset(reads_per_block, n_kmers);
 
-  const long long nbytes = (long long)rows * L;
-  const uint8_t* src = seq + r0 * L;
-  for (long long x = threadIdx.x; x < nbytes; x += blockDim.x) s[x] = src[x];
+  // the 16-byte-aligned chunks of memory that hold the block's rows, one
+  // 16-byte load a chunk; a chunk that holds a byte of seq lies in the
+  // same page as that byte, so the bytes around seq it reads are mapped
+  const uint8_t* lo = seq + r0 * L;
+  const uint8_t* hi = lo + (long long)rows * L;
+  const uint8_t* lo16 = (const uint8_t*)((uintptr_t)lo & ~(uintptr_t)15);
+  for (const uint8_t* c = lo16 + 16 * threadIdx.x; c < hi;
+       c += 16 * blockDim.x)
+    *(uint4*)(s + (c - lo16)) = *(const uint4*)c;
+  s += lo - lo16;
   __syncthreads();
 
   const int nk = rows * n_kmers;

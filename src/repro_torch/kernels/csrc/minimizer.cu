@@ -44,6 +44,9 @@ __device__ __forceinline__ uint32_t unhash32(uint32_t x) {
   return x ^ (x >> 16);
 }
 
+// consecutive k-mers a thread codes, each from the last by a shift-or
+constexpr int MINI_RUN = 16;
+
 // where the staged bytes start in a block's shared memory, after the
 // hashes: 16-byte aligned (ops.minimizer_layout sizes the block to match)
 __device__ __forceinline__ int stage_offset(int reads_per_block, int n_kmers) {
@@ -75,13 +78,39 @@ __global__ void minimizer_kernel(const uint8_t* __restrict__ seq,
   s += lo - lo16;
   __syncthreads();
 
-  const int nk = rows * n_kmers;
-  for (int x = threadIdx.x; x < nk; x += blockDim.x) {
-    const int rr = x / n_kmers;
-    const uint8_t* p = s + rr * L + (x - rr * n_kmers);
-    uint32_t acc = 0;
-    for (int j = 0; j < k; ++j) acc |= (uint32_t)p[j] << (2 * (k - 1 - j));
-    h[x] = hash32(acc);
+  // a thread per run of MINI_RUN consecutive k-mers: the first code from
+  // k - 1 bases, then each next one by a shift, an or and a mask; a byte
+  // past 3 spills into its neighbour's field (as the plain version's
+  // shift-or does), which no rolling code can undo, so a run that holds
+  // one assembles each of its codes from its k bases instead
+  const uint32_t mask = k == 16 ? 0xFFFFFFFFu : (1u << (2 * k)) - 1;
+  const int runs = (n_kmers + MINI_RUN - 1) / MINI_RUN;
+  for (int x = threadIdx.x; x < rows * runs; x += blockDim.x) {
+    const int rr = x / runs;
+    const int i0 = (x - rr * runs) * MINI_RUN;
+    const int cnt = min(MINI_RUN, n_kmers - i0);
+    const uint8_t* p = s + rr * L + i0;
+    uint32_t* hr = h + rr * n_kmers + i0;
+    uint32_t code = 0, any = 0;
+    for (int j = 0; j < k - 1; ++j) {
+      const uint32_t c = p[j];
+      any |= c;
+      code = (code << 2) | c;
+    }
+    for (int j = 0; j < cnt; ++j) {
+      const uint32_t c = p[j + k - 1];
+      any |= c;
+      code = ((code << 2) | c) & mask;
+      hr[j] = hash32(code);
+    }
+    if (any > 3) {
+      for (int j = 0; j < cnt; ++j) {
+        uint32_t acc = 0;
+        for (int q = 0; q < k; ++q)
+          acc |= (uint32_t)p[j + q] << (2 * (k - 1 - q));
+        hr[j] = hash32(acc);
+      }
+    }
   }
   __syncthreads();
 

@@ -48,9 +48,11 @@ __device__ __forceinline__ uint32_t unhash32(uint32_t x) {
 constexpr int MINI_RUN = 16;
 
 // where the staged bytes start in a block's shared memory, after the
-// hashes: 16-byte aligned (ops.minimizer_layout sizes the block to match)
-__device__ __forceinline__ int stage_offset(int reads_per_block, int n_kmers) {
-  return (4 * reads_per_block * n_kmers + 15) & ~15;
+// minima and the hashes: 16-byte aligned (ops.minimizer_layout sizes the
+// block to match)
+__device__ __forceinline__ int stage_offset(int reads_per_block, int n_kmers,
+                                            int n_win) {
+  return (reads_per_block * (8 * n_win + 4 * n_kmers) + 15) & ~15;
 }
 
 template <bool CODES>
@@ -58,13 +60,15 @@ __global__ void minimizer_kernel(const uint8_t* __restrict__ seq,
                                  int64_t* __restrict__ out_hash,
                                  int64_t* __restrict__ out_pos, int R, int L,
                                  int k, int w, int reads_per_block) {
-  extern __shared__ __align__(16) uint32_t sm[];
+  extern __shared__ __align__(16) uint2 sm[];
   const int n_kmers = L - k + 1;
   const int n_win = n_kmers - w + 1;
   const long long r0 = (long long)blockIdx.x * reads_per_block;
   const int rows = (int)min((long long)reads_per_block, (long long)R - r0);
-  uint32_t* h = sm;  // [read][k-mer] hashes, then the reads' bytes
-  uint8_t* s = (uint8_t*)sm + stage_offset(reads_per_block, n_kmers);
+  // [read][window] (hash, position) minima, [read][k-mer] hashes, bytes
+  uint2* o = (uint2*)sm;
+  uint32_t* h = (uint32_t*)(o + reads_per_block * n_win);
+  uint8_t* s = (uint8_t*)sm + stage_offset(reads_per_block, n_kmers, n_win);
 
   // the 16-byte-aligned chunks of memory that hold the block's rows, one
   // 16-byte load a chunk; a chunk that holds a byte of seq lies in the
@@ -114,23 +118,48 @@ __global__ void minimizer_kernel(const uint8_t* __restrict__ seq,
   }
   __syncthreads();
 
+  // van Herk / Gil-Werman: a thread per block of w windows [i0, i0 + w)
+  // of a row.  Window i0 + j is k-mers [i0 + j, i0 + w) (the suffix of
+  // the block's k-mers) and [i0 + w, i0 + w + j) (a prefix of the next
+  // block's): a backward scan keeps the suffix minima, a forward scan the
+  // prefix minima, and each window takes the smaller, three compares and
+  // selects a window.  (hash, position) pairs: on equal hashes the lower
+  // position wins, as the plain version's pair doubling decides.
+  const int nb = (n_win + w - 1) / w;
+  for (int x = threadIdx.x; x < rows * nb; x += blockDim.x) {
+    const int rr = x / nb;
+    const int i0 = (x - rr * nb) * w;
+    const int nwin = min(w, n_win - i0);
+    const uint32_t* hr = h + rr * n_kmers + i0;
+    uint2* orow = o + rr * n_win + i0;
+    // the block's k-mers all exist: i0 + w - 1 <= n_kmers - 1
+    uint32_t bh = hr[w - 1], bp = i0 + w - 1;
+    if (w - 1 < nwin) orow[w - 1] = make_uint2(bh, bp);
+    for (int j = w - 2; j >= 0; --j) {
+      const uint32_t v = hr[j];
+      const bool take = v <= bh;  // the lower position wins a tie
+      bh = take ? v : bh;
+      bp = take ? (uint32_t)(i0 + j) : bp;
+      if (j < nwin) orow[j] = make_uint2(bh, bp);
+    }
+    uint32_t ph = 0xFFFFFFFFu, pp = 0;
+    for (int j = 1; j < nwin; ++j) {
+      const uint32_t v = hr[w + j - 1];
+      const bool take = v < ph;  // the prefix's leftmost keeps a tie
+      ph = take ? v : ph;
+      pp = take ? (uint32_t)(i0 + w + j - 1) : pp;
+      const uint2 sj = orow[j];  // on a tie the suffix, further left, wins
+      orow[j] = ph < sj.x ? make_uint2(ph, pp) : sj;
+    }
+  }
+  __syncthreads();
+
   const int nw = rows * n_win;
   const long long o0 = r0 * n_win;
   for (int x = threadIdx.x; x < nw; x += blockDim.x) {
-    const int rr = x / n_win;
-    const int t = x - rr * n_win;
-    const uint32_t* q = h + rr * n_kmers + t;
-    uint32_t best = q[0];
-    int arg = 0;
-    for (int j = 1; j < w; ++j) {
-      const uint32_t v = q[j];
-      if (v < best) {
-        best = v;
-        arg = j;
-      }
-    }
-    out_hash[o0 + x] = (int64_t)(CODES ? unhash32(best) : best);
-    out_pos[o0 + x] = (int64_t)(t + arg);
+    const uint2 v = o[x];
+    out_hash[o0 + x] = (int64_t)(CODES ? unhash32(v.x) : v.x);
+    out_pos[o0 + x] = (int64_t)v.y;
   }
 }
 

@@ -44,6 +44,13 @@ __device__ __forceinline__ uint32_t unhash32(uint32_t x) {
   return x ^ (x >> 16);
 }
 
+// a window's first output: its smallest hash, or with CODES that
+// minimizer's k-mer code
+template <bool CODES>
+__device__ __forceinline__ long long first_out(uint32_t hash) {
+  return (long long)(CODES ? unhash32(hash) : hash);
+}
+
 // consecutive k-mers a thread codes, each from the last by a shift-or
 constexpr int MINI_RUN = 16;
 
@@ -154,12 +161,30 @@ __global__ void minimizer_kernel(const uint8_t* __restrict__ seq,
   }
   __syncthreads();
 
+  // the block's outputs are one contiguous range of each output: a
+  // thread writes two windows in one 16-byte store (the wrapper's outputs
+  // start on 16 bytes; a range that starts on an odd window writes that
+  // one alone, as its odd last one)
   const int nw = rows * n_win;
   const long long o0 = r0 * n_win;
-  for (int x = threadIdx.x; x < nw; x += blockDim.x) {
-    const uint2 v = o[x];
-    out_hash[o0 + x] = (int64_t)(CODES ? unhash32(v.x) : v.x);
-    out_pos[o0 + x] = (int64_t)v.y;
+  const int head = (int)(o0 & 1);
+  const int pairs = (nw - head) >> 1;
+  for (int q = threadIdx.x; q < pairs; q += blockDim.x) {
+    const int e = head + 2 * q;
+    const uint2 v0 = o[e], v1 = o[e + 1];
+    *(longlong2*)(out_hash + o0 + e) =
+        make_longlong2(first_out<CODES>(v0.x), first_out<CODES>(v1.x));
+    *(longlong2*)(out_pos + o0 + e) = make_longlong2(v0.y, v1.y);
+  }
+  if (threadIdx.x == 0) {
+    if (head) {
+      out_hash[o0] = first_out<CODES>(o[0].x);
+      out_pos[o0] = o[0].y;
+    }
+    if ((nw - head) & 1) {
+      out_hash[o0 + nw - 1] = first_out<CODES>(o[nw - 1].x);
+      out_pos[o0 + nw - 1] = o[nw - 1].y;
+    }
   }
 }
 

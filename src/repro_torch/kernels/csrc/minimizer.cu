@@ -194,6 +194,11 @@ extern "C" int minimizer_launch(const void* seq, void* out_first,
                                 int smem, void* stream) {
   const int blocks = (R + reads_per_block - 1) / reads_per_block;
   auto kernel = codes ? minimizer_kernel<true> : minimizer_kernel<false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)seq, (int64_t*)out_first, (int64_t*)out_pos, R, L, k,
       w, reads_per_block);

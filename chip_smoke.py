@@ -385,9 +385,10 @@ def phase_build():
 
 
 def phase_sass():
-    """The loops of the linear and traceback kernels' SASS at eth=ETH,
-    instructions by opcode (``cuobjdump -sass`` on the built libraries),
-    for work on those kernels; not part of the full run."""
+    """The loops of the linear and traceback kernels' SASS at eth=ETH and
+    of the minimizer kernel's k-mer codes route, instructions by opcode
+    (``cuobjdump -sass`` on the built libraries), for work on those
+    kernels; not part of the full run."""
     from repro_torch.kernels import build
     info = build.build()
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
@@ -395,7 +396,8 @@ def phase_sass():
         log(f"sass: no {tool}, loops not counted")
         return
     for lib, kernel in (("linear_wf", f"linear_wf_kernelILi{ETH}E"),
-                        ("traceback", f"affine_traceback_kernelILi{ETH}E")):
+                        ("traceback", f"affine_traceback_kernelILi{ETH}E"),
+                        ("minimizer", "minimizer_kernelILb1E")):
         sass = subprocess.run([tool, "-sass", info[lib]["path"]],
                               capture_output=True, text=True,
                               check=True).stdout

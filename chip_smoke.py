@@ -1044,9 +1044,11 @@ class BuildLaunches:
         index.build_index = self._saved
 
 
-def _map_fastq_run(args, what):
+def _map_fastq_run(args, what, kernels=True):
     """``map_fastq.main(args)`` in-process -> (wall s, its stderr, the
-    launches during it, minimizer launches of its index build)."""
+    launches during it, minimizer launches of its index build), checking
+    that the build launched the minimizer kernel once a tile (with
+    ``kernels``) or never."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import map_fastq
@@ -1061,7 +1063,7 @@ def _map_fastq_run(args, what):
     if rc != 0:
         raise AssertionError(f"map_fastq {what}: exit {rc}\n{err.getvalue()}")
     (n_build, tiles), = built.builds
-    if n_build != tiles:
+    if n_build != (tiles if kernels else 0):
         raise AssertionError(f"map_fastq {what}: its index build launched "
                              f"minimizer_scan {n_build} times for {tiles} "
                              f"tiles")
@@ -1131,7 +1133,7 @@ def phase_map_fastq(ref, rs):
         out = os.path.join(work, "plain.sam")
         dt, _, plain, _ = _map_fastq_run(
             [fa, fq, "-o", out, "--wf-backend", "torch", "--chunk-reads",
-             str(CHUNK)], "--wf-backend torch")
+             str(CHUNK)], "--wf-backend torch", kernels=False)
         if any(plain[name] for name in MAPPER_KERNELS):
             raise AssertionError(f"map_fastq --wf-backend torch launched "
                                  f"kernels: {plain}")

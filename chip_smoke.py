@@ -616,10 +616,13 @@ def phase_minimizer_parity():
         ms = cuda_ms(lambda: ops.minimizer_scan(seqs, k=K, w=W, codes=codes),
                      50, 3)
         plain_ms = cuda_ms(lambda: _minimizer_plain(seqs, K, W, codes), 2, 1)
+        outs = ops.minimizer_scan(seqs, k=K, w=W, codes=codes)
+        fill_ms = cuda_ms(lambda: [t.fill_(0) for t in outs], 50, 3)
         b_ms, b_by = minimizer_bound(R, N, K, W)
         log(f"timing minimizer_scan (random reads, codes={codes}): R={R}: "
             f"{ms:.4f} ms/call, plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}), {b_ms / ms:.1%} of bound")
+            f"({b_by}), {b_ms / ms:.1%} of bound; a fill_ of its two "
+            f"outputs (the same bytes written) {fill_ms:.4f} ms")
 
 
 def _edge_ns(eth):

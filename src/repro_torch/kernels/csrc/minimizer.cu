@@ -19,21 +19,15 @@
 // for a van Herk / Gil-Werman window minimum), so at the H100 SXM's
 // published peaks the bytes take about four times as long.
 //
-// Design, so that the stores are all the time it takes:
-//  * a block of MINI_THREADS takes groups of whole rows, as many rows as
-//    give each thread one block of w windows; the grid is one wave of
-//    the blocks an SM holds, each looping over groups;
-//  * a group's bytes are staged in shared memory in 16-byte loads;
-//  * a thread codes a run of MINI_RUN consecutive k-mers, each from the
-//    last by a shift, an or and a mask, and writes their hashes to shared
-//    memory;
-//  * a thread takes a block of w windows (van Herk / Gil-Werman): a
-//    backward scan of the block's k-mers keeps suffix minima, a forward
-//    scan of the next block's keeps prefix minima, and each window takes
-//    the smaller of the two, a compare and two selects a step and no
-//    branch; it writes (hash, position) pairs to shared memory;
-//  * the group's outputs are one contiguous range of each output tensor,
-//    written two windows to a 16-byte store.
+// Design: a block takes a few whole reads.  It stages their bytes in
+// shared memory with coalesced loads, then one thread per (read, k-mer)
+// assembles the code and writes its hash to shared memory, and after a
+// barrier one thread per (read, window) scans its w hashes left to right
+// with a strict <, which keeps the leftmost of equal minima as the
+// reference's (value, index) doubling does.  The scan costs w-1 compares
+// per window, more operations than the bound counts, but they read shared
+// memory only; the stores of neighbouring windows are neighbouring int64s,
+// so the writes the bound counts coalesce.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -76,126 +70,121 @@ __global__ void minimizer_kernel(const uint8_t* __restrict__ seq,
   extern __shared__ __align__(16) uint2 sm[];
   const int n_kmers = L - k + 1;
   const int n_win = n_kmers - w + 1;
+  const long long r0 = (long long)blockIdx.x * reads_per_block;
+  const int rows = (int)min((long long)reads_per_block, (long long)R - r0);
   // [read][window] (hash, position) minima, [read][k-mer] hashes, bytes
-  uint2* o = sm;
+  uint2* o = (uint2*)sm;
   uint32_t* h = (uint32_t*)(o + reads_per_block * n_win);
-  uint8_t* const stage =
-      (uint8_t*)sm + stage_offset(reads_per_block, n_kmers, n_win);
+  uint8_t* s = (uint8_t*)sm + stage_offset(reads_per_block, n_kmers, n_win);
+
+  // the 16-byte-aligned chunks of memory that hold the block's rows, one
+  // 16-byte load a chunk; a chunk that holds a byte of seq lies in the
+  // same page as that byte, so the bytes around seq it reads are mapped
+  const uint8_t* lo = seq + r0 * L;
+  const uint8_t* hi = lo + (long long)rows * L;
+  const uint8_t* lo16 = (const uint8_t*)((uintptr_t)lo & ~(uintptr_t)15);
+  for (const uint8_t* c = lo16 + 16 * threadIdx.x; c < hi;
+       c += 16 * blockDim.x)
+    *(uint4*)(s + (c - lo16)) = *(const uint4*)c;
+  s += lo - lo16;
+  __syncthreads();
+
+  // a thread per run of MINI_RUN consecutive k-mers: the first code from
+  // k - 1 bases, then each next one by a shift, an or and a mask; a byte
+  // past 3 spills into its neighbour's field (as the plain version's
+  // shift-or does), which no rolling code can undo, so a run that holds
+  // one assembles each of its codes from its k bases instead
   const uint32_t mask = k == 16 ? 0xFFFFFFFFu : (1u << (2 * k)) - 1;
   const int runs = (n_kmers + MINI_RUN - 1) / MINI_RUN;
-  const int nb = (n_win + w - 1) / w;
-
-  for (long long r0 = (long long)blockIdx.x * reads_per_block; r0 < R;
-       r0 += (long long)gridDim.x * reads_per_block) {
-    const int rows = (int)min((long long)reads_per_block, (long long)R - r0);
-
-    // the 16-byte-aligned chunks of memory that hold the group's rows, one
-    // 16-byte load a chunk; a chunk that holds a byte of seq lies in the
-    // same page as that byte, so the bytes around seq it reads are mapped
-    const uint8_t* lo = seq + r0 * L;
-    const uint8_t* hi = lo + (long long)rows * L;
-    const uint8_t* lo16 = (const uint8_t*)((uintptr_t)lo & ~(uintptr_t)15);
-    for (const uint8_t* c = lo16 + 16 * threadIdx.x; c < hi;
-         c += 16 * blockDim.x)
-      *(uint4*)(stage + (c - lo16)) = *(const uint4*)c;
-    const uint8_t* s = stage + (lo - lo16);
-    __syncthreads();
-
-    // a thread per run of MINI_RUN consecutive k-mers: the first code from
-    // k - 1 bases, then each next one by a shift, an or and a mask; a byte
-    // past 3 spills into its neighbour's field (as the plain version's
-    // shift-or does), which no rolling code can undo, so a run that holds
-    // one assembles each of its codes from its k bases instead
-    for (int x = threadIdx.x; x < rows * runs; x += blockDim.x) {
-      const int rr = x / runs;
-      const int i0 = (x - rr * runs) * MINI_RUN;
-      const int cnt = min(MINI_RUN, n_kmers - i0);
-      const uint8_t* p = s + rr * L + i0;
-      uint32_t* hr = h + rr * n_kmers + i0;
-      uint32_t code = 0, any = 0;
-      for (int j = 0; j < k - 1; ++j) {
-        const uint32_t c = p[j];
-        any |= c;
-        code = (code << 2) | c;
-      }
+  for (int x = threadIdx.x; x < rows * runs; x += blockDim.x) {
+    const int rr = x / runs;
+    const int i0 = (x - rr * runs) * MINI_RUN;
+    const int cnt = min(MINI_RUN, n_kmers - i0);
+    const uint8_t* p = s + rr * L + i0;
+    uint32_t* hr = h + rr * n_kmers + i0;
+    uint32_t code = 0, any = 0;
+    for (int j = 0; j < k - 1; ++j) {
+      const uint32_t c = p[j];
+      any |= c;
+      code = (code << 2) | c;
+    }
+    for (int j = 0; j < cnt; ++j) {
+      const uint32_t c = p[j + k - 1];
+      any |= c;
+      code = ((code << 2) | c) & mask;
+      hr[j] = hash32(code);
+    }
+    if (any > 3) {
       for (int j = 0; j < cnt; ++j) {
-        const uint32_t c = p[j + k - 1];
-        any |= c;
-        code = ((code << 2) | c) & mask;
-        hr[j] = hash32(code);
-      }
-      if (any > 3) {
-        for (int j = 0; j < cnt; ++j) {
-          uint32_t acc = 0;
-          for (int q = 0; q < k; ++q)
-            acc |= (uint32_t)p[j + q] << (2 * (k - 1 - q));
-          hr[j] = hash32(acc);
-        }
+        uint32_t acc = 0;
+        for (int q = 0; q < k; ++q)
+          acc |= (uint32_t)p[j + q] << (2 * (k - 1 - q));
+        hr[j] = hash32(acc);
       }
     }
-    __syncthreads();
+  }
+  __syncthreads();
 
-    // van Herk / Gil-Werman: a thread per block of w windows [i0, i0 + w)
-    // of a row.  Window i0 + j is k-mers [i0 + j, i0 + w) (the suffix of
-    // the block's k-mers) and [i0 + w, i0 + w + j) (a prefix of the next
-    // block's): a backward scan keeps the suffix minima, a forward scan the
-    // prefix minima, and each window takes the smaller, three compares and
-    // selects a window.  (hash, position) pairs: on equal hashes the lower
-    // position wins, as the plain version's pair doubling decides.
-    for (int x = threadIdx.x; x < rows * nb; x += blockDim.x) {
-      const int rr = x / nb;
-      const int i0 = (x - rr * nb) * w;
-      const int nwin = min(w, n_win - i0);
-      const uint32_t* hr = h + rr * n_kmers + i0;
-      uint2* orow = o + rr * n_win + i0;
-      // the block's k-mers all exist: i0 + w - 1 <= n_kmers - 1
-      uint32_t bh = hr[w - 1], bp = i0 + w - 1;
-      if (w - 1 < nwin) orow[w - 1] = make_uint2(bh, bp);
-      for (int j = w - 2; j >= 0; --j) {
-        const uint32_t v = hr[j];
-        const bool take = v <= bh;  // the lower position wins a tie
-        bh = take ? v : bh;
-        bp = take ? (uint32_t)(i0 + j) : bp;
-        if (j < nwin) orow[j] = make_uint2(bh, bp);
-      }
-      uint32_t ph = 0xFFFFFFFFu, pp = 0;
-      for (int j = 1; j < nwin; ++j) {
-        const uint32_t v = hr[w + j - 1];
-        const bool take = v < ph;  // the prefix's leftmost keeps a tie
-        ph = take ? v : ph;
-        pp = take ? (uint32_t)(i0 + w + j - 1) : pp;
-        const uint2 sj = orow[j];  // on a tie the suffix, further left, wins
-        orow[j] = ph < sj.x ? make_uint2(ph, pp) : sj;
-      }
+  // van Herk / Gil-Werman: a thread per block of w windows [i0, i0 + w)
+  // of a row.  Window i0 + j is k-mers [i0 + j, i0 + w) (the suffix of
+  // the block's k-mers) and [i0 + w, i0 + w + j) (a prefix of the next
+  // block's): a backward scan keeps the suffix minima, a forward scan the
+  // prefix minima, and each window takes the smaller, three compares and
+  // selects a window.  (hash, position) pairs: on equal hashes the lower
+  // position wins, as the plain version's pair doubling decides.
+  const int nb = (n_win + w - 1) / w;
+  for (int x = threadIdx.x; x < rows * nb; x += blockDim.x) {
+    const int rr = x / nb;
+    const int i0 = (x - rr * nb) * w;
+    const int nwin = min(w, n_win - i0);
+    const uint32_t* hr = h + rr * n_kmers + i0;
+    uint2* orow = o + rr * n_win + i0;
+    // the block's k-mers all exist: i0 + w - 1 <= n_kmers - 1
+    uint32_t bh = hr[w - 1], bp = i0 + w - 1;
+    if (w - 1 < nwin) orow[w - 1] = make_uint2(bh, bp);
+    for (int j = w - 2; j >= 0; --j) {
+      const uint32_t v = hr[j];
+      const bool take = v <= bh;  // the lower position wins a tie
+      bh = take ? v : bh;
+      bp = take ? (uint32_t)(i0 + j) : bp;
+      if (j < nwin) orow[j] = make_uint2(bh, bp);
     }
-    __syncthreads();
+    uint32_t ph = 0xFFFFFFFFu, pp = 0;
+    for (int j = 1; j < nwin; ++j) {
+      const uint32_t v = hr[w + j - 1];
+      const bool take = v < ph;  // the prefix's leftmost keeps a tie
+      ph = take ? v : ph;
+      pp = take ? (uint32_t)(i0 + w + j - 1) : pp;
+      const uint2 sj = orow[j];  // on a tie the suffix, further left, wins
+      orow[j] = ph < sj.x ? make_uint2(ph, pp) : sj;
+    }
+  }
+  __syncthreads();
 
-    // the group's outputs are one contiguous range of each output: a
-    // thread writes two windows in one 16-byte store (the wrapper's
-    // outputs start on 16 bytes; a range that starts on an odd window
-    // writes that one alone, as its odd last one)
-    const int nw = rows * n_win;
-    const long long o0 = r0 * n_win;
-    const int head = (int)(o0 & 1);
-    const int pairs = (nw - head) >> 1;
-    for (int q = threadIdx.x; q < pairs; q += blockDim.x) {
-      const int e = head + 2 * q;
-      const uint2 v0 = o[e], v1 = o[e + 1];
-      *(longlong2*)(out_hash + o0 + e) =
-          make_longlong2(first_out<CODES>(v0.x), first_out<CODES>(v1.x));
-      *(longlong2*)(out_pos + o0 + e) = make_longlong2(v0.y, v1.y);
+  // the block's outputs are one contiguous range of each output: a
+  // thread writes two windows in one 16-byte store (the wrapper's outputs
+  // start on 16 bytes; a range that starts on an odd window writes that
+  // one alone, as its odd last one)
+  const int nw = rows * n_win;
+  const long long o0 = r0 * n_win;
+  const int head = (int)(o0 & 1);
+  const int pairs = (nw - head) >> 1;
+  for (int q = threadIdx.x; q < pairs; q += blockDim.x) {
+    const int e = head + 2 * q;
+    const uint2 v0 = o[e], v1 = o[e + 1];
+    *(longlong2*)(out_hash + o0 + e) =
+        make_longlong2(first_out<CODES>(v0.x), first_out<CODES>(v1.x));
+    *(longlong2*)(out_pos + o0 + e) = make_longlong2(v0.y, v1.y);
+  }
+  if (threadIdx.x == 0) {
+    if (head) {
+      out_hash[o0] = first_out<CODES>(o[0].x);
+      out_pos[o0] = o[0].y;
     }
-    if (threadIdx.x == 0) {
-      if (head) {
-        out_hash[o0] = first_out<CODES>(o[0].x);
-        out_pos[o0] = o[0].y;
-      }
-      if ((nw - head) & 1) {
-        out_hash[o0 + nw - 1] = first_out<CODES>(o[nw - 1].x);
-        out_pos[o0 + nw - 1] = o[nw - 1].y;
-      }
+    if ((nw - head) & 1) {
+      out_hash[o0 + nw - 1] = first_out<CODES>(o[nw - 1].x);
+      out_pos[o0 + nw - 1] = o[nw - 1].y;
     }
-    __syncthreads();  // the next group overwrites shared memory
   }
 }
 
@@ -203,27 +192,8 @@ extern "C" int minimizer_launch(const void* seq, void* out_first,
                                 void* out_pos, int R, int L, int k, int w,
                                 int codes, int reads_per_block, int threads,
                                 int smem, void* stream) {
+  const int blocks = (R + reads_per_block - 1) / reads_per_block;
   auto kernel = codes ? minimizer_kernel<true> : minimizer_kernel<false>;
-  cudaError_t e;
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  // one wave: as many blocks as the SMs hold at once, each looping over
-  // groups of rows
-  int device = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&device)) != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                    threads, smem);
-  if (e != cudaSuccess) return (int)e;
-  const long long groups = ((long long)R + reads_per_block - 1) /
-                           reads_per_block;
-  const long long wave = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  const int blocks = (int)(groups < wave ? groups : wave);
   kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)seq, (int64_t*)out_first, (int64_t*)out_pos, R, L, k,
       w, reads_per_block);

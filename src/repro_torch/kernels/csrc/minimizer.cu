@@ -52,7 +52,7 @@ __device__ __forceinline__ long long first_out(uint32_t hash) {
 }
 
 // consecutive k-mers a thread codes, each from the last by a shift-or
-constexpr int MINI_RUN = 8;
+constexpr int MINI_RUN = 16;
 
 // where the staged bytes start in a block's shared memory, after the
 // minima and the hashes: 16-byte aligned (ops.minimizer_layout sizes the

@@ -30,7 +30,7 @@ _SCAN_TILE = 1 << 22
 # windows per row of a tile: the minimizer kernel stages a row whole in a
 # block's shared memory, so a tile is scanned as rows of this many
 # windows, overlapping by w + k - 2 bases
-_SCAN_ROW = 2048
+_SCAN_ROW = 1024
 # segment rows gathered per copy
 _GATHER_ROWS = 1 << 18
 

@@ -19,15 +19,20 @@
 // for a van Herk / Gil-Werman window minimum), so at the H100 SXM's
 // published peaks the bytes take about four times as long.
 //
-// Design: a block takes a few whole reads.  It stages their bytes in
-// shared memory with coalesced loads, then one thread per (read, k-mer)
-// assembles the code and writes its hash to shared memory, and after a
-// barrier one thread per (read, window) scans its w hashes left to right
-// with a strict <, which keeps the leftmost of equal minima as the
-// reference's (value, index) doubling does.  The scan costs w-1 compares
-// per window, more operations than the bound counts, but they read shared
-// memory only; the stores of neighbouring windows are neighbouring int64s,
-// so the writes the bound counts coalesce.
+// Design, so that the stores take all the time (a block's phases are
+// split by barriers; the blocks an SM holds, nine at L=150, overlap them):
+//  * a block of 128 threads takes about 1,024 windows of whole rows (ten
+//    reads of 150) and stages their bytes in 16-byte loads;
+//  * a thread codes a run of MINI_RUN consecutive k-mers, each from the
+//    last by a shift, an or and a mask, and writes their hashes to
+//    shared memory;
+//  * van Herk / Gil-Werman over blocks of w windows: one thread scans a
+//    block's k-mers backward for suffix minima, another the next block's
+//    forward for prefix minima, a compare and two selects a step and no
+//    branch, both into shared memory as (hash, position) pairs;
+//  * the block's outputs are one contiguous range of each output tensor:
+//    a thread takes two windows, the smaller of each one's suffix and
+//    prefix minimum, and writes them in one 16-byte store to each.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -51,6 +56,12 @@ __device__ __forceinline__ long long first_out(uint32_t hash) {
   return (long long)(CODES ? unhash32(hash) : hash);
 }
 
+// a window's minimum from its suffix and prefix minima: on a tie the
+// suffix, further left, wins
+__device__ __forceinline__ uint2 window_min(uint2 suffix, uint2 prefix) {
+  return prefix.x < suffix.x ? prefix : suffix;
+}
+
 // consecutive k-mers a thread codes, each from the last by a shift-or
 constexpr int MINI_RUN = 16;
 
@@ -59,7 +70,7 @@ constexpr int MINI_RUN = 16;
 // block to match)
 __device__ __forceinline__ int stage_offset(int reads_per_block, int n_kmers,
                                             int n_win) {
-  return (reads_per_block * (8 * n_win + 4 * n_kmers) + 15) & ~15;
+  return (reads_per_block * (16 * n_win + 4 * n_kmers) + 15) & ~15;
 }
 
 template <bool CODES>
@@ -73,8 +84,9 @@ __global__ void minimizer_kernel(const uint8_t* __restrict__ seq,
   const long long r0 = (long long)blockIdx.x * reads_per_block;
   const int rows = (int)min((long long)reads_per_block, (long long)R - r0);
   // [read][window] (hash, position) minima, [read][k-mer] hashes, bytes
-  uint2* o = (uint2*)sm;
-  uint32_t* h = (uint32_t*)(o + reads_per_block * n_win);
+  uint2* o = (uint2*)sm;                 // suffix minima
+  uint2* pm = o + reads_per_block * n_win;  // prefix minima
+  uint32_t* h = (uint32_t*)(pm + reads_per_block * n_win);
   uint8_t* s = (uint8_t*)sm + stage_offset(reads_per_block, n_kmers, n_win);
 
   // the 16-byte-aligned chunks of memory that hold the block's rows, one
@@ -125,38 +137,44 @@ __global__ void minimizer_kernel(const uint8_t* __restrict__ seq,
   }
   __syncthreads();
 
-  // van Herk / Gil-Werman: a thread per block of w windows [i0, i0 + w)
-  // of a row.  Window i0 + j is k-mers [i0 + j, i0 + w) (the suffix of
-  // the block's k-mers) and [i0 + w, i0 + w + j) (a prefix of the next
-  // block's): a backward scan keeps the suffix minima, a forward scan the
-  // prefix minima, and each window takes the smaller, three compares and
-  // selects a window.  (hash, position) pairs: on equal hashes the lower
-  // position wins, as the plain version's pair doubling decides.
+  // van Herk / Gil-Werman over blocks of w windows [i0, i0 + w) of a
+  // row: window i0 + j is k-mers [i0 + j, i0 + w) (the suffix of the
+  // block's k-mers) and [i0 + w, i0 + w + j) (a prefix of the next
+  // block's).  One thread scans a block backward for its suffix minima,
+  // another the next block forward for its prefix minima; the stores
+  // below take the smaller of each window's two.  (hash, position)
+  // pairs: on equal hashes the lower position wins, as the plain
+  // version's pair doubling decides.
   const int nb = (n_win + w - 1) / w;
-  for (int x = threadIdx.x; x < rows * nb; x += blockDim.x) {
-    const int rr = x / nb;
-    const int i0 = (x - rr * nb) * w;
+  for (int x = threadIdx.x; x < 2 * rows * nb; x += blockDim.x) {
+    const int y = x >> 1;
+    const int rr = y / nb;
+    const int i0 = (y - rr * nb) * w;
     const int nwin = min(w, n_win - i0);
     const uint32_t* hr = h + rr * n_kmers + i0;
-    uint2* orow = o + rr * n_win + i0;
-    // the block's k-mers all exist: i0 + w - 1 <= n_kmers - 1
-    uint32_t bh = hr[w - 1], bp = i0 + w - 1;
-    if (w - 1 < nwin) orow[w - 1] = make_uint2(bh, bp);
-    for (int j = w - 2; j >= 0; --j) {
-      const uint32_t v = hr[j];
-      const bool take = v <= bh;  // the lower position wins a tie
-      bh = take ? v : bh;
-      bp = take ? (uint32_t)(i0 + j) : bp;
-      if (j < nwin) orow[j] = make_uint2(bh, bp);
-    }
-    uint32_t ph = 0xFFFFFFFFu, pp = 0;
-    for (int j = 1; j < nwin; ++j) {
-      const uint32_t v = hr[w + j - 1];
-      const bool take = v < ph;  // the prefix's leftmost keeps a tie
-      ph = take ? v : ph;
-      pp = take ? (uint32_t)(i0 + w + j - 1) : pp;
-      const uint2 sj = orow[j];  // on a tie the suffix, further left, wins
-      orow[j] = ph < sj.x ? make_uint2(ph, pp) : sj;
+    if (x & 1) {
+      uint2* prow = pm + rr * n_win + i0;
+      uint32_t ph = 0xFFFFFFFFu, pp = 0;  // window i0 has no prefix
+      prow[0] = make_uint2(ph, pp);
+      for (int j = 1; j < nwin; ++j) {
+        const uint32_t v = hr[w + j - 1];
+        const bool take = v < ph;  // the prefix's leftmost keeps a tie
+        ph = take ? v : ph;
+        pp = take ? (uint32_t)(i0 + w + j - 1) : pp;
+        prow[j] = make_uint2(ph, pp);
+      }
+    } else {
+      uint2* orow = o + rr * n_win + i0;
+      // the block's k-mers all exist: i0 + w - 1 <= n_kmers - 1
+      uint32_t bh = hr[w - 1], bp = i0 + w - 1;
+      if (w - 1 < nwin) orow[w - 1] = make_uint2(bh, bp);
+      for (int j = w - 2; j >= 0; --j) {
+        const uint32_t v = hr[j];
+        const bool take = v <= bh;  // the lower position wins a tie
+        bh = take ? v : bh;
+        bp = take ? (uint32_t)(i0 + j) : bp;
+        if (j < nwin) orow[j] = make_uint2(bh, bp);
+      }
     }
   }
   __syncthreads();
@@ -171,19 +189,22 @@ __global__ void minimizer_kernel(const uint8_t* __restrict__ seq,
   const int pairs = (nw - head) >> 1;
   for (int q = threadIdx.x; q < pairs; q += blockDim.x) {
     const int e = head + 2 * q;
-    const uint2 v0 = o[e], v1 = o[e + 1];
+    const uint2 v0 = window_min(o[e], pm[e]);
+    const uint2 v1 = window_min(o[e + 1], pm[e + 1]);
     *(longlong2*)(out_hash + o0 + e) =
         make_longlong2(first_out<CODES>(v0.x), first_out<CODES>(v1.x));
     *(longlong2*)(out_pos + o0 + e) = make_longlong2(v0.y, v1.y);
   }
   if (threadIdx.x == 0) {
     if (head) {
-      out_hash[o0] = first_out<CODES>(o[0].x);
-      out_pos[o0] = o[0].y;
+      const uint2 v = window_min(o[0], pm[0]);
+      out_hash[o0] = first_out<CODES>(v.x);
+      out_pos[o0] = v.y;
     }
     if ((nw - head) & 1) {
-      out_hash[o0 + nw - 1] = first_out<CODES>(o[nw - 1].x);
-      out_pos[o0 + nw - 1] = o[nw - 1].y;
+      const uint2 v = window_min(o[nw - 1], pm[nw - 1]);
+      out_hash[o0 + nw - 1] = first_out<CODES>(v.x);
+      out_pos[o0 + nw - 1] = v.y;
     }
   }
 }

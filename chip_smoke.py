@@ -48,7 +48,7 @@ Phases, each fatal on failure:
 7. ``map_fastq``: the reference written as a two-contig FASTA (with a run
    of N) and the reads as a FASTQ with the port's writers, then
    ``repro_torch.launch.map_fastq.main`` in-process on each engine with
-   ``--chunk-reads 16384``, and on the compacted engine with
+   ``--chunk-reads 16384``, and on the first 16,384 reads with
    ``--wf-backend torch``.  Checks that each engine's kernels launched
    (the minimizer scan once a tile of the index build and once a chunk),
    that the three SAMs and the plain route's are equal line for line
@@ -360,6 +360,31 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return best
 
 
+def device_ms(fn, word, calls=20):
+    """Device time (ms) a call of ``fn`` spends in the kernels whose names
+    hold ``word``: ``torch.profiler`` over ``calls`` calls after one,
+    which leaves out the host's time between launches that CUDA events
+    around a row of short calls take in; None when the trace holds no
+    such kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and word in e.key)
+    return us / calls / 1e3 if us else None
+
+
+def _ms(x):
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
 def phase_env():
     import torch
     if not torch.cuda.is_available():
@@ -618,11 +643,17 @@ def phase_minimizer_parity():
         plain_ms = cuda_ms(lambda: _minimizer_plain(seqs, K, W, codes), 2, 1)
         outs = ops.minimizer_scan(seqs, k=K, w=W, codes=codes)
         fill_ms = cuda_ms(lambda: [t.fill_(0) for t in outs], 50, 3)
+        dev = device_ms(lambda: ops.minimizer_scan(seqs, k=K, w=W,
+                                                   codes=codes),
+                        "minimizer_kernel")
+        dev_fill = device_ms(lambda: [t.fill_(0) for t in outs], "Fill")
         b_ms, b_by = minimizer_bound(R, N, K, W)
         log(f"timing minimizer_scan (random reads, codes={codes}): R={R}: "
             f"{ms:.4f} ms/call, plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms "
             f"({b_by}), {b_ms / ms:.1%} of bound; a fill_ of its two "
-            f"outputs (the same bytes written) {fill_ms:.4f} ms")
+            f"outputs (the same bytes written) {fill_ms:.4f} ms; device "
+            f"time (torch.profiler) {_ms(dev)} a call, the fill_ "
+            f"{_ms(dev_fill)}")
 
 
 def _edge_ns(eth):
@@ -1133,9 +1164,14 @@ def phase_map_fastq(ref, rs):
         log(f"map_fastq: the three SAMs are equal apart from @PG; "
             f"validate_sam passed: {stats['n_mapped']:,} mapped, "
             f"{stats['n_reverse']:,} reverse")
-        out = os.path.join(work, "plain.sam")
+        # the plain route on the first chunk's reads (each read's record
+        # depends on that read alone), against the kernel route's header
+        # and first CHUNK records
+        fq1, out = (os.path.join(work, f) for f in ("chunk.fq", "plain.sam"))
+        write_fastq(fq1, rs.reads[:CHUNK], rs.quals[:CHUNK],
+                    [f"read{i}" for i in range(CHUNK)])
         dt, _, plain, _ = _map_fastq_run(
-            [fa, fq, "-o", out, "--wf-backend", "torch", "--chunk-reads",
+            [fa, fq1, "-o", out, "--wf-backend", "torch", "--chunk-reads",
              str(CHUNK)], "--wf-backend torch", kernels=False)
         if any(plain[name] for name in MAPPER_KERNELS):
             raise AssertionError(f"map_fastq --wf-backend torch launched "
@@ -1143,12 +1179,14 @@ def phase_map_fastq(ref, rs):
         with open(out) as f:
             body = [ln for ln in f.read().splitlines()
                     if not ln.startswith("@PG")]
-        if body != bodies["compacted"]:
+        n_head = sum(ln.startswith("@") for ln in bodies["compacted"])
+        if body != bodies["compacted"][: n_head + CHUNK]:
             raise AssertionError("map_fastq: the --wf-backend torch SAM "
                                  "differs from the kernel route's")
-        log(f"map_fastq --wf-backend torch (no kernel launched, index build "
-            f"included): {dt:.2f} s wall; its SAM equals the kernel "
-            f"route's apart from @PG")
+        log(f"map_fastq --wf-backend torch on the first {CHUNK:,} reads (no "
+            f"kernel launched, index build included): {dt:.2f} s wall; its "
+            f"SAM equals the kernel route's header and first {CHUNK:,} "
+            f"records apart from @PG")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return launches
@@ -1182,18 +1220,21 @@ def _minimizer_row(runs, generated):
                    _minimizer_plain(seqs, K, W, codes=True))
     ms = cuda_ms(lambda: run(seqs), 20, 3)
     plain_ms = cuda_ms(lambda: _minimizer_plain(seqs, K, W, True), 1, 1)
+    dev = device_ms(lambda: run(seqs), "minimizer_kernel")
     b_ms, b_by = minimizer_bound(R, L, K, W)
     log(f"main path {name}: first compacted chunk, R={R} rows of {L}, "
         f"k-mer codes: bit-identical to the plain version; {ms:.4f} "
         f"ms/call ({R / ms * 1e3:,.0f} rows/s), plain {plain_ms:.2f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound")
+        f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound; device "
+        f"time (torch.profiler) {_ms(dev)} a launch")
     return dict(
         name=name, route="cuda",
         source="src/repro_torch/kernels/csrc/minimizer.cu",
         replaces="src/repro/kernels/minimizer.py:59",
         launches=runs["compacted"]["launches"][name], max_abs_err=err,
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, instances=int(R), engine="compacted",
+        library_ms=None, device_ms=dev, instances=int(R),
+        engine="compacted",
         launches_by_engine={e: r["launches"][name] for e, r in runs.items()},
         run_ms={e: r["kernel_ms"][name] for e, r in runs.items()},
         generated=generated, index_scan=runs["compacted"]["index_scan"])

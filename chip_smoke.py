@@ -1002,7 +1002,7 @@ def phase_padded(idx, rs, compacted):
     return dict(wall_s=dt, launches=launches, calls=kept.calls)
 
 
-def phase_minimizer_mainpath(rs):
+def phase_minimizer_encodings(rs):
     """``ops.minimizer_scan`` on generated input of seeding's kind: every
     read's forward and reverse-complement encodings in one call (262,144
     rows; seeding itself scans a chunk of them a launch), both routes of
@@ -2065,7 +2065,7 @@ def main() -> int:
     phase_done("4 end to end")
     runs["padded"] = phase_padded(idx, rs, compacted)
     phase_done("5 padded engine")
-    generated = phase_minimizer_mainpath(rs)
+    generated = phase_minimizer_encodings(rs)
     phase_done("6 minimizer scan")
     phase_map_fastq(ref, rs)
     phase_done("7 map_fastq")

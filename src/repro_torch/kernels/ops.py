@@ -35,7 +35,7 @@ MAX_SAT = 85                # above it the reference's int8 values wrap
 SMEM_LIMIT = 232_448        # dynamic shared memory a Hopper block may use
 THREADS = 128               # affine block size
 SMEM_DEFAULT = 48 * 1024    # shared memory a block gets without opting in
-MINI_THREADS = 256          # minimizer block size
+MINI_THREADS = 128          # minimizer block size
 TB_THREADS = (128, 64, 32)  # fused traceback block sizes, largest first
 MINI_WINDOWS = 1024         # windows a minimizer block aims to cover
 FLASH_HEAD_DIMS = (16, 32, 64, 80, 128)  # head_dim instances of each kernel
@@ -200,12 +200,40 @@ def affine_wf(s1: torch.Tensor, s2_window: torch.Tensor, *, eth: int = 6,
     return dists[0], dists[1], planes.t().reshape(R, n, band)
 
 
-def minimizer_scan(seqs: torch.Tensor, *, k: int = 12, w: int = 30):
+def minimizer_layout(L: int, k: int, w: int):
+    """(rows a block, threads a block, shared memory bytes) of the
+    minimizer kernel for rows of L bases: a block stages whole rows, L
+    bases, a 32-bit hash a k-mer and two (hash, position) pairs a window
+    (its suffix and prefix minima) each, the bases in 16-byte chunks (32
+    bytes of slack); as many rows as make MINI_WINDOWS windows.  Raises
+    ValueError, naming ``read_len``, for a row that does not fit a
+    block's default shared memory."""
+    n_kmers = L - k + 1
+    n_win = n_kmers - w + 1
+
+    def smem(rpb):                    # csrc/minimizer.cu stage_offset
+        return (-(-rpb * (16 * n_win + 4 * n_kmers) // 16) * 16 + rpb * L
+                + 32)
+    if smem(1) > SMEM_DEFAULT:
+        raise ValueError(f"read_len={L}: one row's {smem(1)} B of minima, "
+                         f"hashes and bases exceed a block's {SMEM_DEFAULT} "
+                         f"B")
+    rpb = -(-MINI_WINDOWS // n_win)
+    while smem(rpb) > SMEM_DEFAULT:
+        rpb -= 1
+    return rpb, MINI_THREADS, smem(rpb)
+
+
+def minimizer_scan(seqs: torch.Tensor, *, k: int = 12, w: int = 30,
+                   codes: bool = False):
     """Window minimizers of every row of ``seqs`` (R, L) uint8 base codes.
-    -> (hashes (R, n_win), positions (R, n_win)), both int64, n_win =
-    L - (w + k - 1) + 1: the smallest hash32 of w consecutive k-mer codes
-    (uint32 values held in int64) and the k-mer start of its leftmost
-    occurrence, as ``core.minimizers.minimizers`` gives them."""
+    -> (first (R, n_win), positions (R, n_win)), both int64, n_win =
+    L - (w + k - 1) + 1: for each window of w consecutive k-mers, its
+    smallest hash32 (uint32 values held in int64; with ``codes``, the
+    k-mer code of that minimizer instead) and the k-mer start of its
+    leftmost occurrence, as ``core.minimizers.minimizers`` gives them
+    (``[0]`` and ``[2]``, or with ``codes`` ``[1:]``).  The kernel is
+    compiled for both choices of the first output."""
     if seqs.dtype != torch.uint8:
         raise TypeError(f"seqs must be uint8, got {seqs.dtype}")
     if seqs.dim() != 2 or not seqs.is_contiguous():
@@ -220,26 +248,21 @@ def minimizer_scan(seqs: torch.Tensor, *, k: int = 12, w: int = 30):
         raise ValueError(f"L={L} is shorter than one window of w={w} "
                          f"k-mers of k={k} ({w + k - 1} bases)")
     if not _is_cuda(seqs):
-        hashes, _, pos = minimizers(seqs, k=k, w=w)
-        return hashes, pos
-    n_kmers = L - k + 1
-    n_win = n_kmers - w + 1
-    per_read = 4 * n_kmers + L        # hashes + bases in shared memory
-    if per_read > SMEM_DEFAULT:
-        raise ValueError(f"L={L}: one read's {per_read} B of hashes and "
-                         f"bases exceed a block's {SMEM_DEFAULT} B")
-    rpb = max(1, min(SMEM_DEFAULT // per_read, -(-MINI_WINDOWS // n_win)))
+        hashes, kmers, pos = minimizers(seqs, k=k, w=w)
+        return (kmers if codes else hashes), pos
+    rpb, threads, smem = minimizer_layout(L, k, w)
+    n_win = L - (w + k - 1) + 1
     dev = seqs.device
-    hashes = torch.empty((R, n_win), dtype=torch.int64, device=dev)
+    first = torch.empty((R, n_win), dtype=torch.int64, device=dev)
     pos = torch.empty((R, n_win), dtype=torch.int64, device=dev)
     if R:
         with torch.cuda.device(dev):
             rc = build.entry("minimizer_launch")(
-                seqs.data_ptr(), hashes.data_ptr(), pos.data_ptr(), R, L, k,
-                w, rpb, MINI_THREADS, rpb * per_read, _stream(seqs))
+                seqs.data_ptr(), first.data_ptr(), pos.data_ptr(), R, L, k,
+                w, int(codes), rpb, threads, smem, _stream(seqs))
         _raise_on(rc, "minimizer_scan")
         LAUNCHES["minimizer_scan"] += 1
-    return hashes, pos
+    return first, pos
 
 
 def traceback_smem(n: int, eth: int, threads: int) -> int:

@@ -381,10 +381,6 @@ def device_ms(fn, word, calls=20):
     return us / calls / 1e3 if us else None
 
 
-def _ms(x):
-    return "not measured" if x is None else f"{x:.4f} ms"
-
-
 def phase_env():
     import torch
     if not torch.cuda.is_available():
@@ -643,17 +639,11 @@ def phase_minimizer_parity():
         plain_ms = cuda_ms(lambda: _minimizer_plain(seqs, K, W, codes), 2, 1)
         outs = ops.minimizer_scan(seqs, k=K, w=W, codes=codes)
         fill_ms = cuda_ms(lambda: [t.fill_(0) for t in outs], 50, 3)
-        dev = device_ms(lambda: ops.minimizer_scan(seqs, k=K, w=W,
-                                                   codes=codes),
-                        "minimizer_kernel")
-        dev_fill = device_ms(lambda: [t.fill_(0) for t in outs], "Fill")
         b_ms, b_by = minimizer_bound(R, N, K, W)
         log(f"timing minimizer_scan (random reads, codes={codes}): R={R}: "
             f"{ms:.4f} ms/call, plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms "
             f"({b_by}), {b_ms / ms:.1%} of bound; a fill_ of its two "
-            f"outputs (the same bytes written) {fill_ms:.4f} ms; device "
-            f"time (torch.profiler) {_ms(dev)} a call, the fill_ "
-            f"{_ms(dev_fill)}")
+            f"outputs (the same bytes written) {fill_ms:.4f} ms")
 
 
 def _edge_ns(eth):
@@ -1226,7 +1216,8 @@ def _minimizer_row(runs, generated):
         f"k-mer codes: bit-identical to the plain version; {ms:.4f} "
         f"ms/call ({R / ms * 1e3:,.0f} rows/s), plain {plain_ms:.2f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound; device "
-        f"time (torch.profiler) {_ms(dev)} a launch")
+        f"time (torch.profiler) "
+        f"{'not measured' if dev is None else f'{dev:.4f} ms'} a launch")
     return dict(
         name=name, route="cuda",
         source="src/repro_torch/kernels/csrc/minimizer.cu",

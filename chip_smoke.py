@@ -55,12 +55,32 @@ Phases, each fatal on failure:
    apart from ``@PG``, that ``validate_sam`` passes, and that
    position+strand accuracy read back from the SAM is at least 0.95;
    reads/s with and without the index build;
+7b. paired-end: 65,536 FR pairs of 150-base mates (insert 350 +- 30, 2%
+   of R2 mates random sequence) on phase 4's reference and index.
+   ``Mapper.map_pairs`` + ``resolve_pairs`` on the compacted and fused
+   engines: every kernel of each engine launched (the minimizer scan
+   once a chunk), equal ``PairResolution``s, proper-pair accuracy at
+   least 0.97 over the pairs with a real R2, no junk mate rescued.  Mate
+   rescue at scale: the R2 mates of the first 256 pairs that resolved
+   right with an R2 within the rescue's threshold (affine distance at
+   most eth) unmapped, all rescued within 2 bases on the right strand with
+   MAPQ capped by the anchor's, through ``affine_wf_dist`` alone (held
+   against its plain version on the rescue's rows, and timed); the first
+   chunk resolved on ``wf_backend="torch"`` gives the same resolution
+   with no kernel launched.  ``map_fastq --r1 --r2`` on all pairs
+   (``validate_sam`` with MAPQ, accuracy from the SAM, the minimizer
+   scan once an index tile and once an engine chunk), and on the first
+   16,384 pairs ``--engine fused``, ``--engine padded``,
+   ``--interleaved`` and ``--wf-backend torch``, each SAM equal to the
+   header and first records of the full one apart from ``@PG``; pairs/s,
+   the rescue's rows and wall time, reads/s with and without the index
+   build;
 8. main-path kernels: a second run of each engine keeps a copy of every
    mapper kernel input; each kernel is held against its plain version and
    timed on the first batch's inputs (the compacted engine's first
    chunk; the padded batch for the affine kernel with direction planes),
-   and every launch of a run is timed again on its own inputs to give
-   the kernels' device time per run;
+   and every launch of a run (phase 7b's paired run among them) is timed
+   again on its own inputs to give the kernels' device time per run;
 9. LM serving: the two flash-attention kernels against their plain
    version on generated inputs: the tensor-core kernel (bf16, hd 16, 32,
    64, 80 and 128) on a sweep of ragged S, batch 2, KV = H and KV < H,
@@ -89,7 +109,8 @@ Phases, each fatal on failure:
 
 Each phase prints its seconds.  The last lines are the kernels JSON line
 (phases 8, 9 and 10, with each kernel's bound computed from its
-inputs; the flash row also holds the timed cases of phase 9, the
+inputs; the affine_wf_dist row also holds phase 7b's rescue, the flash
+row the timed cases of phase 9, the
 float32 ones under ``cuda_core_kernel``) and the contract line ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, when no CUDA device is present or anything fails.
 Imports nothing of JAX or of the ``repro`` package.
@@ -179,6 +200,15 @@ N_READS = 131_072
 CHUNK = 16_384
 PLAIN_CHECK_READS = 2_048
 ACCURACY_BAR = 0.95
+# phase 7b: FR pairs of 150-base mates (the read count of phase 4), 2% of
+# R2 mates replaced by random sequence; the reference's proper-pair bar
+N_PAIRS = 65_536
+PAIR_SEED = 2
+INSERT_MEAN, INSERT_SD = 350, 30
+JUNK_FRAC = 0.02
+PAIR_ACCURACY_BAR = 0.97
+N_KILL = 256
+PAIR_FIELDS = ("proper", "mapq1", "mapq2", "rescued1", "rescued2", "insert")
 FIELDS = ("position", "distance", "distance2", "mapped", "strand", "ops",
           "op_count", "n_candidates")
 # kernels each engine launches, and those it must not
@@ -798,11 +828,12 @@ class KernelInputs:
         return wrapped
 
 
-def _check_launches(what, engine, launches, minimizer=None):
-    """Each kernel of ``engine`` launched, and no other mapper kernel; the
-    minimizer scan ``minimizer`` times where that is given."""
+def _check_launches(what, engine, launches, minimizer=None, also=()):
+    """Each kernel of ``engine`` (and of ``also``: the mate rescue's
+    ``affine_wf_dist`` on paired runs) launched, and no other mapper
+    kernel; the minimizer scan ``minimizer`` times where that is given."""
     for name in MAPPER_KERNELS:
-        if (launches[name] > 0) != (name in ENGINE_KERNELS[engine]):
+        if (launches[name] > 0) != (name in ENGINE_KERNELS[engine] + also):
             raise AssertionError(f"{what}: {engine} launched {name} "
                                  f"{launches[name]} times: {launches}")
     if minimizer is not None and launches["minimizer_scan"] != minimizer:
@@ -1180,6 +1211,297 @@ def phase_map_fastq(ref, rs):
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return launches
+
+
+def _same_resolution(what, a, b):
+    """Two ``PairResolution``s equal on every field (of the mate results,
+    those both engines give) and in their stats."""
+    for m in ("res1", "res2"):
+        for f in FIELDS:
+            x, y = getattr(getattr(a, m), f), getattr(getattr(b, m), f)
+            if (x is None) != (y is None) or (x is not None and
+                                              not np.array_equal(x, y)):
+                raise AssertionError(f"{what}: {m}.{f} differs")
+    for f in PAIR_FIELDS:
+        if not np.array_equal(getattr(a, f), getattr(b, f)):
+            raise AssertionError(f"{what}: {f} differs")
+    if a.stats != b.stats:
+        raise AssertionError(f"{what}: stats differ: {a.stats} != "
+                             f"{b.stats}")
+
+
+def _pairs_right(pr, ps):
+    """Per pair: both mates within eth of the truth on the right strand,
+    and proper."""
+    return ((np.abs(pr.res1.position - ps.pos1) <= ETH)
+            & (np.abs(pr.res2.position - ps.pos2) <= ETH)
+            & (pr.res1.strand == ps.strand1) & (pr.res2.strand == ps.strand2)
+            & pr.proper)
+
+
+def _sam_pair_accuracy(text, ps, keep):
+    """``_pairs_right``'s share of ``keep`` read back from the SAM of a
+    one-contig FASTA:
+    both records of ``pair<i>`` mapped, POS within eth, the right FLAG
+    0x10, and 0x2."""
+    ok = np.ones(len(ps.pos1), dtype=bool)
+    for ln in text.splitlines():
+        if ln.startswith("@"):
+            continue
+        f = ln.split("\t", 4)
+        i, flag = int(f[0][4:]), int(f[1])
+        pos, strand = ((ps.pos2, ps.strand2) if flag & 0x80
+                       else (ps.pos1, ps.strand1))
+        ok[i] &= bool(not flag & 0x4 and flag & 0x2
+                      and abs(int(f[3]) - 1 - int(pos[i])) <= ETH
+                      and bool(flag & 0x10) == bool(strand[i]))
+    return float(ok[keep].mean())
+
+
+def phase_paired(idx, ref):
+    """7b: paired-end at the published geometry on phase 4's reference and
+    index.  ``Mapper.map_pairs`` + ``resolve_pairs`` on both engines, mate
+    rescue at scale on the affine-distance kernel, and ``map_fastq``
+    ``--r1 --r2`` (with the other engines, ``--interleaved`` and
+    ``--wf-backend torch`` on the first chunk).  -> (the compacted paired
+    path's run: wall s, launches, kept kernel inputs; the rescue's
+    numbers for the affine_wf_dist row)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import pairing
+    from repro_torch.core.affine_wf import banded_affine_dist
+    from repro_torch.core.mapper import Mapper, split_result
+    from repro_torch.core.pipeline import MapperConfig
+    from repro_torch.data.genome import (sample_pairs, write_fasta,
+                                         write_fastq_pair)
+    from repro_torch.io.sam import validate_sam
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    ps = sample_pairs(ref, N_PAIRS, read_len=N, insert_mean=INSERT_MEAN,
+                      insert_sd=INSERT_SD, unmappable_frac=JUNK_FRAC,
+                      seed=PAIR_SEED)
+    # the junk mask as sample_pairs draws it
+    junk = (np.random.default_rng(PAIR_SEED + 0x7777).random(N_PAIRS)
+            < JUNK_FRAC)
+    keep = ~junk
+    log(f"paired: sample_pairs {N_PAIRS:,} pairs ({2 * N_PAIRS:,} reads, "
+        f"insert {INSERT_MEAN} +- {INSERT_SD}) in "
+        f"{time.perf_counter() - t0:.2f} s; {int(junk.sum()):,} R2 mates "
+        f"replaced by random sequence")
+    ref_dev = torch.from_numpy(ref).cuda()    # the rescue's genome
+    reads = dict(reads1=ps.reads1, reads2=ps.reads2)
+    resolved, mapped = {}, {}
+    for engine in ("compacted", "fused"):
+        cfg = MapperConfig.from_index(idx, both_strands=True,
+                                      chunk_reads=CHUNK, engine=engine,
+                                      cigar_mode="eager")
+        mapper = Mapper(idx, cfg)
+        mapper.map_pairs(ps.reads1[:CHUNK // 2], ps.reads2[:CHUNK // 2])
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        res1, res2 = mapper.map_pairs(ps.reads1, ps.reads2)
+        t2 = time.perf_counter()
+        pr = pairing.resolve_pairs(res1, res2, cfg=cfg, ref=ref_dev,
+                                   device=mapper.device, **reads)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        launches = dict(ops.LAUNCHES)
+        _check_launches("map_pairs + resolve_pairs", engine, launches,
+                        minimizer=res1.stats["n_chunks"])
+        log(f"paired {engine}: map_pairs {t2 - t1:.3f} s + resolve_pairs "
+            f"{t3 - t2:.3f} s = {N_PAIRS / (t3 - t1):,.0f} pairs/s; "
+            f"launches {launches}; {pr.stats['n_proper']:,} proper, "
+            f"{pr.stats['n_discordant']:,} discordant, "
+            f"{pr.stats['n_rescued']} rescued, insert median "
+            f"{pr.stats['insert_median']} window "
+            f"{pr.stats['insert_window']}")
+        resolved[engine], mapped[engine] = pr, (res1, res2, cfg, mapper)
+        if engine == "compacted":
+            path = dict(wall_s=t3 - t1, launches=launches)
+    _same_resolution("paired: compacted and fused", resolved["compacted"],
+                     resolved["fused"])
+    pr = resolved["compacted"]
+    right = _pairs_right(pr, ps)
+    acc = float(right[keep].mean())
+    log(f"paired: compacted == fused on every PairResolution field; "
+        f"proper-pair accuracy over the {int(keep.sum()):,} pairs whose R2 "
+        f"is real {acc:.5f}; junk mates rescued "
+        f"{int(pr.rescued2[junk].sum())}")
+    if acc < PAIR_ACCURACY_BAR:
+        raise AssertionError(f"paired accuracy {acc} below "
+                             f"{PAIR_ACCURACY_BAR}")
+    if pr.rescued2[junk].any():
+        raise AssertionError("paired: a junk mate was rescued")
+    res1, res2, cfg, mapper = mapped["compacted"]
+    with KernelInputs() as kept:           # the same run, inputs kept
+        again = pairing.resolve_pairs(*mapper.map_pairs(ps.reads1,
+                                                        ps.reads2),
+                                      cfg=cfg, ref=ref_dev,
+                                      device=mapper.device, **reads)
+    _same_resolution("paired: a second run", again, pr)
+    path["calls"] = kept.calls
+
+    # rescue at scale: unmap the R2 mates of the first N_KILL pairs that
+    # resolved right and whose R2 aligned within the rescue's threshold
+    # (distance <= eth).  A wrong anchor (a read of a repeat placed on
+    # its other copy) has no true mate window, and a mate of distance
+    # past eth is refused by the rescue by design, in both packages.
+    rescuable = right & (res2.distance <= ETH)
+    kill = np.flatnonzero(rescuable)[:N_KILL]
+    res2.mapped[kill] = False
+    res2.position[kill] = -1
+    ops.reset_launch_counts()
+    with KernelInputs() as kept:
+        t1 = time.perf_counter()
+        prk = pairing.resolve_pairs(res1, res2, cfg=cfg, ref=ref_dev,
+                                    device=mapper.device, **reads)
+        dt = time.perf_counter() - t1
+    launches = dict(ops.LAUNCHES)
+    calls = kept.calls["affine_wf_dist"]
+    rows = [c[0].shape[0] for c in calls]
+    if not launches["affine_wf_dist"] or any(
+            launches[k] for k in MAPPER_KERNELS if k != "affine_wf_dist"):
+        raise AssertionError(f"rescue launched {launches}")
+    if not (prk.rescued2[kill].all() and not prk.rescued2[junk].any()
+            and (prk.res2.strand[kill] == ps.strand2[kill]).all()
+            and (np.abs(prk.res2.position[kill] - ps.pos2[kill])
+                 <= 2).all()):
+        raise AssertionError("rescue: a killed mate was not rescued on its "
+                             "strand within 2 bases, or junk was rescued")
+    if (prk.mapq2[kill] > np.minimum(prk.mapq1[kill],
+                                     pairing._RESCUE_CAP)).any():
+        raise AssertionError("rescue: a rescued mate's MAPQ exceeds its "
+                             "anchor's or the cap")
+    err = max(_compare(f"affine_wf_dist on the rescue's {r:,} rows",
+                       ops.affine_wf_dist(s1, s2, eth=ETH, sat=SAT),
+                       banded_affine_dist(s1, s2, eth=ETH, sat=SAT))
+              for (s1, s2, _), r in zip(calls, rows))
+    s1, s2, _ = calls[int(np.argmax(rows))]
+    ms = cuda_ms(lambda: ops.affine_wf_dist(s1, s2, eth=ETH, sat=SAT), 20, 3)
+    plain_ms = cuda_ms(lambda: banded_affine_dist(s1, s2, eth=ETH, sat=SAT),
+                       1, 1)
+    b_ms, b_by = bound("affine_wf_dist", s1.shape[0], N, ETH, MAX_OPS)
+    rescue = dict(rows=rows, launches=launches["affine_wf_dist"],
+                  wall_s=dt, rescued=prk.stats["n_rescued"],
+                  max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                  bound_by=b_by)
+    log(f"rescue: {N_KILL} killed R2 mates all rescued (within 2 bases, "
+        f"right strand, MAPQ capped; of the {int(right.sum()):,} pairs "
+        f"resolved right, {int((right & ~rescuable).sum())} have an R2 "
+        f"past the rescue's threshold), {prk.stats['n_rescued']} rescued "
+        f"in all, no junk; resolve_pairs {dt:.3f} s wall; affine_wf_dist "
+        f"launched {launches['affine_wf_dist']} times on {rows} rows "
+        f"(pow-2 buckets), bit-identical to its plain version; "
+        f"{ms:.4f} ms on the {s1.shape[0]:,} rows, plain {plain_ms:.2f} "
+        f"ms, bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound")
+    f1, f2 = (split_result(r, CHUNK)[0] for r in (res1, res2))
+    first = dict(reads1=ps.reads1[:CHUNK], reads2=ps.reads2[:CHUNK])
+    want = pairing.resolve_pairs(f1, f2, cfg=cfg, ref=ref_dev,
+                                 device=mapper.device, **first)
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    got = pairing.resolve_pairs(
+        f1, f2, cfg=dataclasses.replace(cfg, wf_backend="torch"),
+        ref=ref_dev, device=mapper.device, **first)
+    dt = time.perf_counter() - t1
+    if any(ops.LAUNCHES[k] for k in MAPPER_KERNELS):
+        raise AssertionError(f"resolve_pairs on wf_backend torch launched "
+                             f"{ops.LAUNCHES}")
+    _same_resolution("resolve_pairs on wf_backend torch", got, want)
+    if not want.stats["n_rescued"]:
+        raise AssertionError("the first chunk rescued no mate")
+    log(f"resolve_pairs on the first {CHUNK:,} pairs, wf_backend torch: no "
+        f"kernel launched, {dt:.3f} s, the same PairResolution as the "
+        f"kernel route ({want.stats['n_rescued']} rescued)")
+    mapper.close()
+    del mapped, resolved, kept, calls, s1, s2
+
+    work = os.path.join(ROOT, "build", "chip_smoke_pairs")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        fa = os.path.join(work, "ref.fa")
+        r1, r2, c1, c2, ci = (os.path.join(work, f) for f in (
+            "r1.fq", "r2.fq", "c1.fq", "c2.fq", "ci.fq"))
+        t1 = time.perf_counter()
+        write_fasta(fa, [("chr1", ref)])
+        write_fastq_pair(r1, r2, ps)
+        head = dataclasses.replace(ps, **{
+            f.name: getattr(ps, f.name)[:CHUNK]
+            for f in dataclasses.fields(ps)})
+        write_fastq_pair(c1, c2, head)
+        write_fastq_pair(None, None, head, interleaved_path=ci)
+        log(f"paired map_fastq: wrote the reference as one contig and "
+            f"{N_PAIRS:,} pairs as R1/R2 files, the first {CHUNK:,} also "
+            f"interleaved, in {time.perf_counter() - t1:.2f} s")
+        out = os.path.join(work, "pairs.sam")
+        dt, err, launches, n_build = _map_fastq_run(
+            [fa, "--r1", r1, "--r2", r2, "-o", out, "--chunk-reads",
+             str(CHUNK)], "--r1 --r2")
+        # a FASTQ chunk of CHUNK pairs is two engine chunks of reads
+        _check_launches("map_fastq --r1 --r2", "compacted", launches,
+                        minimizer=n_build + 2 * -(-N_PAIRS // CHUNK),
+                        also=("affine_wf_dist",))
+        done = [ln for ln in err.splitlines() if ln.startswith("done:")][0]
+        m = re.search(r"; (\d+) reads/s mapping", done)
+        with open(out) as f:
+            text = f.read()
+        body = [ln for ln in text.splitlines() if not ln.startswith("@PG")]
+        stats = validate_sam(text, expect_reads=2 * N_PAIRS,
+                             require_mapq=True)
+        acc = _sam_pair_accuracy(text, ps, keep)
+        log(f"map_fastq --r1 --r2: {dt:.2f} s wall = "
+            f"{2 * N_PAIRS / dt:,.0f} reads/s with the FASTA load and "
+            f"index build, {int(m.group(1)):,} reads/s mapping, pairing "
+            f"and SAM without them; validate_sam passed "
+            f"({stats['n_mapped']:,} mapped, {stats['n_proper']:,} proper "
+            f"records); accuracy from the SAM {acc:.5f}; launches "
+            f"{launches}, minimizer_scan {n_build} of them in the index "
+            f"build")
+        log(f"  {done}")
+        log("  " + [ln for ln in err.splitlines()
+                    if ln.startswith("pairing:")][0])
+        if acc < PAIR_ACCURACY_BAR:
+            raise AssertionError(f"map_fastq --r1 --r2: accuracy {acc} "
+                                 f"below {PAIR_ACCURACY_BAR}")
+        n_head = sum(ln.startswith("@") for ln in body)
+        for what, inputs, engine, kernels in (
+                ("--engine fused", ["--r1", c1, "--r2", c2, "--engine",
+                                    "fused"], "fused", True),
+                ("--engine padded", ["--r1", c1, "--r2", c2, "--engine",
+                                     "padded"], "padded", True),
+                ("--interleaved", [ci, "--interleaved"], "compacted", True),
+                ("--wf-backend torch", ["--r1", c1, "--r2", c2,
+                                        "--wf-backend", "torch"], None,
+                 False)):
+            out = os.path.join(work, "first.sam")
+            dt, _, launches, n_build = _map_fastq_run(
+                [fa, *inputs, "-o", out, "--chunk-reads", str(CHUNK)],
+                what, kernels=kernels)
+            if kernels:
+                _check_launches(f"map_fastq {what}", engine, launches,
+                                minimizer=n_build + (1 if engine == "padded"
+                                                     else 2),
+                                also=("affine_wf_dist",))
+            elif any(launches[name] for name in MAPPER_KERNELS):
+                raise AssertionError(f"map_fastq {what} launched kernels: "
+                                     f"{launches}")
+            with open(out) as f:
+                got = [ln for ln in f.read().splitlines()
+                       if not ln.startswith("@PG")]
+            if got != body[: n_head + 2 * CHUNK]:
+                raise AssertionError(f"map_fastq {what}: its SAM differs "
+                                     f"from the first chunk of --r1 --r2's")
+            log(f"map_fastq {what} on the first {CHUNK:,} pairs: "
+                f"{dt:.2f} s wall (index build included); its SAM equals "
+                f"the header and first {2 * CHUNK:,} records of --r1 "
+                f"--r2's apart from @PG; launches {launches}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return path, rescue
 
 
 def _minimizer_row(runs, generated):
@@ -2060,7 +2382,10 @@ def main() -> int:
     phase_done("6 minimizer scan")
     phase_map_fastq(ref, rs)
     phase_done("7 map_fastq")
+    runs["paired"], rescue = phase_paired(idx, ref)
+    phase_done("7b paired-end")
     rows = phase_mainpath_kernels(runs, generated)
+    rows["affine_wf_dist"]["rescue"] = rescue
     del runs, compacted                     # the kept kernel inputs
     phase_done("8 main-path kernels")
     timing = phase_flash_parity()

@@ -7,11 +7,13 @@
   ``Mapper.plan(spec)`` — the ``MappingPlan`` a run would execute (chunk
       sizes, lane-capacity ceilings) before anything runs.
   ``Mapper.run(plan, reads)`` / ``Mapper.map(reads)`` / ``map_async``.
+  ``Mapper.map_pairs(reads1, reads2)`` — both mates in one stacked batch
+      (pair resolution: ``core.pairing``).
 
 The session runs on the CUDA card unless ``device`` names another
 device; with no GPU and no device given it raises.  Not ported yet: the
-mesh topology, sharded indexes, paired-end mapping, the serving batcher
-and the observability hooks.
+mesh topology, sharded indexes, the serving batcher and the
+observability hooks.
 """
 from __future__ import annotations
 
@@ -288,8 +290,24 @@ class Mapper:
         reads = np.asarray(reads)
         return self.run(self.plan(len(reads)), reads)
 
-    def map_pairs(self, reads1, reads2):
-        raise _not_ported("Mapper.map_pairs", "6")
+    def map_pairs(self, reads1: np.ndarray, reads2: np.ndarray,
+                  ) -> tuple[MappingResult, MappingResult]:
+        """Map both mates of a paired batch in ONE stacked engine batch.
+
+        ``reads1[i]`` and ``reads2[i]`` are the R1/R2 mates of pair
+        ``i``, each in as-sequenced orientation (both_strands handles
+        orientation per mate).  The stack shares a single plan — same
+        chunking, same capacities, one strand reduce — and is split back
+        into per-mate results, so pairing never forks the execution
+        path.  Pair resolution (proper pairs, rescue, MAPQ) lives in
+        ``repro_torch.core.pairing``.
+        """
+        reads1, reads2 = np.asarray(reads1), np.asarray(reads2)
+        if reads1.shape != reads2.shape:
+            raise ValueError(f"mate batches must align pairwise: "
+                             f"{reads1.shape} vs {reads2.shape}")
+        res = self.map(np.concatenate([reads1, reads2]))
+        return split_result(res, len(reads1))
 
     def serve(self, *args, **kwargs):
         raise _not_ported("Mapper.serve", "8")

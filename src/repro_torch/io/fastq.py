@@ -1,5 +1,5 @@
-"""Streaming FASTQ ingestion in engine-shaped batches — the single-end
-part of ``repro.io.fastq``.
+"""Streaming FASTQ ingestion in engine-shaped batches — ``repro.io.fastq``
+without its fault-injection hook.
 
 The mapping engine wants fixed ``(chunk, read_len)`` uint8 blocks; a
 FASTQ file is a variable-length record stream.  ``FastqStream`` bridges
@@ -28,10 +28,20 @@ raw record is written to the ``rejects`` FASTQ (when given), counted in
 and parse bit-identically to the plain file; a truncated gzip stream
 raises a ``ValueError`` naming the failure (strict) or ends the stream
 as a counted rejection (permissive).
+
+``PairedFastqStream`` is the paired-end entry: two R1/R2 files (or one
+interleaved file) iterated in lockstep as ``(chunk1, chunk2)`` pairs,
+with mate names cross-checked (``/1``/``/2`` suffixes stripped) and the
+length policy applied *per pair* — if either mate is too short the whole
+pair is skipped, so the two chunks stay index-aligned mate-for-mate.
+Under ``permissive`` a mid-stream mate-name desync re-pairs via a
+one-record lookahead (the orphaned mate is quarantined) and an unpaired
+tail becomes a counted rejection instead of an exception.
 """
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Iterator
 
 import numpy as np
@@ -41,6 +51,20 @@ from ..core.encoding import encode_str
 DEFAULT_CHUNK_READS = 1024
 
 ON_ERROR = ("strict", "permissive")
+
+# trailing mate designator: read7/1, read7/2.  ONLY the '/1'-'/2'
+# convention is stripped — '.1'/'_1' are real name parts in the wild
+# (SRA spot names are 'SRR123.1', 'SRR123.2', ... for *different*
+# templates; stripping those would conflate them into one QNAME)
+_MATE_SUFFIX_RE = re.compile(r"/[12]$")
+
+
+def mate_base_name(name: str) -> str:
+    """QNAME with a trailing ``/1``/``/2`` mate designator stripped —
+    the canonical template name both mates must share (and the QNAME the
+    SAM spec wants: identical for both records of a pair)."""
+    return _MATE_SUFFIX_RE.sub("", name)
+
 
 
 class FastqParseError(ValueError):
@@ -191,6 +215,12 @@ class FastqStream:
         if self._rec_lines and self._rec_lines[-1] is line:
             self._rec_lines.pop()
 
+    def push_back_record(self, rec, lines) -> None:
+        """Un-consume a record (the paired stream's desync lookahead)."""
+        if self._peeked is not None:
+            raise RuntimeError("only one record of pushback is supported")
+        self._peeked = (rec, list(lines))
+
     # ----------------------------------------------------------- parsing
 
     def _next_record(self):
@@ -314,8 +344,8 @@ def parse_fastq(path_or_handle, read_len: int | None = None,
 
 class _ChunkBuilder:
     """Accumulates records into one ReadChunk: the one home of the
-    per-record encoding policy (a paired stream's two mates will share
-    it too)."""
+    per-record encoding policy (shared by the two mates of
+    ``PairedFastqStream`` so their policy cannot drift)."""
 
     def __init__(self, read_len: int):
         self.rl = read_len
@@ -337,3 +367,165 @@ class _ChunkBuilder:
                           np.stack(self.quals), self.seqs)
         self.names, self.reads, self.quals, self.seqs = [], [], [], []
         return chunk
+
+
+class PairedFastqStream:
+    """Iterate paired-end FASTQ as lockstep ``(chunk1, chunk2)`` batches.
+
+    Two source layouts:
+
+    * two files — ``PairedFastqStream(r1_path, r2_path)``: record *i* of
+      R1 pairs with record *i* of R2;
+    * interleaved — ``PairedFastqStream(path, interleaved=True)``:
+      records ``2i``/``2i+1`` are the R1/R2 mates of pair *i*.
+
+    Both mates must share a template name once the ``/1``/``/2``-style
+    suffix is stripped (``mate_base_name``); a mismatch or a mate count
+    imbalance raises instead of silently re-pairing.  The fixed-length
+    policy is applied per *pair*: if either mate is shorter than
+    ``read_len`` the whole pair is skipped (``n_skipped`` counts pairs),
+    so ``chunk1[i]`` and ``chunk2[i]`` are always mates.  ``names`` on
+    the emitted chunks carry the shared template name — exactly the SAM
+    QNAME both records of the pair must use.
+
+    ``on_error="permissive"`` extends the per-record quarantine policy
+    (see ``FastqStream``) with pair-level recovery: on a mate-name
+    desync, a one-record lookahead on each side re-pairs the streams and
+    quarantines the orphaned mate (reason ``mate_desync``); when it
+    cannot re-pair, both records are quarantined and lockstep continues.
+    An unpaired tail quarantines the surviving record (reason
+    ``unpaired_tail``) and ends the stream.  Both substreams share one
+    ``rejects`` sink.
+
+    ``.gz`` paths stream through gzip transparently on either layout.
+    """
+
+    def __init__(self, r1, r2=None, *, interleaved: bool = False,
+                 read_len: int | None = None,
+                 chunk_reads: int = DEFAULT_CHUNK_READS,
+                 on_error: str = "strict", rejects=None):
+        if interleaved and r2 is not None:
+            raise ValueError("interleaved=True takes a single source; "
+                             "r2 must be None")
+        if not interleaved and r2 is None:
+            raise ValueError("paired input needs r2 (or interleaved=True)")
+        if chunk_reads < 1:
+            raise ValueError(f"chunk_reads={chunk_reads!r} must be >= 1")
+        if on_error not in ON_ERROR:
+            raise ValueError(f"on_error={on_error!r}; expected one of "
+                             f"{ON_ERROR}")
+        self.interleaved = interleaved
+        self.chunk_reads = chunk_reads
+        self.on_error = on_error
+        self._sink = _RejectSink(rejects)
+        self._s1 = FastqStream(r1, read_len=read_len, chunk_reads=chunk_reads,
+                               on_error=on_error, rejects=self._sink)
+        self.read_len = self._s1.read_len
+        self._s2 = (self._s1 if interleaved else
+                    FastqStream(r2, read_len=self.read_len,
+                                chunk_reads=chunk_reads, on_error=on_error,
+                                rejects=self._sink))
+        self.n_pairs = 0      # pairs emitted (post length policy)
+        self.n_skipped = 0    # pairs dropped because a mate was short
+        self.n_truncated = 0  # mates longer than read_len (counted singly)
+        self.n_rejected_pairs = 0  # pair-level quarantines (permissive)
+        self.reject_reasons: dict[str, int] = {}
+
+    @property
+    def n_rejected(self) -> int:
+        """All quarantined records: per-record parse rejections on either
+        substream plus the pair-level desync/tail quarantines."""
+        n = self._s1.n_rejected + self.n_rejected_pairs
+        if not self.interleaved:
+            n += self._s2.n_rejected
+        return n
+
+    @property
+    def rejected_names(self) -> list[str]:
+        names = list(self._s1.rejected_names)
+        if not self.interleaved:
+            names += self._s2.rejected_names
+        return names
+
+    def _reject_pair(self, reason: str, *recs) -> None:
+        """Quarantine record(s) at the pair level: ``recs`` are
+        ``(stream, record, raw_lines)`` triples."""
+        self.n_rejected_pairs += 1
+        self.reject_reasons[reason] = \
+            self.reject_reasons.get(reason, 0) + 1
+        for stream, rec, lines in recs:
+            if rec is not None:
+                stream.rejected_names.append(rec[0])
+                self._sink.write(lines)
+
+    def _next_pair(self):
+        while True:
+            r1 = self._s1._next_record()
+            l1 = list(self._s1._rec_lines)
+            r2 = self._s2._next_record()
+            l2 = list(self._s2._rec_lines)
+            if r1 is None and r2 is None:
+                return None
+            if (r1 is None) != (r2 is None):
+                which = "R1" if r1 is None else "R2"
+                if self.on_error == "permissive":
+                    # quarantine the survivor; the stream is over
+                    alive = ((self._s2, r2, l2) if r1 is None
+                             else (self._s1, r1, l1))
+                    self._reject_pair("unpaired_tail", alive)
+                    return None
+                raise ValueError(f"unpaired FASTQ input: {which} ended "
+                                 f"before its mate stream")
+            b1, b2 = mate_base_name(r1[0]), mate_base_name(r2[0])
+            if b1 == b2:
+                return b1, r1, r2
+            if self.on_error == "strict":
+                raise ValueError(f"mate name mismatch: {r1[0]!r} vs "
+                                 f"{r2[0]!r} (template {b1!r} != {b2!r})")
+            # permissive desync recovery: one-record lookahead per side —
+            # if the *next* R1 pairs with this R2, the current R1 is an
+            # orphan (and vice versa); otherwise drop both and move on
+            n1 = self._s1._next_record()
+            ln1 = list(self._s1._rec_lines)
+            if n1 is not None and mate_base_name(n1[0]) == b2:
+                self._reject_pair("mate_desync", (self._s1, r1, l1))
+                return b2, n1, r2
+            if n1 is not None:
+                self._s1.push_back_record(n1, ln1)
+            n2 = self._s2._next_record()
+            ln2 = list(self._s2._rec_lines)
+            if n2 is not None and mate_base_name(n2[0]) == b1:
+                self._reject_pair("mate_desync", (self._s2, r2, l2))
+                return b1, r1, n2
+            if n2 is not None:
+                self._s2.push_back_record(n2, ln2)
+            self._reject_pair("mate_desync", (self._s1, r1, l1),
+                              (self._s2, r2, l2))
+
+    def __iter__(self) -> Iterator[tuple[ReadChunk, ReadChunk]]:
+        rl = self.read_len
+        c1, c2 = _ChunkBuilder(rl), _ChunkBuilder(rl)
+        try:
+            while True:
+                pair = self._next_pair()
+                if pair is None:
+                    break
+                base, (_, s1, q1), (_, s2, q2) = pair
+                if len(s1) < rl or len(s2) < rl:
+                    self.n_skipped += 1  # pair integrity: drop both mates
+                    continue
+                self.n_truncated += (len(s1) > rl) + (len(s2) > rl)
+                c1.add(base, s1, q1)
+                c2.add(base, s2, q2)
+                if len(c1) == self.chunk_reads:
+                    self.n_pairs += len(c1)
+                    yield c1.emit(), c2.emit()
+            if len(c1):
+                self.n_pairs += len(c1)
+                yield c1.emit(), c2.emit()
+        finally:
+            if self._s1._owned:
+                self._s1._f.close()
+            if not self.interleaved and self._s2._owned:
+                self._s2._f.close()
+            self._sink.close()

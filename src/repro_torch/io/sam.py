@@ -1,10 +1,11 @@
-"""Spec-valid SAM emission + a dependency-free validator — the
-single-end part of ``repro.io.sam``, with its validator copied whole.
+"""Spec-valid SAM emission + a dependency-free validator — a copy of
+``repro.io.sam``.
 
 Only what the mapper actually produces is emitted, precisely:
 
-* FLAG uses 0x4 (unmapped) and 0x10 (reverse strand) — single-end, so
-  no pairing bits;
+* FLAG uses 0x4 (unmapped) and 0x10 (reverse strand) on single-end
+  records; paired records (``emit_paired_alignments``) add the pairing
+  bits 0x1/0x2/0x8/0x20/0x40/0x80;
 * POS is the 1-based, contig-local leftmost position (the mapper's
   global concatenated position goes through ``fasta.ReferenceMap``);
 * CIGAR comes from the affine-WF traceback via ``cigar.cigar_from_ops``
@@ -91,7 +92,8 @@ def _mapped_fields(result, i: int, reads, quals, seqs,
     """Placement + sequence fields of one *mapped* record: ``(contig,
     local_pos0, cigar, seq, qual_str, rev)``.  The single place where the
     edge-deletion CIGAR normalization, the post-shift contig resolution,
-    and the alignment-orientation SEQ/QUAL flips happen."""
+    and the alignment-orientation SEQ/QUAL flips happen — shared by the
+    single-end and paired emitters so their records cannot drift."""
     strand = result.strand
     rev = bool(strand[i]) if strand is not None else False
     cig, shift = "*", 0
@@ -136,6 +138,90 @@ def emit_alignments(result, names: list[str], reads: np.ndarray,
         yield sam_record(name, FLAG_REVERSE if rev else 0, contig.name,
                          local + 1, MAPQ_UNAVAILABLE, cig, seq,
                          qual, nm=int(result.distance[i]))
+
+
+def emit_paired_alignments(pairs, names: list[str],
+                           reads1, quals1, reads2, quals2,
+                           refmap: ReferenceMap, *,
+                           seqs1: list[str] | None = None,
+                           seqs2: list[str] | None = None) -> Iterator[str]:
+    """PairResolution batch -> interleaved R1/R2 SAM record lines.
+
+    ``pairs`` is a ``repro_torch.core.pairing.PairResolution``; ``names``
+    are the shared template QNAMEs (``PairedFastqStream`` chunk names).  Per
+    pair the two records carry the full FLAG pairing algebra (0x1
+    always; 0x40/0x80 mate identity; 0x2 on proper pairs; 0x8/0x20
+    mirroring the mate's state), RNEXT ``=``/contig/``*``, PNEXT, and
+    symmetric TLEN (leftmost mate positive; ties broken toward R1), plus
+    the calibrated MAPQ from the pair resolution.  Unmapped mates keep
+    the validator's unmapped shape (RNAME ``*``, POS 0, CIGAR ``*``) but
+    still point RNEXT/PNEXT at a mapped mate's locus.
+    """
+    res = (pairs.res1, pairs.res2)
+    reads = (reads1, reads2)
+    quals = (quals1, quals2)
+    seqs = (seqs1, seqs2)
+    mapqs = (pairs.mapq1, pairs.mapq2)
+    mate_flag = (FLAG_READ1, FLAG_READ2)
+    for i, name in enumerate(names):
+        mapped = [bool(res[m].mapped[i]) for m in (0, 1)]
+        fields = [
+            _mapped_fields(res[m], i, reads[m], quals[m], seqs[m], refmap)
+            if mapped[m] else None
+            for m in (0, 1)]
+        proper = bool(pairs.proper[i])
+        # reference footprint per mate (for TLEN): CIGAR when present,
+        # read length otherwise (the mesh path's CIGAR-less records)
+        span = [None, None]
+        for m in (0, 1):
+            if mapped[m]:
+                contig, local, cig, _, _, _ = fields[m]
+                ref_len = (cigar_ref_len(cig) if cig != "*"
+                           else np.asarray(reads[m]).shape[1])
+                span[m] = (contig, local, local + ref_len)
+        tlen = [0, 0]
+        if mapped[0] and mapped[1] and span[0][0] is span[1][0]:
+            lo = min(span[0][1], span[1][1])
+            hi = max(span[0][2], span[1][2])
+            if (span[0][1], 0) <= (span[1][1], 1):  # ties: R1 leftmost
+                tlen = [hi - lo, lo - hi]
+            else:
+                tlen = [lo - hi, hi - lo]
+        for m in (0, 1):
+            o = 1 - m
+            flag = FLAG_PAIRED | mate_flag[m]
+            if proper:
+                flag |= FLAG_PROPER
+            if not mapped[m]:
+                flag |= FLAG_UNMAPPED
+            if not mapped[o]:
+                flag |= FLAG_MATE_UNMAPPED
+            if mapped[o] and fields[o][5]:
+                flag |= FLAG_MATE_REVERSE
+            if not mapped[m]:
+                seq = (seqs[m][i] if seqs[m] is not None
+                       else decode_to_str(reads[m][i]))
+                rnext, pnext = "*", 0
+                if mapped[o]:  # point at the mate so the pair stays
+                    #            co-locatable in sorted output
+                    rnext = fields[o][0].name
+                    pnext = fields[o][1] + 1
+                yield sam_record(name, flag, "*", 0, 0, "*", seq,
+                                 _qual_str(quals[m][i]), rnext=rnext,
+                                 pnext=pnext, tlen=0)
+                continue
+            contig, local, cig, seq, qual, rev = fields[m]
+            if rev:
+                flag |= FLAG_REVERSE
+            rnext, pnext = "*", 0
+            if mapped[o]:
+                o_contig, o_local = fields[o][0], fields[o][1]
+                rnext = "=" if o_contig is contig else o_contig.name
+                pnext = o_local + 1
+            yield sam_record(name, flag, contig.name, local + 1,
+                             int(mapqs[m][i]), cig, seq, qual,
+                             rnext=rnext, pnext=pnext, tlen=tlen[m],
+                             nm=int(res[m].distance[i]))
 
 
 def write_sam(handle, header_lines: Iterable[str],

@@ -1,10 +1,14 @@
 """FASTA + FASTQ -> SAM, end-to-end over the ``Mapper`` session — the
-single-end, single-topology part of ``repro.launch.map_fastq``.
+single-topology part of ``repro.launch.map_fastq``.
 
     PYTHONPATH=src python -m repro_torch.launch.map_fastq ref.fa reads.fq \
         -o out.sam                      # on the CUDA card
     PYTHONPATH=src python -m repro_torch.launch.map_fastq ref.fa reads.fq \
         -o out.sam --device cpu         # kernels' plain versions on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.map_fastq ref.fa \
+        --r1 reads_R1.fastq.gz --r2 reads_R2.fastq.gz -o out.sam
+    PYTHONPATH=src python -m repro_torch.launch.map_fastq ref.fa pairs.fq \
+        --interleaved -o out.sam
 
 A (multi-contig) FASTA reference is indexed in memory, FASTQ reads
 stream through the session in ``--chunk-reads`` batches — each chunk
@@ -12,6 +16,11 @@ mapped on **both strands** (``--single-strand`` disables) on the
 ``--engine compacted|fused|padded`` — and spec-valid SAM comes out, line
 for line the reference's apart from ``@PG``.  Plain and ``.gz`` FASTQ
 parse identically.  Single-end records carry FLAG 0x4/0x10 and MAPQ 255.
+Paired-end input (``--r1``/``--r2`` or ``--interleaved``) maps both
+mates of every pair in one stacked batch, resolves proper pairs (FR
+orientation, insert window from a running median, mate rescue on the
+mapper's device — see ``repro_torch.core.pairing``) and emits the full
+pairing FLAGs, RNEXT/PNEXT/TLEN and calibrated MAPQ.
 
 The command line is the reference's, with these differences:
 
@@ -24,8 +33,9 @@ The command line is the reference's, with these differences:
   ``ROADMAP.md`` item;
 * ``--on-error permissive`` quarantines malformed FASTQ records exactly
   as the reference's parser does, but does not wrap the session in the
-  reference's ``ResilientMapper`` (not ported): a healthy run writes the
-  same SAM, and an engine fault fails the run.
+  reference's ``ResilientMapper`` (not ported), on single-end and paired
+  input alike: a healthy run writes the same SAM, and an engine fault
+  fails the run.
 
 Progress and the closing stats lines go to stderr, so ``-o -`` pipes
 clean SAM to stdout.  ``main(argv)`` runs in-process.
@@ -44,9 +54,6 @@ _NOT_PORTED = {
     "--index-dir": (dict(default=None), 7),
     "--index-budget-mb": (dict(type=float, default=None), 7),
     "--prefetch": (dict(action="store_true"), 7),
-    "--r1": (dict(default=None), 6),
-    "--r2": (dict(default=None), 6),
-    "--interleaved": (dict(action="store_true"), 6),
     "--shards": (dict(type=int, default=None), 9),
     "--inject": (dict(default=None), 8),
     "--watchdog": (dict(type=float, default=None), 8),
@@ -72,6 +79,33 @@ def _refuse_not_ported(ap: argparse.ArgumentParser, args) -> None:
                          "repro_torch yet (ROADMAP.md, Queue 1 item 9)")
 
 
+def _open_stream(args):
+    """Build the FASTQ stream per input layout -> (stream, paired)."""
+    from ..io.fastq import FastqStream, PairedFastqStream
+
+    kw = dict(read_len=args.read_len, chunk_reads=args.chunk_reads,
+              on_error=args.on_error, rejects=args.rejects)
+    if args.r2 is not None and args.r1 is None:
+        raise SystemExit("map_fastq: --r2 needs --r1")
+    if args.r1 is not None:
+        if args.reads is not None:
+            raise SystemExit("map_fastq: pass either a positional FASTQ or "
+                             "--r1/--r2, not both")
+        if args.r2 is None:
+            raise SystemExit("map_fastq: --r1 needs --r2 (or use "
+                             "--interleaved with a single file)")
+        if args.interleaved:
+            raise SystemExit("map_fastq: --interleaved takes a single "
+                             "positional FASTQ, not --r1/--r2")
+        return PairedFastqStream(args.r1, args.r2, **kw), True
+    if args.reads is None:
+        raise SystemExit("map_fastq: no reads given (positional FASTQ or "
+                         "--r1/--r2)")
+    if args.interleaved:
+        return PairedFastqStream(args.reads, interleaved=True, **kw), True
+    return FastqStream(args.reads, **kw), False
+
+
 def _print_mapper_stats(mapper, totals: dict, file=None) -> None:
     """Closing stats lines of a single-topology run (the single-topology
     part of ``repro.launch.serve._print_mapper_stats``): the unified
@@ -94,19 +128,19 @@ def _print_mapper_stats(mapper, totals: dict, file=None) -> None:
 
 
 def run(args) -> int:
+    import torch
+
     from ..core.device import resolve_device
     from ..core.index import build_index
     from ..core.mapper import Mapper, accumulate_stats, check_card_geometry
+    from ..core.pairing import InsertSizeTracker, resolve_pairs
     from ..core.pipeline import MapperConfig
     from ..io.fasta import ReferenceMap, load_reference
-    from ..io.fastq import FastqStream
-    from ..io.sam import emit_alignments, sam_header
+    from ..io.sam import emit_alignments, emit_paired_alignments, sam_header
 
     t0 = time.perf_counter()
     device = resolve_device(args.device)   # no GPU and no --device: raise
-    stream = FastqStream(args.reads, read_len=args.read_len,
-                         chunk_reads=args.chunk_reads,
-                         on_error=args.on_error, rejects=args.rejects)
+    stream, paired = _open_stream(args)
     rl = stream.read_len
     cfg = MapperConfig(
         read_len=rl, k=args.k, w=args.w, eth=args.eth, engine=args.engine,
@@ -124,9 +158,11 @@ def run(args) -> int:
     idx = build_index(ref, read_len=rl, k=args.k, w=args.w, eth=args.eth,
                       device=device, backend=args.wf_backend)
     mapper = Mapper(idx, cfg, device=device)
+    # mate rescue reads the genome: on the device once a run
+    ref_dev = torch.from_numpy(ref).to(device) if paired else None
     _say(f"map_fastq: {len(contigs)} contig(s), {len(ref)} indexed bases "
          f"(in-memory index), read_len={rl}, topology={mapper.topology}, "
-         f"paired=False, both_strands={cfg.both_strands}, "
+         f"paired={paired}, both_strands={cfg.both_strands}, "
          f"engine={cfg.engine}, wf_backend={cfg.wf_backend}, "
          f"device={mapper.device}")
 
@@ -138,24 +174,56 @@ def run(args) -> int:
     out = sys.stdout if partial is None else open(partial, "w")
     totals = dict(reads=0, mapped=0, reverse_best=0, survivors=0,
                   affine_instances=0, padded_affine_instances=0,
-                  dropped_send=0, dropped_affine=0)
+                  dropped_send=0, dropped_affine=0,
+                  pairs=0, proper=0, rescued=0)
     saw_stats = False
     t_map = None
+    tracker = InsertSizeTracker()
+    contig_starts = [c.offset for c in contigs]
     try:
         for line in sam_header(contigs, command_line=args.command_line):
             out.write(line + "\n")
         t_map = time.perf_counter()
         for i, chunk in enumerate(stream):
-            res = mapper.map(chunk.reads)
-            for rec in emit_alignments(res, chunk.names, chunk.reads,
-                                       chunk.quals, refmap, seqs=chunk.seqs):
-                out.write(rec + "\n")
-            n_new = len(chunk)
-            n_mapped = int(res.mapped.sum())
-            if res.strand is not None:  # from the result, not stats: the
-                #                         padded engine has stats=None
-                totals["reverse_best"] += int((res.strand
-                                               & res.mapped).sum())
+            if paired:
+                c1, c2 = chunk
+                res1, res2 = mapper.map_pairs(c1.reads, c2.reads)
+                pr = resolve_pairs(res1, res2, cfg=cfg, tracker=tracker,
+                                   ref=ref_dev, reads1=c1.reads,
+                                   reads2=c2.reads,
+                                   contig_starts=contig_starts,
+                                   device=device)
+                for rec in emit_paired_alignments(
+                        pr, c1.names, c1.reads, c1.quals, c2.reads,
+                        c2.quals, refmap, seqs1=c1.seqs, seqs2=c2.seqs):
+                    out.write(rec + "\n")
+                n_new = 2 * len(c1)
+                n_mapped = int(pr.res1.mapped.sum() + pr.res2.mapped.sum())
+                res = res1  # stats object is shared by both halves
+                for r in (pr.res1, pr.res2):
+                    if r.strand is not None:
+                        totals["reverse_best"] += int((r.strand
+                                                       & r.mapped).sum())
+                totals["pairs"] += pr.stats["n_pairs"]
+                totals["proper"] += pr.stats["n_proper"]
+                totals["rescued"] += pr.stats["n_rescued"]
+                extra = (f", proper {pr.stats['n_proper']}/"
+                         f"{pr.stats['n_pairs']} "
+                         f"(insert median {pr.stats['insert_median']})")
+            else:
+                res = mapper.map(chunk.reads)
+                for rec in emit_alignments(res, chunk.names, chunk.reads,
+                                           chunk.quals, refmap,
+                                           seqs=chunk.seqs):
+                    out.write(rec + "\n")
+                n_new = len(chunk)
+                n_mapped = int(res.mapped.sum())
+                # from the result, not stats: the padded engine has
+                # stats=None
+                if res.strand is not None:
+                    totals["reverse_best"] += int((res.strand
+                                                   & res.mapped).sum())
+                extra = ""
             totals["reads"] += n_new
             totals["mapped"] += n_mapped
             if res.stats is not None:
@@ -168,7 +236,8 @@ def run(args) -> int:
             rate = totals["reads"] / max(time.perf_counter() - t_map, 1e-9)
             _say(f"chunk {i}: {n_new} reads, "
                  f"mapped {n_mapped / max(n_new, 1):.3f} "
-                 f"(cumulative {totals['reads']} reads, {rate:.0f} reads/s)")
+                 f"(cumulative {totals['reads']} reads, {rate:.0f} reads/s)"
+                 f"{extra}")
         complete = True
     except BaseException:
         complete = False
@@ -195,9 +264,21 @@ def run(args) -> int:
          f"mapping and SAM), mapped {totals['mapped']} "
          f"({totals['reverse_best']} reverse-strand){skipped}")
     if stream.n_rejected:
+        reasons = dict(stream.reject_reasons)
+        subs = {id(s): s for s in (getattr(stream, "_s1", None),
+                                   getattr(stream, "_s2", None))
+                if s is not None}
+        for s in subs.values():  # paired: fold in both mates' counts once
+            for k, v in s.reject_reasons.items():
+                reasons[k] = reasons.get(k, 0) + v
         where = f" -> {args.rejects}" if args.rejects else ""
         _say(f"quarantined: {stream.n_rejected} malformed record(s) "
-             f"{dict(stream.reject_reasons)}{where}")
+             f"{reasons}{where}")
+    if paired:
+        lo, hi = tracker.window()
+        _say(f"pairing: {totals['proper']}/{totals['pairs']} proper, "
+             f"{totals['rescued']} rescued, insert median "
+             f"{tracker.median} window [{lo}, {hi}]")
     if saw_stats:
         _print_mapper_stats(mapper, totals, file=sys.stderr)
     else:  # padded reference engine: no instance accounting to report
@@ -215,7 +296,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="FASTA reference (multi-contig ok; N -> "
                          "never-matching sentinel)")
     ap.add_argument("reads", nargs="?", default=None,
-                    help="FASTQ reads (4-line records; .gz ok), single-end")
+                    help="FASTQ reads (4-line records; .gz ok) — "
+                         "single-end, or interleaved pairs with "
+                         "--interleaved")
+    ap.add_argument("--r1", default=None,
+                    help="paired-end R1 FASTQ (.gz ok); requires --r2")
+    ap.add_argument("--r2", default=None,
+                    help="paired-end R2 FASTQ (.gz ok)")
+    ap.add_argument("--interleaved", action="store_true",
+                    help="the positional FASTQ holds interleaved R1/R2 "
+                         "records")
     ap.add_argument("-o", "--output", default="-",
                     help="output SAM path ('-' = stdout; progress goes to "
                          "stderr either way)")
@@ -261,9 +351,9 @@ def main(argv=None) -> int:
         sys.argv if argv is None else ["repro_torch.launch.map_fastq",
                                        *argv])
     _refuse_not_ported(ap, args)
-    if args.reference is None or args.reads is None:
-        raise SystemExit("map_fastq: a FASTA reference and a FASTQ read "
-                         "file (positional) are required")
+    if args.reference is None:
+        raise SystemExit("map_fastq: a FASTA reference (positional) is "
+                         "required")
     try:
         return run(args)
     except BrokenPipeError:

@@ -27,7 +27,7 @@ print("LOADED", bad)
 
 @pytest.mark.parametrize("modules", [
     ("repro_torch", "repro_torch.core", "repro_torch.core.mapper",
-     "repro_torch.kernels.ops", "repro_torch.kernels.build",
+     "repro_torch.core.pairing", "repro_torch.kernels.ops", "repro_torch.kernels.build",
      "repro_torch.io.cigar", "repro_torch.io.fasta", "repro_torch.io.fastq",
      "repro_torch.io.sam", "repro_torch.data.genome",
      "repro_torch.launch.map_fastq"),

@@ -145,3 +145,110 @@ def test_sam_header_and_record_match():
     assert got[-1] == want[-1].replace("repro.launch", "repro_torch.launch")
     args = ("q", 16, "chr1", 5, 255, "4=", "ACGT", "IIII")
     assert tsam.sam_record(*args, nm=0) == jsam.sam_record(*args, nm=0)
+
+
+# ---------------------------------------------------------------- paired
+
+def test_mate_base_name_matches():
+    for name in ("p7/1", "p7/2", "plain", "x/12", "SRR123.1", "SRR123_2",
+                 "a/3", "/1"):
+        assert tfastq.mate_base_name(name) == jfastq.mate_base_name(name)
+
+
+def _fq(records) -> str:
+    return "".join(f"@{n}\n{s}\n+\n{q}\n" for n, s, q in records)
+
+
+def _rec(name, seq="ACGTACGT"):
+    return (name, seq, "I" * len(seq))
+
+
+def _two(d, recs1, recs2, tail2=""):
+    (d / "r1.fq").write_text(_fq(recs1))
+    (d / "r2.fq").write_text(_fq(recs2) + tail2)
+    return (str(d / "r1.fq"), str(d / "r2.fq")), dict(read_len=8)
+
+
+def _gz_world(d, interleaved):
+    ps = tgen.sample_pairs(tgen.make_reference(8000, seed=31), 21,
+                           read_len=80, insert_mean=220, insert_sd=20,
+                           seed=32)
+    if interleaved:
+        tgen.write_fastq_pair(None, None, ps,
+                              interleaved_path=str(d / "inter.fastq.gz"))
+        return (str(d / "inter.fastq.gz"),), dict(interleaved=True,
+                                                  chunk_reads=16)
+    tgen.write_fastq_pair(str(d / "r1.fastq.gz"), str(d / "r2.fastq.gz"), ps)
+    return (str(d / "r1.fastq.gz"), str(d / "r2.fastq.gz")), dict(
+        chunk_reads=8)
+
+
+# the paired cases of the reference's gzip and ingestion-fault tests:
+# name -> (files, PairedFastqStream keywords)
+PAIRED_CASES = {
+    "two_file_gz": lambda d: _gz_world(d, False),
+    "interleaved_gz": lambda d: _gz_world(d, True),
+    "short_mate_skips_pair": lambda d: _two(
+        d, [_rec("a/1"), _rec("b/1")],
+        [_rec("a/2", "ACG"), _rec("b/2", "G" * 10)]),
+    "name_mismatch": lambda d: _two(d, [_rec("a/1")], [_rec("zz/2")]),
+    "desync": lambda d: _two(d, [_rec("a/1"), _rec("b/1"), _rec("c/1"),
+                                 _rec("d/1")],
+                             [_rec("a/2"), _rec("c/2"), _rec("d/2")]),
+    "desync_unrepairable": lambda d: _two(
+        d, [_rec("a/1"), _rec("b/1"), _rec("d/1")],
+        [_rec("a/2"), _rec("x/2"), _rec("d/2")]),
+    "unpaired_tail": lambda d: _two(d, [_rec("a/1"), _rec("b/1")],
+                                    [_rec("a/2")]),
+    "corrupt_record_in_pair": lambda d: _two(
+        d, [_rec("a/1"), _rec("b/1"), _rec("c/1")], [_rec("a/2")],
+        tail2="@b/2\nACGTACGT\n+\nII\n" + _fq([_rec("c/2")])),
+}
+
+
+def _paired_run(mod, files, kw, on_error, rejects):
+    """Everything a ``PairedFastqStream`` reports: its chunks, counts and
+    rejects file, or the error it raised."""
+    kw = dict(dict(chunk_reads=4), **kw)
+    try:
+        s = mod.PairedFastqStream(*files, on_error=on_error,
+                                  rejects=rejects, **kw)
+        chunks = [(_chunks([c1]), _chunks([c2])) for c1, c2 in s]
+    except ValueError as e:
+        return type(e).__name__, str(e)
+    counts = {a: getattr(s, a) for a in (
+        "read_len", "n_pairs", "n_skipped", "n_truncated", "n_rejected",
+        "n_rejected_pairs", "reject_reasons", "rejected_names")}
+    counts["s2_reasons"] = s._s2.reject_reasons
+    text = Path(rejects).read_text() if Path(rejects).exists() else None
+    return chunks, counts, text
+
+
+@pytest.mark.parametrize("on_error", ["strict", "permissive"])
+@pytest.mark.parametrize("case", sorted(PAIRED_CASES))
+def test_paired_fastq_stream_matches(tmp_path, case, on_error):
+    files, kw = PAIRED_CASES[case](tmp_path)
+    got = _paired_run(tfastq, files, kw, on_error, str(tmp_path / "t.rej"))
+    want = _paired_run(jfastq, files, kw, on_error, str(tmp_path / "j.rej"))
+    assert type(got) is type(want) and len(got) == len(want)
+    if isinstance(want[0], str):            # both raised
+        assert got == want
+        return
+    assert len(got[0]) == len(want[0])
+    for (g1, g2), (w1, w2) in zip(got[0], want[0]):
+        _same_chunks(g1, w1)
+        _same_chunks(g2, w2)
+    assert got[1:] == want[1:]
+
+
+def test_paired_fastq_stream_refusals_match():
+    for args, kw in ((("x.fq", "y.fq"), dict(interleaved=True)),
+                     (("x.fq",), {}),
+                     (("x.fq", "y.fq"), dict(chunk_reads=0)),
+                     (("x.fq", "y.fq"), dict(on_error="lenient"))):
+        msgs = []
+        for mod in (tfastq, jfastq):
+            with pytest.raises(ValueError) as e:
+                mod.PairedFastqStream(*args, **kw)
+            msgs.append(str(e.value))
+        assert msgs[0] == msgs[1]

@@ -3,7 +3,9 @@ against the reference CLI (run as a subprocess): the same FASTA and FASTQ
 give the same SAM line for line apart from ``@PG``, which records the
 command.  The world is the reference e2e test's: two contigs with an N
 run and 24 reads of 120 bases on both strands, plus a copy of the FASTQ
-with one malformed record for the permissive path."""
+with one malformed record for the permissive path; and 24 pairs of those
+contigs (some R2 mates junk) as R1/R2 files, one interleaved file and an
+R2 file that lost a record (a mate desync)."""
 import os
 import subprocess
 import sys
@@ -12,8 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro.data.genome import (make_reference, sample_reads, write_fasta,
-                               write_fastq)
+from repro.data.genome import (make_reference, sample_pairs, sample_reads,
+                               write_fasta, write_fastq, write_fastq_pair)
 from repro_torch.io.fastq import FastqParseError
 from repro_torch.io.sam import validate_sam
 from repro_torch.launch import map_fastq
@@ -21,6 +23,8 @@ from repro_torch.launch import map_fastq
 READ_LEN = 120
 N_READS = 24
 BAD_RECORD = 5
+N_PAIRS = 24
+LOST_MATE = 5
 
 # the reference runs: (name, FASTQ, argv).  The reference's three engines
 # write the same SAM, so each engine is run once, each with one of the
@@ -57,17 +61,37 @@ def world(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def ref_sams(world):
-    """The reference CLI's SAM for each of ``REF_RUNS``, the four runs in
-    parallel subprocesses."""
+def paired_world(world):
+    """Pairs of both contigs; the same pairs interleaved; R2 with the mate
+    of pair ``LOST_MATE`` lost."""
+    ref = world / "ref.fa"
+    from repro.io.fasta import parse_fasta
+    contigs = [codes for _, codes in parse_fasta(str(ref))]
+    halves = [sample_pairs(c, N_PAIRS // 2, read_len=READ_LEN,
+                           insert_mean=300, insert_sd=30, seed=11 + i,
+                           unmappable_frac=0.15)
+              for i, c in enumerate(contigs)]
+    ps = type(halves[0])(*(np.concatenate([getattr(h, f) for h in halves])
+                           for f in halves[0].__dataclass_fields__))
+    write_fastq_pair(str(world / "r1.fq"), str(world / "r2.fq"), ps)
+    write_fastq_pair(None, None, ps, interleaved_path=str(world / "i.fq"))
+    lines = (world / "r2.fq").read_text().splitlines(True)
+    del lines[4 * LOST_MATE : 4 * LOST_MATE + 4]
+    (world / "r2_lost.fq").write_text("".join(lines))
+    return world
+
+
+def _ref_cli(world, runs):
+    """The reference CLI's SAM for each of ``runs`` (name, inputs, argv),
+    the runs in parallel subprocesses."""
     env = dict(os.environ)
     env["PYTHONPATH"] = (os.path.join(os.path.dirname(__file__), "..",
                                       "src") +
                          os.pathsep + env.get("PYTHONPATH", ""))
     procs = {}
-    for name, fq, argv in REF_RUNS:
+    for name, inputs, argv in runs:
         cmd = [sys.executable, "-m", "repro.launch.map_fastq",
-               str(world / "ref.fa"), str(world / fq),
+               str(world / "ref.fa"), *inputs,
                "-o", str(world / f"ref_{name}.sam"), "--chunk-reads", "16",
                *argv]
         procs[name] = subprocess.Popen(cmd, env=env, cwd=str(world),
@@ -77,8 +101,38 @@ def ref_sams(world):
     for name, proc in procs.items():
         _, err = proc.communicate(timeout=600)
         assert proc.returncode == 0, err
-        out[name] = (world / f"ref_{name}.sam").read_text()
+        out[name] = (world / f"ref_{name}.sam").read_text(), err
     return out
+
+
+@pytest.fixture(scope="module")
+def ref_sams(world):
+    """The reference CLI's SAM for each of ``REF_RUNS``."""
+    return {name: sam for name, (sam, _) in _ref_cli(
+        world, [(name, [str(world / fq)], argv)
+                for name, fq, argv in REF_RUNS]).items()}
+
+
+# the reference's paired runs: (name, inputs, argv).  Its three engines
+# write the same SAM, so the two-file layout is run once, and the
+# interleaved one on another engine and chunk size.
+REF_PAIRED_RUNS = (
+    ("pairs", ("--r1", "r1.fq", "--r2", "r2.fq"), ()),
+    ("pairs_interleaved", ("i.fq", "--interleaved"),
+     ("--engine", "fused", "--chunk-reads", "7")),
+    ("pairs_permissive", ("--r1", "r1.fq", "--r2", "r2_lost.fq"),
+     ("--on-error", "permissive", "--rejects", "ref_pair_rejects.fq")),
+)
+
+
+@pytest.fixture(scope="module")
+def ref_paired(paired_world):
+    """The reference CLI's SAM and stderr for each of
+    ``REF_PAIRED_RUNS``."""
+    w = paired_world
+    return _ref_cli(w, [(name, [str(w / a) if a.endswith(".fq") else a
+                                for a in inputs], argv)
+                        for name, inputs, argv in REF_PAIRED_RUNS])
 
 
 def _body(text):
@@ -150,8 +204,8 @@ def test_stdout_output(world, ref_sams, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (("--r1", "r1.fq"), 6),
-    (("--interleaved",), 6),
+    (("--index-budget-mb", "64"), 7),
+    (("--watchdog", "5"), 8),
     (("--index-dir", "idx"), 7),
     (("--prefetch",), 7),
     (("--topology", "mesh"), 9),
@@ -198,3 +252,101 @@ def test_card_refuses_eth_before_the_index_build(world, monkeypatch,
         with pytest.raises(Reached, match="FASTA load"):
             map_fastq.main(argv)
     assert not (world / "eth13.sam").exists()
+
+
+def _port_paired(world, out_name, *argv, chunk_reads=16):
+    rc = map_fastq.main([str(world / "ref.fa"), *argv,
+                         "-o", str(world / out_name),
+                         "--chunk-reads", str(chunk_reads),
+                         "--device", "cpu"])
+    assert rc == 0
+    return (world / out_name).read_text()
+
+
+def _line(err, prefix):
+    lines = [ln for ln in err.splitlines() if ln.startswith(prefix)]
+    assert len(lines) == 1, err
+    return lines[0]
+
+
+@pytest.mark.parametrize("engine", ["compacted", "fused", "padded"])
+def test_paired_same_sam_as_reference(paired_world, ref_paired, engine,
+                                      capsys):
+    w = paired_world
+    text = _port_paired(w, f"port_pairs_{engine}.sam", "--r1",
+                        str(w / "r1.fq"), "--r2", str(w / "r2.fq"),
+                        "--engine", engine)
+    want, want_err = ref_paired["pairs"]
+    assert _body(text) == _body(want)
+    stats = validate_sam(text, expect_reads=2 * N_PAIRS, require_mapq=True)
+    assert stats["n_paired"] == 2 * N_PAIRS and stats["n_proper"] > 0
+    err = capsys.readouterr().err
+    assert "paired=True" in err
+    assert _line(err, "pairing:") == _line(want_err, "pairing:")
+
+
+def test_interleaved_same_sam_as_reference(paired_world, ref_paired):
+    w = paired_world
+    text = _port_paired(w, "port_pairs_interleaved.sam", str(w / "i.fq"),
+                        "--interleaved", "--engine", "fused", chunk_reads=7)
+    assert _body(text) == _body(ref_paired["pairs_interleaved"][0])
+
+
+def test_paired_permissive_same_sam_and_rejects(paired_world, ref_paired,
+                                                capsys):
+    """A lost R2 record: the permissive stream re-pairs past it, and
+    quarantines the orphaned R1 mate in both packages alike."""
+    w = paired_world
+    text = _port_paired(w, "port_pairs_permissive.sam", "--r1",
+                        str(w / "r1.fq"), "--r2", str(w / "r2_lost.fq"),
+                        "--on-error", "permissive", "--rejects",
+                        str(w / "port_pair_rejects.fq"))
+    want, want_err = ref_paired["pairs_permissive"]
+    assert _body(text) == _body(want)
+    validate_sam(text, expect_reads=2 * (N_PAIRS - 1), require_mapq=True)
+    rejects = (w / "port_pair_rejects.fq").read_text()
+    assert rejects == (w / "ref_pair_rejects.fq").read_text()
+    assert rejects.startswith(f"@pair{LOST_MATE}/1\n")
+    got = _line(capsys.readouterr().err, "quarantined:")
+    assert got.split(" -> ")[0] == _line(want_err,
+                                         "quarantined:").split(" -> ")[0]
+    assert "{'mate_desync': 1}" in got
+
+
+@pytest.mark.parametrize("argv,msg", [
+    (("--r2", "r2.fq"), "--r2 needs --r1"),
+    (("--r1", "r1.fq"), "--r1 needs --r2"),
+    (("reads.fq", "--r1", "r1.fq", "--r2", "r2.fq"), "not both"),
+    (("--r1", "r1.fq", "--r2", "r2.fq", "--interleaved"),
+     "--interleaved takes a single"),
+    ((), "no reads given"),
+])
+def test_paired_input_layout_errors(paired_world, argv, msg):
+    """The reference's exits for an input layout it does not take."""
+    w = paired_world
+    argv = [str(w / a) if a.endswith(".fq") else a for a in argv]
+    with pytest.raises(SystemExit) as e:
+        map_fastq.main([str(w / "ref.fa"), *argv, "--device", "cpu",
+                        "-o", str(w / "layout.sam")])
+    assert str(e.value.code).startswith("map_fastq: ") and \
+        msg in str(e.value.code)
+    assert not (w / "layout.sam").exists()
+
+
+def test_card_refuses_eth_before_the_index_build_on_pairs(paired_world,
+                                                          monkeypatch):
+    """As ``test_card_refuses_eth_before_the_index_build``, on paired
+    input: the stream is opened (for ``read_len``), the card's refusal
+    comes before the FASTA load."""
+    import repro_torch.io.fasta as fasta
+
+    def stop(*a, **k):
+        raise AssertionError("the FASTA load was reached")
+    monkeypatch.setattr(fasta, "load_reference", stop)
+    w = paired_world
+    with pytest.raises(ValueError, match="^eth=13 "):
+        map_fastq.main([str(w / "ref.fa"), "--r1", str(w / "r1.fq"),
+                        "--r2", str(w / "r2.fq"), "-o",
+                        str(w / "eth13_pairs.sam"), "--device", "cuda",
+                        "--eth", "13"])
+    assert not (w / "eth13_pairs.sam").exists()

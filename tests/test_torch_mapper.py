@@ -104,7 +104,8 @@ def test_mapping_is_accurate_and_cigars_decode(world):
 
 
 def test_session_api(world):
-    """Plan, plan-cache counters, map_async and the not-yet-ported paths."""
+    """Plan, plan-cache counters, map_async, map_pairs and the
+    not-yet-ported paths."""
     _, tidx, _, reads = world
     m = Mapper(tidx, MapperConfig.from_index(tidx, chunk_reads=4),
                device="cpu")
@@ -117,8 +118,14 @@ def test_session_api(world):
     assert (m.plan_cache_misses, m.plan_cache_hits) == (1, 1)
     assert b.stats.plan_cache_hits == 1
     np.testing.assert_array_equal(a.position, b.position)
+    r1, r2 = m.map_pairs(reads, reads[::-1])   # one stacked batch
+    assert m.plan_cache_hits == 2
+    np.testing.assert_array_equal(r1.position, a.position)
+    np.testing.assert_array_equal(r2.position, a.position[::-1])
+    with pytest.raises(ValueError, match="pairwise"):
+        m.map_pairs(reads, reads[:-1])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.map_pairs(reads, reads)
+        m.serve()
     padded = Mapper(tidx, MapperConfig.from_index(tidx, engine="padded",
                                                   both_strands=True),
                     device="cpu")

@@ -106,10 +106,27 @@ Phases, each fatal on failure:
    tensor-core kernel at hd=80), its profile, the kernel on layer 0's
    inputs as in phase 9, and the last-token logits of a 4,096-token
    prefill against the plain version's and the planted faults'.
+11. the sharded index (``repro_torch.index``), each step fatal: phase 7's
+   FASTA built by ``launch.build_index`` into 4 partitions with
+   ``--verify`` (the minimizer kernel once a tile and no other kernel),
+   and with ``--wf-backend torch`` (no kernel; every file's crc32 equal);
+   ``map_fastq --index-dir`` on phase 7's FASTQ on the compacted and
+   fused engines (each engine's kernels, the minimizer scan once a chunk;
+   the SAM equal to phase 7's apart from ``@PG``); the arena's write
+   order: the FASTA in 64 partitions, 256 reads mapped a read a chunk
+   (each chunk touches a strict subset of the partitions) under a budget
+   of half the index with prefetch, every result field equal to the
+   whole index's, at least one eviction; a 4 Mb slice built at an origin
+   of 2^31 - 2,000,000, its 4,096 reads mapped at positions straddling
+   2^31, equal to the origin-0 build's shifted; a chr1-sized reference of
+   256 Mb built streamed in a process of its own (seconds, bases/s, peak
+   host RSS) and mapped by 32,768 reads (accuracy, the arena's device
+   bytes).  Phase 7's files are kept for it and removed after.
 
 Each phase prints its seconds.  The last lines are the kernels JSON line
 (phases 8, 9 and 10, with each kernel's bound computed from its
-inputs; the affine_wf_dist row also holds phase 7b's rescue, the flash
+inputs; the mapper kernels' rows also hold their launches in phase 11's
+steps; the affine_wf_dist row also holds phase 7b's rescue, the flash
 row the timed cases of phase 9, the
 float32 ones under ``cuda_core_kernel``) and the contract line ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, when no CUDA device is present or anything fails.
@@ -198,6 +215,15 @@ MINI_OPS_PER_WINDOW = 3 * 3
 GENOME_BASES = 64_000_000
 N_READS = 131_072
 CHUNK = 16_384
+# phase 11, the sharded index: phase 7's FASTA in 4 partitions; the same in
+# 64 partitions mapped a read a chunk under half its size with prefetch
+# (each chunk touches a strict subset of the partitions); a slice built at
+# an origin straddling 2^31; a chr1-sized reference (GRCh38's chr1 is
+# 248.96 Mb) built streamed and mapped
+SHARD_PARTS = 4
+EVICT_PARTS, EVICT_READS = 64, 256
+ORIGIN, ORIGIN_BASES, ORIGIN_READS = 2**31 - 2_000_000, 4_000_000, 4_096
+BIG_BASES, BIG_READS = 256_000_000, 32_768
 PLAIN_CHECK_READS = 2_048
 ACCURACY_BAR = 0.95
 # phase 7b: FR pairs of 150-base mates (the read count of phase 4), 2% of
@@ -1125,92 +1151,88 @@ def _map_fastq_run(args, what, kernels=True):
     return dt, err.getvalue(), dict(ops.LAUNCHES), n_build
 
 
-def phase_map_fastq(ref, rs):
+def phase_map_fastq(ref, rs, work):
     """``map_fastq`` in-process on each engine, from FASTA and FASTQ files
-    written by the port's writers, and on the compacted engine with
-    ``--wf-backend torch`` (the all-plain route); -> {engine: launches}."""
+    written by the port's writers into ``work``, and on the compacted
+    engine with ``--wf-backend torch`` (the all-plain route).  -> the
+    FASTA, the FASTQ and the compacted SAM's lines apart from ``@PG``,
+    for phase 11."""
     from repro_torch.data.genome import write_fasta, write_fastq
     from repro_torch.io.sam import validate_sam
 
-    work = os.path.join(ROOT, "build", "chip_smoke")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
-    try:
-        half = GENOME_BASES // 2
-        chr1 = ref[:half].copy()
-        chr1[1_000_000:1_000_200] = 4          # a run of N
-        fa, fq = os.path.join(work, "ref.fa"), os.path.join(work, "reads.fq")
-        t0 = time.perf_counter()
-        write_fasta(fa, [("chr1", chr1), ("chr2", ref[half:])])
-        write_fastq(fq, rs.reads, rs.quals,
-                    [f"read{i}" for i in range(N_READS)])
-        log(f"map_fastq: wrote {GENOME_BASES:,} bases as two contigs and "
-            f"{N_READS:,} reads in {time.perf_counter() - t0:.2f} s")
-        truth = [("chr1", int(p), int(s)) if p < half else
-                 ("chr2", int(p) - half, int(s))
-                 for p, s in zip(rs.true_pos, rs.strand)]
-        bodies, launches = {}, {}
-        chunks = -(-N_READS // CHUNK)
-        for engine in ("compacted", "fused", "padded"):
-            out = os.path.join(work, f"{engine}.sam")
-            dt, err, launches[engine], n_build = _map_fastq_run(
-                [fa, fq, "-o", out, "--engine", engine, "--chunk-reads",
-                 str(CHUNK)], f"--engine {engine}")
-            _check_launches("map_fastq", engine, launches[engine],
-                            minimizer=n_build + chunks)
-            done = [ln for ln in err.splitlines()
-                    if ln.startswith("done:")][0]
-            m = re.search(r"; (\d+) reads/s mapping", done)
-            with open(out) as f:
-                text = f.read()
-            bodies[engine] = [ln for ln in text.splitlines()
-                              if not ln.startswith("@PG")]
-            acc = _sam_accuracy(text, truth)
-            log(f"map_fastq --engine {engine}: {dt:.2f} s wall = "
-                f"{N_READS / dt:,.0f} reads/s with the FASTA load and "
-                f"index build, {int(m.group(1)):,} reads/s mapping and SAM "
-                f"without them; accuracy from the SAM {acc:.5f}; launches "
-                f"{launches[engine]}, minimizer_scan {n_build} of them in "
-                f"the index build")
-            log(f"  {done}")
-            if acc < ACCURACY_BAR:
-                raise AssertionError(f"map_fastq {engine}: accuracy {acc} "
-                                     f"below {ACCURACY_BAR}")
-        for engine in ("fused", "padded"):
-            if bodies[engine] != bodies["compacted"]:
-                raise AssertionError(f"map_fastq: the {engine} SAM differs "
-                                     f"from the compacted one")
-        stats = validate_sam("\n".join(bodies["compacted"]),
-                             expect_reads=N_READS)
-        log(f"map_fastq: the three SAMs are equal apart from @PG; "
-            f"validate_sam passed: {stats['n_mapped']:,} mapped, "
-            f"{stats['n_reverse']:,} reverse")
-        # the plain route on the first chunk's reads (each read's record
-        # depends on that read alone), against the kernel route's header
-        # and first CHUNK records
-        fq1, out = (os.path.join(work, f) for f in ("chunk.fq", "plain.sam"))
-        write_fastq(fq1, rs.reads[:CHUNK], rs.quals[:CHUNK],
-                    [f"read{i}" for i in range(CHUNK)])
-        dt, _, plain, _ = _map_fastq_run(
-            [fa, fq1, "-o", out, "--wf-backend", "torch", "--chunk-reads",
-             str(CHUNK)], "--wf-backend torch", kernels=False)
-        if any(plain[name] for name in MAPPER_KERNELS):
-            raise AssertionError(f"map_fastq --wf-backend torch launched "
-                                 f"kernels: {plain}")
+    half = GENOME_BASES // 2
+    chr1 = ref[:half].copy()
+    chr1[1_000_000:1_000_200] = 4          # a run of N
+    fa, fq = os.path.join(work, "ref.fa"), os.path.join(work, "reads.fq")
+    t0 = time.perf_counter()
+    write_fasta(fa, [("chr1", chr1), ("chr2", ref[half:])])
+    write_fastq(fq, rs.reads, rs.quals,
+                [f"read{i}" for i in range(N_READS)])
+    log(f"map_fastq: wrote {GENOME_BASES:,} bases as two contigs and "
+        f"{N_READS:,} reads in {time.perf_counter() - t0:.2f} s")
+    truth = [("chr1", int(p), int(s)) if p < half else
+             ("chr2", int(p) - half, int(s))
+             for p, s in zip(rs.true_pos, rs.strand)]
+    bodies, launches = {}, {}
+    chunks = -(-N_READS // CHUNK)
+    for engine in ("compacted", "fused", "padded"):
+        out = os.path.join(work, f"{engine}.sam")
+        dt, err, launches[engine], n_build = _map_fastq_run(
+            [fa, fq, "-o", out, "--engine", engine, "--chunk-reads",
+             str(CHUNK)], f"--engine {engine}")
+        _check_launches("map_fastq", engine, launches[engine],
+                        minimizer=n_build + chunks)
+        done = [ln for ln in err.splitlines()
+                if ln.startswith("done:")][0]
+        m = re.search(r"; (\d+) reads/s mapping", done)
         with open(out) as f:
-            body = [ln for ln in f.read().splitlines()
-                    if not ln.startswith("@PG")]
-        n_head = sum(ln.startswith("@") for ln in bodies["compacted"])
-        if body != bodies["compacted"][: n_head + CHUNK]:
-            raise AssertionError("map_fastq: the --wf-backend torch SAM "
-                                 "differs from the kernel route's")
-        log(f"map_fastq --wf-backend torch on the first {CHUNK:,} reads (no "
-            f"kernel launched, index build included): {dt:.2f} s wall; its "
-            f"SAM equals the kernel route's header and first {CHUNK:,} "
-            f"records apart from @PG")
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    return launches
+            text = f.read()
+        bodies[engine] = [ln for ln in text.splitlines()
+                          if not ln.startswith("@PG")]
+        acc = _sam_accuracy(text, truth)
+        log(f"map_fastq --engine {engine}: {dt:.2f} s wall = "
+            f"{N_READS / dt:,.0f} reads/s with the FASTA load and "
+            f"index build, {int(m.group(1)):,} reads/s mapping and SAM "
+            f"without them; accuracy from the SAM {acc:.5f}; launches "
+            f"{launches[engine]}, minimizer_scan {n_build} of them in "
+            f"the index build")
+        log(f"  {done}")
+        if acc < ACCURACY_BAR:
+            raise AssertionError(f"map_fastq {engine}: accuracy {acc} "
+                                 f"below {ACCURACY_BAR}")
+    for engine in ("fused", "padded"):
+        if bodies[engine] != bodies["compacted"]:
+            raise AssertionError(f"map_fastq: the {engine} SAM differs "
+                                 f"from the compacted one")
+    stats = validate_sam("\n".join(bodies["compacted"]),
+                         expect_reads=N_READS)
+    log(f"map_fastq: the three SAMs are equal apart from @PG; "
+        f"validate_sam passed: {stats['n_mapped']:,} mapped, "
+        f"{stats['n_reverse']:,} reverse")
+    # the plain route on the first chunk's reads (each read's record
+    # depends on that read alone), against the kernel route's header
+    # and first CHUNK records
+    fq1, out = (os.path.join(work, f) for f in ("chunk.fq", "plain.sam"))
+    write_fastq(fq1, rs.reads[:CHUNK], rs.quals[:CHUNK],
+                [f"read{i}" for i in range(CHUNK)])
+    dt, _, plain, _ = _map_fastq_run(
+        [fa, fq1, "-o", out, "--wf-backend", "torch", "--chunk-reads",
+         str(CHUNK)], "--wf-backend torch", kernels=False)
+    if any(plain[name] for name in MAPPER_KERNELS):
+        raise AssertionError(f"map_fastq --wf-backend torch launched "
+                             f"kernels: {plain}")
+    with open(out) as f:
+        body = [ln for ln in f.read().splitlines()
+                if not ln.startswith("@PG")]
+    n_head = sum(ln.startswith("@") for ln in bodies["compacted"])
+    if body != bodies["compacted"][: n_head + CHUNK]:
+        raise AssertionError("map_fastq: the --wf-backend torch SAM "
+                             "differs from the kernel route's")
+    log(f"map_fastq --wf-backend torch on the first {CHUNK:,} reads (no "
+        f"kernel launched, index build included): {dt:.2f} s wall; its "
+        f"SAM equals the kernel route's header and first {CHUNK:,} "
+        f"records apart from @PG")
+    return dict(fa=fa, fq=fq, body=bodies["compacted"])
 
 
 def _same_resolution(what, a, b):
@@ -1502,6 +1524,332 @@ def phase_paired(idx, ref):
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return path, rescue
+
+
+def _scanned_tiles(man):
+    """Tiles of a sharded build that ran the minimizer scan: every tile
+    whose window (its bases and the w - 1 before) holds a whole window of
+    w k-mers, the last one only if its bases reach k."""
+    b = man["build"]
+    last = man["ref_len"] - man["origin"] - (b["tiles"] - 1) * b["tile_bp"]
+    short = b["tiles"] > 1 and last < man["k"]
+    return b["tiles"] - int(short)
+
+
+def _build_index_run(args, what, kernels=True):
+    """``launch.build_index.main(args)`` in-process -> (wall s, its
+    manifest, its stderr), checking that it launched the minimizer kernel
+    once a scanned tile (with ``kernels``) or never, and no other
+    kernel."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import build_index
+    err = io.StringIO()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = build_index.main(args)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"build_index {what}: exit {rc}\n"
+                             f"{err.getvalue()}")
+    with open(os.path.join(args[args.index("-o") + 1],
+                           "manifest.json")) as f:
+        man = json.load(f)
+    want = _scanned_tiles(man) if kernels else 0
+    if launches["minimizer_scan"] != want or any(
+            launches[n] for n in MAPPER_KERNELS if n != "minimizer_scan"):
+        raise AssertionError(f"build_index {what}: launches {launches}, "
+                             f"not minimizer_scan {want} times alone "
+                             f"({man['build']['tiles']} tiles)")
+    return dt, man, err.getvalue(), launches["minimizer_scan"]
+
+
+def _map_fastq_index_run(args, what):
+    """``map_fastq.main(args)`` over ``--index-dir`` in-process -> (wall s,
+    its stderr, the launches during it)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import map_fastq
+    err = io.StringIO()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = map_fastq.main(args)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"map_fastq {what}: exit {rc}\n{err.getvalue()}")
+    return dt, err.getvalue(), dict(ops.LAUNCHES)
+
+
+def _routed_map(idx, reads, what, **kw):
+    """``Mapper(idx, **kw).map(reads)`` on the card, compacted engine ->
+    (result, wall s, launches); every kernel of the engine launched, the
+    minimizer scan once a chunk."""
+    import torch
+    from repro_torch.core.mapper import Mapper
+    from repro_torch.core.pipeline import MapperConfig
+    from repro_torch.kernels import ops
+    cfg_kw = {k: kw.pop(k) for k in ("chunk_reads",) if k in kw}
+    cfg = MapperConfig.from_index(idx, both_strands=True, **cfg_kw)
+    with Mapper(idx, cfg, **kw) as mapper:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = mapper.map(reads)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    _check_launches(what, "compacted", launches,
+                    minimizer=res.stats["n_chunks"])
+    return res, dt, launches
+
+
+def _same_fields(what, a, b):
+    for f in FIELDS + ("linear_dist",):
+        if not np.array_equal(getattr(a, f), getattr(b, f)):
+            raise AssertionError(f"{what}: {f} differs")
+
+
+def _build_rss(fa, out):
+    """``build_sharded_index`` in a process of its own, with torch, the
+    CUDA context and the minimizer kernel's library loaded first -> (wall
+    s, its resident set in bytes: before the build, and the build's peak;
+    where each was read, as words for the log; its manifest).  The peak
+    is ``VmHWM`` reset at the build's start where ``/proc`` lets it be,
+    else the process's ``ru_maxrss``; the start is ``VmRSS`` where
+    ``/proc`` has it, else the process's peak so far."""
+    code = ("import resource, sys, torch\n"
+            "from repro_torch.kernels import build\n"
+            "from repro_torch.index import build_sharded_index\n"
+            "torch.zeros(1, device='cuda')\n"
+            "build.entry('minimizer_launch')\n"
+            "def vm(key):\n"
+            "    try:\n"
+            "        with open('/proc/self/status') as f:\n"
+            "            for ln in f:\n"
+            "                if ln.startswith(key):\n"
+            "                    return int(ln.split()[1])\n"
+            "    except OSError:\n"
+            "        return None\n"
+            "def maxrss():\n"
+            "    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss\n"
+            "start = vm('VmRSS:')\n"
+            "now = start is not None\n"
+            "reset = vm('VmHWM:') is not None\n"
+            "if reset:\n"
+            "    try:\n"
+            "        with open('/proc/self/clear_refs', 'w') as f:\n"
+            "            f.write('5')\n"
+            "    except OSError:\n"
+            "        reset = False\n"
+            "start = start if now else maxrss()\n"
+            "build_sharded_index(sys.argv[1], sys.argv[2],\n"
+            "                    num_partitions=int(sys.argv[3]))\n"
+            "print(start, vm('VmHWM:') if reset else maxrss(), int(now),\n"
+            "      int(reset))\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code, fa, out,
+                           str(SHARD_PARTS)], env=env, capture_output=True,
+                          text=True, timeout=900)
+    dt = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"build_sharded_index of {fa}: exit "
+                             f"{proc.returncode}\n{proc.stderr[-4000:]}")
+    with open(os.path.join(out, "manifest.json")) as f:
+        man = json.load(f)
+    start, peak, now, reset = (int(v) for v in proc.stdout.split()[-4:])
+    where = ("since the build's start" if reset else "of the process",
+             "resident at the build's start" if now
+             else "the process's peak before the build")
+    return dt, (start * 1024, peak * 1024, where), man
+
+
+def phase_sharded(ref, rs, mf, work):
+    """Phase 11, the sharded index, each step fatal: phase 7's FASTA built
+    by ``launch.build_index`` (the kernel once a tile, ``--verify``, a
+    ``--wf-backend torch`` build with equal digests); ``map_fastq
+    --index-dir`` on phase 7's FASTQ per engine (SAM equal to phase 7's);
+    the arena's write order under a budget that evicts while chunks are
+    in flight; an origin build straddling 2^31; a chr1-sized streamed
+    build, mapped.  -> {step: launches} for the kernels JSON line."""
+    import torch
+    from repro_torch.data.genome import (make_reference, sample_reads,
+                                         write_fasta)
+    from repro_torch.index import build_sharded_index, open_index
+    from repro_torch.kernels import ops
+
+    out = {}
+    # 1. the build, on the kernel and on the plain route
+    idx_dir = os.path.join(work, "idx")
+    dt, man, err, n_scan = _build_index_run(
+        [mf["fa"], "-o", idx_dir, "--partitions", str(SHARD_PARTS),
+         "--verify"], "--verify")
+    if "full integrity check passed" not in err:
+        raise AssertionError(f"build_index --verify:\n{err}")
+    bases = man["ref_len"] - man["origin"]
+    log(f"build_index: {bases:,} bases, {SHARD_PARTS} partitions, "
+        f"{man['build']['n_occurrences']:,} occurrences in {dt:.2f} s "
+        f"({bases / dt:,.0f} bases/s) with --verify; minimizer_scan "
+        f"{n_scan} launches for {man['build']['tiles']} tiles of "
+        f"{man['build']['tile_bp']:,}")
+    out["build_tiles"] = n_scan
+    plain_dir = os.path.join(work, "idx_plain")
+    dt_t, man_t, _, _ = _build_index_run(
+        [mf["fa"], "-o", plain_dir, "--partitions", str(SHARD_PARTS),
+         "--wf-backend", "torch"], "--wf-backend torch", kernels=False)
+    if (man_t["reference"] != man["reference"]
+            or [p["files"] for p in man_t["partitions"]]
+            != [p["files"] for p in man["partitions"]]):
+        raise AssertionError("build_index --wf-backend torch: digests "
+                             "differ from the kernel route's")
+    shutil.rmtree(plain_dir)
+    log(f"build_index --wf-backend torch: {dt_t:.2f} s, no kernel "
+        f"launched; every file's crc32 equals the kernel route's")
+
+    # 2. map_fastq --index-dir on phase 7's FASTQ
+    chunks = -(-N_READS // CHUNK)
+    out["map_fastq"] = {}
+    for engine in ("compacted", "fused"):
+        sam = os.path.join(work, f"index_{engine}.sam")
+        dt, err, launches = _map_fastq_index_run(
+            ["--index-dir", idx_dir, mf["fq"], "-o", sam, "--engine", engine,
+             "--chunk-reads", str(CHUNK)], f"--index-dir --engine {engine}")
+        _check_launches("map_fastq --index-dir", engine, launches,
+                        minimizer=chunks)
+        with open(sam) as f:
+            body = [ln for ln in f.read().splitlines()
+                    if not ln.startswith("@PG")]
+        os.remove(sam)
+        if body != mf["body"]:
+            raise AssertionError(f"map_fastq --index-dir --engine {engine}: "
+                                 f"the SAM differs from phase 7's")
+        part = [ln for ln in err.splitlines()
+                if ln.startswith("partitions:")]
+        log(f"map_fastq --index-dir --engine {engine}: {dt:.2f} s wall = "
+            f"{N_READS / dt:,.0f} reads/s (index opened, not built); SAM "
+            f"equals phase 7's in-memory one apart from @PG; launches "
+            f"{launches}")
+        log(f"  {part[0] if part else err}")
+        out["map_fastq"][engine] = launches
+
+    # 3. write order: chunks of one read over 64 partitions under half
+    # the index, with prefetch, against the whole index resident
+    dir64 = os.path.join(work, "idx64")
+    dt, man64, _, _ = _build_index_run(
+        [mf["fa"], "-o", dir64, "--partitions", str(EVICT_PARTS)],
+        f"--partitions {EVICT_PARTS}")
+    idx64 = open_index(dir64)
+    reads = rs.reads[:EVICT_READS]
+    base, dt_b, _ = _routed_map(idx64, reads, "whole index", chunk_reads=1)
+    rows = sum(p.n_occurrences for p in idx64.parts)
+    budget = rows // 2 * (idx64.seg_len + 4)
+    got, dt_e, launches = _routed_map(
+        idx64, reads, "evicting, prefetch", chunk_reads=1,
+        memory_budget_bytes=budget, prefetch=True)
+    _same_fields("evicting run with prefetch", got, base)
+    part = got.stats["partitions"]
+    if part["partition_evictions"] < 1 or part["prefetch_loads"] < 1:
+        raise AssertionError(f"evicting run: {part}")
+    log(f"write order: {EVICT_PARTS} partitions ({man64['build']['n_occurrences']:,} "
+        f"occurrences, built in {dt:.2f} s), {EVICT_READS} reads a read a "
+        f"chunk on both strands, budget {budget:,} B (half the index) with "
+        f"prefetch: {part['partition_loads']} loads "
+        f"({part['prefetch_loads']} prefetched, {part['prefetch_hits']} "
+        f"prefetch hits), {part['partition_evictions']} evictions, "
+        f"{part['partition_compactions']} compactions, "
+        f"{part['h2d_bytes']:,} B h2d in {dt_e:.2f} s (whole index "
+        f"resident: {dt_b:.2f} s); every result field equals the whole "
+        f"index's")
+    out["evicting"] = launches
+    shutil.rmtree(dir64)
+    del idx64
+
+    # 4. an origin build straddling 2^31, mapped on the card
+    sub = ref[:ORIGIN_BASES]
+    fa_o = os.path.join(work, "origin.fa")
+    write_fasta(fa_o, [("chrO", sub)])
+    rs_o = sample_reads(sub, ORIGIN_READS, seed=3, both_strands=True)
+    res_o = {}
+    for origin in (0, ORIGIN):
+        d = os.path.join(work, f"idx_origin{origin}")
+        ops.reset_launch_counts()
+        idx_o = build_sharded_index(fa_o, d, num_partitions=SHARD_PARTS,
+                                    origin=origin)
+        res_o[origin], _, launches = _routed_map(idx_o, rs_o.reads,
+                                                 f"origin {origin}")
+    a, b = res_o[0], res_o[ORIGIN]
+    m = a.mapped
+    if not (np.array_equal(b.mapped, m)
+            and np.array_equal(b.position[m], a.position[m] + ORIGIN)
+            and (b.position[~m] == -1).all()):
+        raise AssertionError("origin build: positions are not the origin-0 "
+                             "build's shifted by the origin")
+    for f in ("distance", "distance2", "strand", "ops", "op_count"):
+        if not np.array_equal(getattr(a, f), getattr(b, f)):
+            raise AssertionError(f"origin build: {f} differs")
+    ok = ((np.abs(b.position - (rs_o.true_pos.astype(np.int64) + ORIGIN))
+            <= ETH)
+          & (b.strand == rs_o.strand))
+    if ok.mean() < ACCURACY_BAR:
+        raise AssertionError(f"origin build: accuracy {ok.mean()}")
+    if not ((b.position[m] >= 2**31).any()
+            and (b.position[m] < 2**31).any()):
+        raise AssertionError("origin build: the mapped positions do not "
+                             "straddle 2^31")
+    log(f"origin build: {ORIGIN_BASES:,} bases at origin {ORIGIN:,} "
+        f"(positions {int(b.position[m].min()):,}..{int(b.position.max()):,}"
+        f", int32 words in the arena), {ORIGIN_READS:,} reads: equal to "
+        f"the origin-0 build's shifted by the origin; accuracy "
+        f"{ok.mean():.5f}")
+    out["origin"] = launches
+
+    # 5. a chr1-sized reference, built streamed and mapped
+    t0 = time.perf_counter()
+    big = make_reference(BIG_BASES, seed=5, repeat_frac=0.02)
+    fa_b = os.path.join(work, "big.fa")
+    write_fasta(fa_b, [("chrB", big)])
+    rs_b = sample_reads(big, BIG_READS, seed=7, both_strands=True)
+    del big
+    log(f"chr1-sized reference: {BIG_BASES:,} bases and {BIG_READS:,} "
+        f"reads made and written in {time.perf_counter() - t0:.2f} s")
+    dir_b = os.path.join(work, "idx_big")
+    dt, (rss0, rss, (since, before)), man_b = _build_rss(fa_b, dir_b)
+    os.remove(fa_b)
+    log(f"build_sharded_index (own process, kernel scan): {BIG_BASES:,} bases, "
+        f"{man_b['build']['n_occurrences']:,} occurrences, "
+        f"{man_b['build']['tiles']} tiles, in {dt:.2f} s wall with the "
+        f"process's start = {BIG_BASES / dt:,.0f} bases/s; manifest "
+        f"wall_s {man_b['build']['wall_s']:.2f} s = "
+        f"{BIG_BASES / man_b['build']['wall_s']:,.0f} bases/s; peak host "
+        f"RSS {rss / 2**20:,.0f} MiB {since} ({before}, with torch, the "
+        f"CUDA context and the kernel's library: {rss0 / 2**20:,.0f} MiB)")
+    idx_b = open_index(dir_b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    res_b, dt_m, launches = _routed_map(idx_b, rs_b.reads, "chr1-sized",
+                                        chunk_reads=CHUNK)
+    ok = ((np.abs(res_b.position - rs_b.true_pos) <= ETH)
+          & (res_b.strand == rs_b.strand))
+    part = res_b.stats["partitions"]
+    log(f"chr1-sized map: {BIG_READS:,} reads in {dt_m:.2f} s (the "
+        f"partitions' first loads included) = {BIG_READS / dt_m:,.0f} "
+        f"reads/s; accuracy {ok.mean():.5f}; arena {part['arena_rows']:,} "
+        f"rows = {part['arena_bytes']:,} B of device memory, "
+        f"{part['partition_loads']} loads, {part['h2d_bytes']:,} B h2d; "
+        f"peak device memory {(torch.cuda.max_memory_allocated() - held) / 1e9:.3f} "
+        f"GB above the {held / 1e9:.3f} GB held before")
+    if ok.mean() < ACCURACY_BAR:
+        raise AssertionError(f"chr1-sized map: accuracy {ok.mean()}")
+    out["big"] = launches
+    return out
 
 
 def _minimizer_row(runs, generated):
@@ -2380,19 +2728,38 @@ def main() -> int:
     phase_done("5 padded engine")
     generated = phase_minimizer_encodings(rs)
     phase_done("6 minimizer scan")
-    phase_map_fastq(ref, rs)
-    phase_done("7 map_fastq")
-    runs["paired"], rescue = phase_paired(idx, ref)
-    phase_done("7b paired-end")
-    rows = phase_mainpath_kernels(runs, generated)
-    rows["affine_wf_dist"]["rescue"] = rescue
-    del runs, compacted                     # the kept kernel inputs
-    phase_done("8 main-path kernels")
-    timing = phase_flash_parity()
-    rows["flash_attention"] = phase_lm(timing)
-    phase_done("9 LM serving")
-    rows["flash_attention_hd80"] = phase_stablelm(timing)
-    phase_done("10 StableLM-3B prefill")
+    # phase 7's FASTA and FASTQ serve phase 11 too
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        mf = phase_map_fastq(ref, rs, work)
+        phase_done("7 map_fastq")
+        runs["paired"], rescue = phase_paired(idx, ref)
+        phase_done("7b paired-end")
+        rows = phase_mainpath_kernels(runs, generated)
+        rows["affine_wf_dist"]["rescue"] = rescue
+        del runs, compacted                 # the kept kernel inputs
+        phase_done("8 main-path kernels")
+        timing = phase_flash_parity()
+        rows["flash_attention"] = phase_lm(timing)
+        phase_done("9 LM serving")
+        rows["flash_attention_hd80"] = phase_stablelm(timing)
+        phase_done("10 StableLM-3B prefill")
+        del idx
+        sharded = phase_sharded(ref, rs, mf, work)
+        phase_done("11 sharded index")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    # each mapper kernel's launches on the sharded path, step by step
+    for name in MAPPER_KERNELS:
+        rows[name]["sharded_launches"] = dict(
+            {f"map_fastq --index-dir {e}": l[name]
+             for e, l in sharded["map_fastq"].items()},
+            evicting=sharded["evicting"][name],
+            origin=sharded["origin"][name], chr1_sized=sharded["big"][name])
+    rows["minimizer_scan"]["sharded_launches"]["build_tiles"] = \
+        sharded["build_tiles"]
     log(f"total {time.perf_counter() - t_all:.2f} s")
     log(smi)
     print(json.dumps({"kernels": list(rows.values())}))

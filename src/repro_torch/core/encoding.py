@@ -2,7 +2,8 @@
 ``repro.core.encoding``.
 
 Bases travel as uint8 codes in {0..3} (4 is the "N" sentinel of the
-index).  The host-side string/strand helpers stay numpy; ``kmer_codes``
+index).  The host-side string/strand helpers and the 2-bit packing
+(``pack_2bit``/``unpack_2bit``) stay numpy; ``kmer_codes``
 runs on tensors and carries codes as int64 (torch has no uint32 shifts
 or comparisons on every device), masked to the 32 bits a k <= 16 code
 needs.
@@ -57,6 +58,28 @@ def revcomp(codes: np.ndarray) -> np.ndarray:
     codes = np.asarray(codes)
     comp = np.where(codes < NUM_BASES, (NUM_BASES - 1) - codes, codes)
     return np.ascontiguousarray(comp[..., ::-1]).astype(codes.dtype)
+
+
+def pack_2bit(codes: np.ndarray) -> np.ndarray:
+    """Pack base codes (len multiple of 4 padded) into bytes, 4 bases/byte:
+    base j in bits 2*(j%4) of byte j//4."""
+    codes = np.asarray(codes, dtype=np.uint8)
+    pad = (-len(codes)) % 4
+    if pad:
+        codes = np.concatenate([codes, np.zeros(pad, dtype=np.uint8)])
+    c = codes.reshape(-1, 4)
+    return (c[:, 0] | (c[:, 1] << 2) | (c[:, 2] << 4) | (c[:, 3] << 6)).astype(
+        np.uint8
+    )
+
+
+def unpack_2bit(packed: np.ndarray, n: int) -> np.ndarray:
+    """Inverse of :func:`pack_2bit`: the first ``n`` base codes."""
+    packed = np.asarray(packed, dtype=np.uint8)
+    out = np.empty((len(packed), 4), dtype=np.uint8)
+    for j in range(4):
+        out[:, j] = (packed >> (2 * j)) & 0x3
+    return out.reshape(-1)[:n]
 
 
 def kmer_codes(seq: torch.Tensor, k: int) -> torch.Tensor:

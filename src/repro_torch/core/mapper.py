@@ -1,9 +1,11 @@
 """The ``Mapper`` session — torch twin of ``repro.core.mapper`` for
-``topology="single"`` on a flat ``GenomeIndex``.
+``topology="single"``.
 
-  ``Mapper(index, cfg, device=...)`` — places the index on the device
-      once and keeps a plan cache (with hit/miss counters) of per-chunk
-      executables.
+  ``Mapper(index, cfg, device=...)`` — places a flat ``GenomeIndex`` on
+      the device once, or routes over a ``ShardedGenomeIndex`` through a
+      budgeted device arena (``memory_budget_bytes=``, ``prefetch=``;
+      ``index.residency``), and keeps a plan cache (with hit/miss
+      counters) of per-chunk executables.
   ``Mapper.plan(spec)`` — the ``MappingPlan`` a run would execute (chunk
       sizes, lane-capacity ceilings) before anything runs.
   ``Mapper.run(plan, reads)`` / ``Mapper.map(reads)`` / ``map_async``.
@@ -12,8 +14,7 @@
 
 The session runs on the CUDA card unless ``device`` names another
 device; with no GPU and no device given it raises.  Not ported yet: the
-mesh topology, sharded indexes, the serving batcher and the
-observability hooks.
+mesh topology, the serving batcher and the observability hooks.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ from .pipeline import (LazyTraceback, MapperConfig, MappingResult,
 TOPOLOGIES = ("single",)
 
 __all__ = ["Mapper", "MapperStats", "MappingPlan", "TOPOLOGIES",
-           "accumulate_stats", "split_result"]
+           "accumulate_partition_stats", "accumulate_stats", "split_result"]
 
 _PER_READ_FIELDS = ("position", "distance", "distance2", "mapped", "strand",
                     "ops", "op_count", "linear_dist", "n_candidates",
@@ -99,6 +100,38 @@ class MapperStats:
 
     def as_dict(self) -> dict:
         return dict(self.extra)
+
+
+_PART_SUM_KEYS = ("chunks_routed", "partition_loads", "partition_evictions",
+                  "partition_compactions",
+                  "h2d_bytes", "prefetch_loads", "prefetch_hits",
+                  "minis_routed_per_partition",
+                  "minis_found_per_partition", "survivors_per_partition")
+
+
+def accumulate_partition_stats(totals: dict, stats) -> dict:
+    """Merge a run's per-partition accounting (``stats["partitions"]``,
+    present on sharded-index sessions) into ``totals["partitions"]``.
+    Counters and per-partition count vectors sum across runs; static
+    descriptors (arena size, current residency) take the latest run's
+    value."""
+    if not isinstance(stats, MapperStats):
+        return totals
+    part = stats.get("partitions")
+    if not part:
+        return totals
+    acc = totals.setdefault("partitions", {})
+    for k, v in part.items():
+        if k in _PART_SUM_KEYS:
+            if isinstance(v, list):
+                prev = acc.get(k)
+                acc[k] = ([a + b for a, b in zip(prev, v)] if prev
+                          else list(v))
+            else:
+                acc[k] = acc.get(k, 0) + v
+        else:
+            acc[k] = v
+    return totals
 
 
 def accumulate_stats(totals: dict, stats, fields=None) -> dict:
@@ -202,9 +235,12 @@ class Mapper:
 
     Parameters
     ----------
-    index : GenomeIndex
+    index : GenomeIndex or ShardedGenomeIndex
         A flat index of this package (``build_index`` or
-        ``GenomeIndex.from_arrays``).
+        ``GenomeIndex.from_arrays``), placed on the device whole; or a
+        partitioned one (``index.open_index``, ``shard_flat_index``),
+        whose chunks are routed through a device arena
+        (``index.residency``) and nothing is placed up front.
     cfg : MapperConfig, optional
         Defaults to ``MapperConfig.from_index(index)``.
     topology : "single"
@@ -215,29 +251,78 @@ class Mapper:
         the kernels' plain versions on the CPU.  On the card, a geometry
         the kernels do not take raises here (``check_card_geometry``),
         before the index is placed.
+    memory_budget_bytes : int, optional
+        Sharded index only: the arena's byte budget (partitions load
+        lazily and LRU-evict under it); None holds every partition.
+    prefetch : bool
+        Sharded index only: stage chunk i+1's routing and partition
+        uploads on a background worker while chunk i computes
+        (bit-identical results).
     """
 
-    def __init__(self, index: GenomeIndex, cfg: MapperConfig | None = None,
-                 *, topology: str = "single", device=None):
+    def __init__(self, index, cfg: MapperConfig | None = None, *,
+                 topology: str = "single", device=None,
+                 memory_budget_bytes: int | None = None,
+                 prefetch: bool = False):
         if topology != "single":
             if topology == "mesh":
                 raise _not_ported('topology="mesh"', "9")
             raise ValueError(f"unknown topology {topology!r}; "
                              f"expected one of {TOPOLOGIES}")
-        if not isinstance(index, GenomeIndex):
-            raise _not_ported(
-                f"mapping over a {type(index).__name__} (the port maps its "
-                f"own flat GenomeIndex: build_index or "
-                f"GenomeIndex.from_arrays; sharded indexes)", "7")
+        from ..index.sharded import ShardedGenomeIndex
+        if not isinstance(index, (GenomeIndex, ShardedGenomeIndex)):
+            raise NotImplementedError(
+                f"mapping over a {type(index).__module__}."
+                f"{type(index).__name__}: the port maps its own flat "
+                f"GenomeIndex (build_index or GenomeIndex.from_arrays) or "
+                f"ShardedGenomeIndex (index.open_index or "
+                f"index.shard_flat_index)")
         self.cfg = cfg or MapperConfig.from_index(index)
         self.topology = topology
+        self.part_index = (index if isinstance(index, ShardedGenomeIndex)
+                           else None)
+        self.router = None
+        if memory_budget_bytes is not None and self.part_index is None:
+            raise ValueError(
+                "memory_budget_bytes only applies to topology=\"single\" "
+                "with a repro_torch.index.ShardedGenomeIndex — a flat "
+                "GenomeIndex is always fully resident")
+        self.prefetch = bool(prefetch)
+        if self.prefetch and self.part_index is None:
+            raise ValueError(
+                "prefetch=True only applies to topology=\"single\" with a "
+                "repro_torch.index.ShardedGenomeIndex — only the "
+                "shard-routed arena path has per-chunk partition uploads to "
+                "overlap")
+        if self.part_index is not None:
+            if self.cfg.engine == "padded":
+                raise ValueError(
+                    'engine="padded" needs the whole index resident as '
+                    "one flat array; use the compacted/fused engines "
+                    "with a ShardedGenomeIndex, or "
+                    "index.to_genome_index() to flatten it")
+            if self.cfg.cigar_mode == "lazy":
+                raise ValueError(
+                    'cigar_mode="lazy" defers traceback past the run, '
+                    "but the residency arena may evict the segment "
+                    "rows a deferred traceback would read; use "
+                    'cigar_mode="eager" or "off" with a '
+                    "ShardedGenomeIndex")
         self.device = resolve_device(device)
         check_card_geometry(self.cfg, self.device)
-        self.index = index
         self._plan_cache: dict[tuple, _ChunkPipeline] = {}
         self.plan_cache_hits = 0
         self.plan_cache_misses = 0
         self._pool: ThreadPoolExecutor | None = None
+        if self.part_index is not None:
+            from ..index.residency import DeviceResidency, ShardRouter
+            self.index = None
+            self._dev = None
+            self.router = ShardRouter(
+                index, DeviceResidency(index, memory_budget_bytes,
+                                       device=self.device), self.cfg)
+            return
+        self.index = index
         dev = self.device
         self._dev = tuple(torch.as_tensor(np.asarray(a, dtype=dt),
                                           device=dev)
@@ -278,9 +363,15 @@ class Mapper:
             self.plan_cache_hits += 1
             return entry
         self.plan_cache_misses += 1
-        entry = self._plan_cache[plan.key] = (
-            map_reads_padded if plan.engine == "padded"
-            else _ChunkPipeline(self._dev, self.cfg, self.device))
+        if plan.engine == "padded":
+            entry = map_reads_padded
+        elif self.router is not None:
+            from ..index.residency import _RoutedChunkPipeline
+            entry = _RoutedChunkPipeline(self.router, self.cfg, self.device,
+                                         prefetch=self.prefetch)
+        else:
+            entry = _ChunkPipeline(self._dev, self.cfg, self.device)
+        self._plan_cache[plan.key] = entry
         return entry
 
     # ------------------------------------------------------------ execution
@@ -322,15 +413,21 @@ class Mapper:
         return self._pool.submit(self.map, reads)
 
     def index_storage(self) -> dict:
-        """Footprint accounting of the session's index
-        (``GenomeIndex.storage_bytes``)."""
-        return self.index.storage_bytes()
+        """Footprint accounting of the session's index: the flat
+        ``storage_bytes`` dict, or the sharded one with its
+        ``per_partition`` breakdown."""
+        src = self.part_index if self.part_index is not None else self.index
+        return src.storage_bytes()
 
     def close(self):
-        """Shut down the ``map_async`` worker (no-op if never used)."""
+        """Shut down the ``map_async`` worker and any arena prefetch
+        worker (no-op if never used)."""
         if self._pool is not None:
             self._pool.shutdown(wait=True)
             self._pool = None
+        for entry in self._plan_cache.values():
+            if hasattr(entry, "close"):
+                entry.close()
 
     def __enter__(self):
         return self
@@ -361,6 +458,7 @@ class Mapper:
         pipe = self._executable(plan)
         items = [(reads[c0 : c0 + plan.chunk], plan.chunk)
                  for c0 in range(0, n, plan.chunk)]
+        pipe.begin_run(items)
         if cfg.stream:
             times = {} if cfg.profile else None
             fetched = streaming.stream_map(items, pipe.phase1, pipe.phase2,
@@ -376,6 +474,8 @@ class Mapper:
             raw["both_strands"] = True
         if times is not None:
             raw["stage_times_s"] = dict(times)
+        if self.router is not None:
+            raw["partitions"] = self.router.drain_stats()
 
         def cat(k):
             if k not in parts[0]:

@@ -173,8 +173,13 @@ _POS_BIG = torch.iinfo(torch.int64).max
 
 def _cand_positions(positions, occ, mini_pos):
     """Candidate genome positions ``positions[occ] - mini_pos`` and their
-    validity (the read would start before the reference)."""
-    cp = positions[occ] - mini_pos
+    validity (the read would start before the reference).  Positions are
+    int64, or the 32-bit words of a sharded index's arena
+    (``index.residency.arena_position_dtype``), read as unsigned."""
+    p = positions[occ]
+    if p.dtype == torch.int32:
+        p = p.to(torch.int64) & 0xFFFFFFFF
+    cp = p - mini_pos
     return cp, cp >= 0
 
 
@@ -511,6 +516,17 @@ class _ChunkPipeline:
         self.cfg = cfg
         self.device = device
 
+    def begin_run(self, items) -> None:
+        """Hook called once with the full chunk list before streaming
+        begins.  The flat pipeline has nothing to stage; the routed
+        pipeline (``index.residency``) starts its prefetch here."""
+
+    def chunk_index(self, seeds):
+        """Device ``(positions, segments)`` that this chunk's ``occ_idx``
+        rows point into: the session's flat index here; the routed
+        pipeline returns the arena with this chunk's writes applied."""
+        return self.dev[2], self.dev[3]
+
     def phase1(self, item, times=None):
         sub, chunk = item
         n_real = len(sub)
@@ -549,7 +565,7 @@ class _ChunkPipeline:
     def phase2(self, state, times=None):
         reads, seeds, n_real, seed_mark = state
         cfg = self.cfg
-        _, _, positions, segments = self.dev
+        positions, segments = self.chunk_index(seeds)
         R = reads.shape[0]          # rows: 2*chunk when both_strands
         M, P = cfg.max_minis, cfg.max_pls
         occ_idx, occ_valid = seeds["occ_idx"], seeds["occ_valid"]

@@ -71,6 +71,7 @@ def parse_fasta(path_or_handle) -> Iterator[tuple[str, np.ndarray]]:
 
     ``name`` is the first whitespace-delimited token of the header (the
     SAM ``SN`` convention); ``codes`` is uint8 with non-ACGT -> SENTINEL.
+    A record's lines are encoded in one call.
     """
     f, owned = _open(path_or_handle)
     try:
@@ -81,8 +82,7 @@ def parse_fasta(path_or_handle) -> Iterator[tuple[str, np.ndarray]]:
                 continue
             if line.startswith(">"):
                 if name is not None:
-                    yield name, (np.concatenate(parts) if parts else
-                                 np.zeros(0, np.uint8))
+                    yield name, encode_ref_line("".join(parts))
                 name, parts = line[1:].split()[0] if len(line) > 1 else "", []
                 if not name:
                     raise ValueError("FASTA record with empty header name")
@@ -90,10 +90,9 @@ def parse_fasta(path_or_handle) -> Iterator[tuple[str, np.ndarray]]:
                 if name is None:
                     raise ValueError("FASTA sequence data before any "
                                      "'>' header line")
-                parts.append(encode_ref_line(line))
+                parts.append(line)
         if name is not None:
-            yield name, (np.concatenate(parts) if parts else
-                         np.zeros(0, np.uint8))
+            yield name, encode_ref_line("".join(parts))
     finally:
         if owned:
             f.close()
@@ -110,7 +109,8 @@ def stream_fasta(path_or_handle, *,
     the ingestion contract an out-of-core index builder needs so a
     chromosome-sized contig costs tile-sized memory.  ``is_last`` marks the final chunk of a record;
     a record with no sequence lines yields one empty last chunk so
-    callers can reject it by name.
+    callers can reject it by name.  A chunk's lines are encoded in one
+    call, not a call a line.
     """
     f, owned = _open(path_or_handle)
     try:
@@ -118,8 +118,7 @@ def stream_fasta(path_or_handle, *,
 
         def flush(last: bool):
             nonlocal parts, buffered
-            chunk = (np.concatenate(parts) if parts else
-                     np.zeros(0, np.uint8))
+            chunk = encode_ref_line("".join(parts))
             parts, buffered = [], 0
             return name, chunk, last
 
@@ -137,9 +136,8 @@ def stream_fasta(path_or_handle, *,
                 if name is None:
                     raise ValueError("FASTA sequence data before any "
                                      "'>' header line")
-                codes = encode_ref_line(line)
-                parts.append(codes)
-                buffered += len(codes)
+                parts.append(line)
+                buffered += len(line)
                 if buffered >= max_chunk:
                     yield flush(False)
         if name is not None:

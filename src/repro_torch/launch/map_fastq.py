@@ -9,9 +9,14 @@ single-topology part of ``repro.launch.map_fastq``.
         --r1 reads_R1.fastq.gz --r2 reads_R2.fastq.gz -o out.sam
     PYTHONPATH=src python -m repro_torch.launch.map_fastq ref.fa pairs.fq \
         --interleaved -o out.sam
+    PYTHONPATH=src python -m repro_torch.launch.map_fastq --index-dir \
+        ref.idx reads.fq -o out.sam --index-budget-mb 512 --prefetch
 
-A (multi-contig) FASTA reference is indexed in memory, FASTQ reads
-stream through the session in ``--chunk-reads`` batches — each chunk
+A (multi-contig) FASTA reference is indexed in memory (or a prebuilt
+sharded index is opened, ``--index-dir``: ``launch.build_index`` of
+either package; its partitions load into a device arena under
+``--index-budget-mb``, staged a chunk ahead with ``--prefetch``), FASTQ
+reads stream through the session in ``--chunk-reads`` batches — each chunk
 mapped on **both strands** (``--single-strand`` disables) on the
 ``--engine compacted|fused|padded`` — and spec-valid SAM comes out, line
 for line the reference's apart from ``@PG``.  Plain and ``.gz`` FASTQ
@@ -51,9 +56,6 @@ import time
 # reference parses them, then refused naming their ROADMAP.md Queue 1
 # item.  flag -> (argparse keywords, item)
 _NOT_PORTED = {
-    "--index-dir": (dict(default=None), 7),
-    "--index-budget-mb": (dict(type=float, default=None), 7),
-    "--prefetch": (dict(action="store_true"), 7),
     "--shards": (dict(type=int, default=None), 9),
     "--inject": (dict(default=None), 8),
     "--watchdog": (dict(type=float, default=None), 8),
@@ -109,8 +111,8 @@ def _open_stream(args):
 def _print_mapper_stats(mapper, totals: dict, file=None) -> None:
     """Closing stats lines of a single-topology run (the single-topology
     part of ``repro.launch.serve._print_mapper_stats``): the unified
-    MapperStats accounting, the session plan-cache counters and the
-    index footprint."""
+    MapperStats accounting, the session plan-cache counters, the arena's
+    partition accounting of a sharded index and the index footprint."""
     print(f"filter/affine [single]: {totals['survivors']} "
           f"survivors -> {totals['affine_instances']} affine instances "
           f"(of {totals['padded_affine_instances']} padded), dropped "
@@ -120,11 +122,46 @@ def _print_mapper_stats(mapper, totals: dict, file=None) -> None:
           f"{mapper.plan_cache_misses} misses "
           f"(same-size batches reuse compiled executables after warm-up)",
           file=file)
+    part = totals.get("partitions")
+    if part:                          # shard-routed: the arena's account
+        print(f"partitions: routed "
+              f"{part['minis_routed_per_partition']} minimizers "
+              f"(found {part['minis_found_per_partition']}) over "
+              f"{part['chunks_routed']} chunk(s); arena "
+              f"{part['arena_bytes']} B, {part['partition_loads']} "
+              f"load(s), {part['partition_evictions']} eviction(s), "
+              f"{part['h2d_bytes']} B h2d", file=file)
     stor = mapper.index_storage()
+    per = stor.get("per_partition")
+    breakdown = (" (" + ", ".join(
+        f"p{d['partition']}: "
+        f"{d['hash_table_bytes'] + d['segments_bytes']}"
+        for d in per) + ")" if per else "")
     print(f"index storage: {stor['total_bytes']} B "
           f"(hash {stor['hash_table_bytes']} B + segments "
           f"{stor['materialized_segments_bytes']} B, blowup "
-          f"{stor['blowup']:.1f}x)", file=file)
+          f"{stor['blowup']:.1f}x){breakdown}", file=file)
+
+
+def _open_sharded(args):
+    """``--index-dir``: the opened index, with ``args.read_len`` taken
+    from its manifest and ``--k/--w/--eth`` overridden by it (noted on
+    stderr), as the reference does."""
+    from ..index import open_index
+    sharded = open_index(args.index_dir)
+    if args.read_len is not None and args.read_len != sharded.read_len:
+        raise SystemExit(
+            f"map_fastq: --read-len {args.read_len} conflicts with the "
+            f"index's read_len={sharded.read_len} — segment geometry "
+            f"is fixed at build time; rebuild with "
+            f"repro_torch.launch.build_index --read-len {args.read_len}")
+    args.read_len = sharded.read_len
+    for name in ("k", "w", "eth"):
+        if getattr(args, name) != getattr(sharded, name):
+            _say(f"map_fastq: --{name} {getattr(args, name)} ignored; "
+                 f"index manifest has {name}={getattr(sharded, name)}")
+            setattr(args, name, getattr(sharded, name))
+    return sharded
 
 
 def run(args) -> int:
@@ -132,7 +169,8 @@ def run(args) -> int:
 
     from ..core.device import resolve_device
     from ..core.index import build_index
-    from ..core.mapper import Mapper, accumulate_stats, check_card_geometry
+    from ..core.mapper import (Mapper, accumulate_partition_stats,
+                               accumulate_stats, check_card_geometry)
     from ..core.pairing import InsertSizeTracker, resolve_pairs
     from ..core.pipeline import MapperConfig
     from ..io.fasta import ReferenceMap, load_reference
@@ -140,6 +178,12 @@ def run(args) -> int:
 
     t0 = time.perf_counter()
     device = resolve_device(args.device)   # no GPU and no --device: raise
+    if args.prefetch and args.index_dir is None:
+        raise SystemExit(
+            "map_fastq: --prefetch needs --index-dir with --topology "
+            "single — only the shard-routed arena path has per-chunk "
+            "partition uploads to overlap")
+    sharded = _open_sharded(args) if args.index_dir is not None else None
     stream, paired = _open_stream(args)
     rl = stream.read_len
     cfg = MapperConfig(
@@ -147,21 +191,38 @@ def run(args) -> int:
         wf_backend=args.wf_backend, chunk_reads=args.chunk_reads,
         stream=not args.no_stream, both_strands=not args.single_strand)
     check_card_geometry(cfg, device)    # before the FASTA load and index
-    # spacer >= one alignment window: no read can map across a boundary
-    rejected_contigs: list = []
-    ref, contigs = load_reference(args.reference, spacer=rl + 2 * args.eth,
-                                  on_error=args.on_error,
-                                  rejected=rejected_contigs)
-    for cname, why in rejected_contigs:
-        _say(f"map_fastq: skipped contig {cname!r}: {why}")
+    if sharded is not None:
+        contigs = sharded.contigs
+        # only the paired-end mate rescue needs the genome itself;
+        # single-end runs stay on the memmapped packed reference
+        ref = sharded.reference_codes() if paired else None
+        n_indexed = sharded.ref_len
+        idx = sharded
+        src = (f"index {args.index_dir} ({sharded.num_partitions} "
+               f"partitions)")
+    else:
+        # spacer >= one alignment window: no read can map across a boundary
+        rejected_contigs: list = []
+        ref, contigs = load_reference(args.reference,
+                                      spacer=rl + 2 * args.eth,
+                                      on_error=args.on_error,
+                                      rejected=rejected_contigs)
+        for cname, why in rejected_contigs:
+            _say(f"map_fastq: skipped contig {cname!r}: {why}")
+        n_indexed = len(ref)
+        idx = build_index(ref, read_len=rl, k=args.k, w=args.w,
+                          eth=args.eth, device=device,
+                          backend=args.wf_backend)
+        src = "in-memory index"
     refmap = ReferenceMap(contigs)
-    idx = build_index(ref, read_len=rl, k=args.k, w=args.w, eth=args.eth,
-                      device=device, backend=args.wf_backend)
-    mapper = Mapper(idx, cfg, device=device)
+    budget = (int(args.index_budget_mb * (1 << 20))
+              if args.index_budget_mb is not None else None)
+    mapper = Mapper(idx, cfg, device=device, memory_budget_bytes=budget,
+                    prefetch=args.prefetch)
     # mate rescue reads the genome: on the device once a run
     ref_dev = torch.from_numpy(ref).to(device) if paired else None
-    _say(f"map_fastq: {len(contigs)} contig(s), {len(ref)} indexed bases "
-         f"(in-memory index), read_len={rl}, topology={mapper.topology}, "
+    _say(f"map_fastq: {len(contigs)} contig(s), {n_indexed} indexed bases "
+         f"({src}), read_len={rl}, topology={mapper.topology}, "
          f"paired={paired}, both_strands={cfg.both_strands}, "
          f"engine={cfg.engine}, wf_backend={cfg.wf_backend}, "
          f"device={mapper.device}")
@@ -232,6 +293,7 @@ def run(args) -> int:
                     "survivors", "affine_instances",
                     "padded_affine_instances", "dropped_send",
                     "dropped_affine"))
+                accumulate_partition_stats(totals, res.stats)
             out.flush()  # each chunk's records land in the .partial segment
             rate = totals["reads"] / max(time.perf_counter() - t_map, 1e-9)
             _say(f"chunk {i}: {n_new} reads, "
@@ -294,11 +356,27 @@ def build_parser() -> argparse.ArgumentParser:
                     "emit SAM.")
     ap.add_argument("reference", nargs="?", default=None,
                     help="FASTA reference (multi-contig ok; N -> "
-                         "never-matching sentinel)")
+                         "never-matching sentinel); omit when mapping "
+                         "against a prebuilt --index-dir")
     ap.add_argument("reads", nargs="?", default=None,
                     help="FASTQ reads (4-line records; .gz ok) — "
                          "single-end, or interleaved pairs with "
                          "--interleaved")
+    ap.add_argument("--index-dir", default=None, metavar="DIR",
+                    help="prebuilt sharded index directory "
+                         "(launch.build_index of either package) instead "
+                         "of indexing a FASTA at startup; geometry comes "
+                         "from the manifest")
+    ap.add_argument("--index-budget-mb", type=float, default=None,
+                    metavar="MB",
+                    help="--index-dir: device budget for the partition "
+                         "arena; partitions load lazily and LRU-evict "
+                         "under this bound")
+    ap.add_argument("--prefetch", action="store_true",
+                    help="--index-dir: stage the next chunk's routing and "
+                         "partition uploads on a background worker while "
+                         "the current chunk computes (bit-identical "
+                         "results)")
     ap.add_argument("--r1", default=None,
                     help="paired-end R1 FASTQ (.gz ok); requires --r2")
     ap.add_argument("--r2", default=None,
@@ -351,9 +429,17 @@ def main(argv=None) -> int:
         sys.argv if argv is None else ["repro_torch.launch.map_fastq",
                                        *argv])
     _refuse_not_ported(ap, args)
-    if args.reference is None:
-        raise SystemExit("map_fastq: a FASTA reference (positional) is "
-                         "required")
+    if args.index_dir is not None:
+        if args.reference is not None and args.reads is None:
+            # `map_fastq --index-dir DIR reads.fq`: the sole positional
+            # is the FASTQ — no FASTA on this path
+            args.reference, args.reads = None, args.reference
+        if args.reference is not None:
+            raise SystemExit("map_fastq: pass either a FASTA reference or "
+                             "--index-dir, not both")
+    elif args.reference is None:
+        raise SystemExit("map_fastq: a FASTA reference (positional) or "
+                         "--index-dir is required")
     try:
         return run(args)
     except BrokenPipeError:

@@ -35,6 +35,9 @@ print("LOADED", bad)
      "repro_torch.models", "repro_torch.models.layers",
      "repro_torch.models.transformer", "repro_torch.models.lm",
      "repro_torch.models.convert", "repro_torch.kernels.ops"),
+    # the sharded index
+    ("repro_torch.index", "repro_torch.index.residency",
+     "repro_torch.launch.build_index"),
     # the flash wrapper's plain version, first in a fresh process
     ("repro_torch.core.attention", "repro_torch.kernels.ops",
      "repro_torch.models.layers"),

@@ -5,7 +5,8 @@ command.  The world is the reference e2e test's: two contigs with an N
 run and 24 reads of 120 bases on both strands, plus a copy of the FASTQ
 with one malformed record for the permissive path; and 24 pairs of those
 contigs (some R2 mates junk) as R1/R2 files, one interleaved file and an
-R2 file that lost a record (a mate desync)."""
+R2 file that lost a record (a mate desync); and sharded indexes of the
+FASTA built by each package (``--index-dir``)."""
 import os
 import subprocess
 import sys
@@ -90,8 +91,9 @@ def _ref_cli(world, runs):
                          os.pathsep + env.get("PYTHONPATH", ""))
     procs = {}
     for name, inputs, argv in runs:
+        fasta = [] if "--index-dir" in argv else [str(world / "ref.fa")]
         cmd = [sys.executable, "-m", "repro.launch.map_fastq",
-               str(world / "ref.fa"), *inputs,
+               *fasta, *inputs,
                "-o", str(world / f"ref_{name}.sam"), "--chunk-reads", "16",
                *argv]
         procs[name] = subprocess.Popen(cmd, env=env, cwd=str(world),
@@ -204,10 +206,7 @@ def test_stdout_output(world, ref_sams, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (("--index-budget-mb", "64"), 7),
     (("--watchdog", "5"), 8),
-    (("--index-dir", "idx"), 7),
-    (("--prefetch",), 7),
     (("--topology", "mesh"), 9),
     (("--inject", "record=0.1"), 8),
     (("--trace-out", "t.json"), 8),
@@ -350,3 +349,107 @@ def test_card_refuses_eth_before_the_index_build_on_pairs(paired_world,
                         str(w / "eth13_pairs.sam"), "--device", "cuda",
                         "--eth", "13"])
     assert not (w / "eth13_pairs.sam").exists()
+
+
+# ------------------------------------------------------------ --index-dir
+
+@pytest.fixture(scope="module")
+def index_world(paired_world):
+    """Sharded indexes of ``ref.fa`` (8 partitions, odd tiles): ``idx``
+    built by the reference, ``idx_port`` by the port; both hold the same
+    bytes."""
+    from repro.index import build_sharded_index as ref_build
+    from repro_torch.index import build_sharded_index
+    w = paired_world
+    kw = dict(num_partitions=8, tile_bp=1001, read_len=READ_LEN)
+    ref_build(str(w / "ref.fa"), str(w / "idx"), **kw)
+    build_sharded_index(str(w / "ref.fa"), str(w / "idx_port"),
+                        device="cpu", **kw)
+    return w
+
+
+@pytest.fixture(scope="module")
+def ref_index_sams(index_world):
+    """The reference CLI's SAM over ``--index-dir idx``, single-end and
+    paired (two parallel subprocesses)."""
+    w = index_world
+    return {name: sam for name, (sam, _) in _ref_cli(w, [
+        ("index", [str(w / "reads.fq")], ("--index-dir", "idx")),
+        ("index_pairs", ["--r1", str(w / "r1.fq"), "--r2", str(w / "r2.fq")],
+         ("--index-dir", "idx")),
+    ]).items()}
+
+
+def _budget_mb(index_dir):
+    """A budget just holding every partition (a chunk of 16 reads on both
+    strands touches all eight)."""
+    from repro_torch.index import open_index
+    idx = open_index(str(index_dir))
+    rows = sum(p.n_occurrences for p in idx.parts)
+    return str((rows + 1) * (idx.seg_len + 4) / (1 << 20))
+
+
+def _port_index(w, out_name, *argv):
+    rc = map_fastq.main([*argv, "-o", str(w / out_name), "--chunk-reads",
+                         "16", "--device", "cpu"])
+    assert rc == 0
+    return (w / out_name).read_text()
+
+
+@pytest.mark.parametrize("case", ["reference_index", "port_index_budget"])
+def test_index_dir_same_sam_as_reference(index_world, ref_index_sams, case,
+                                         capsys):
+    """``--index-dir`` on an index of either package writes the reference
+    CLI's SAM; the port's index mapped under a budget with prefetch on
+    the fused engine, the reference's with a ``--eth`` the manifest
+    overrides."""
+    w = index_world
+    if case == "reference_index":
+        argv = ("--index-dir", str(w / "idx"), str(w / "reads.fq"),
+                "--eth", "5")
+    else:
+        argv = ("--index-dir", str(w / "idx_port"), str(w / "reads.fq"),
+                "--engine", "fused", "--index-budget-mb",
+                _budget_mb(w / "idx_port"), "--prefetch")
+    text = _port_index(w, f"port_{case}.sam", *argv)
+    assert _body(text) == _body(ref_index_sams["index"])
+    validate_sam(text, expect_reads=N_READS)
+    err = capsys.readouterr().err
+    assert "(8 partitions)" in err and "partitions: routed" in err
+    if case == "reference_index":
+        assert "--eth 5 ignored; index manifest has eth=6" in err
+
+
+def test_index_dir_paired_same_sam_as_reference(index_world, ref_index_sams):
+    """Paired input over ``--index-dir``: mate rescue reads the genome
+    from the index's packed reference."""
+    w = index_world
+    text = _port_index(w, "port_index_pairs.sam", "--index-dir",
+                       str(w / "idx_port"), "--r1", str(w / "r1.fq"),
+                       "--r2", str(w / "r2.fq"), "--index-budget-mb",
+                       _budget_mb(w / "idx_port"), "--prefetch")
+    assert _body(text) == _body(ref_index_sams["index_pairs"])
+    validate_sam(text, expect_reads=2 * N_PAIRS, require_mapq=True)
+
+
+@pytest.mark.parametrize("argv,msg", [
+    (("ref.fa", "reads.fq", "--prefetch"),
+     "--prefetch needs --index-dir with --topology single — only the "
+     "shard-routed arena path has per-chunk partition uploads to overlap"),
+    (("--index-dir", "idx", "reads.fq", "--read-len", "100"),
+     "--read-len 100 conflicts with the index's read_len=120"),
+    (("ref.fa", "reads.fq", "--index-dir", "idx"),
+     "pass either a FASTA reference or --index-dir, not both"),
+    (("--r1", "r1.fq", "--r2", "r2.fq"),
+     "a FASTA reference (positional) or --index-dir is required"),
+])
+def test_index_dir_exits_in_the_reference_words(index_world, argv, msg):
+    w = index_world
+    argv = [str(w / a) if a.endswith((".fq", ".fa")) or a == "idx" else a
+            for a in argv]
+    with pytest.raises(SystemExit) as e:
+        map_fastq.main([*argv, "--device", "cpu", "-o",
+                        str(w / "exit.sam")])
+    assert str(e.value.code).startswith("map_fastq: ")
+    assert msg in str(e.value.code)
+    assert not (w / "exit.sam").exists()

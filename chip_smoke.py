@@ -1619,40 +1619,54 @@ def _same_fields(what, a, b):
 def _build_rss(fa, out):
     """``build_sharded_index`` in a process of its own, with torch, the
     CUDA context and the minimizer kernel's library loaded first -> (wall
-    s, its resident set in bytes: before the build, and the build's peak;
-    where each was read, as words for the log; its manifest).  The peak
-    is ``VmHWM`` reset at the build's start where ``/proc`` lets it be,
-    else the process's ``ru_maxrss``; the start is ``VmRSS`` where
-    ``/proc`` has it, else the process's peak so far."""
-    code = ("import resource, sys, torch\n"
-            "from repro_torch.kernels import build\n"
+    s, the host resident set in bytes, its minimizer launches, its
+    manifest).  A process started by ``exec`` inherits its parent's
+    ``ru_maxrss``, so the interpreter forks before it imports anything
+    and the build runs in the fork, whose peak is its own.  The resident
+    set is a dict: ``inherited`` (the exec'd interpreter's ``ru_maxrss``
+    at its first line: this script's peak so far), ``start`` (``VmRSS``
+    at the build's start), ``before`` and ``after`` (the fork's
+    ``ru_maxrss`` just before and just after the build) and ``sampled``
+    (the largest ``VmRSS`` a thread read every 5 ms during the build; 0
+    where ``/proc`` has none).  ``after > before`` makes ``after`` the
+    build's own peak; else that peak is at most ``before``, at least
+    ``sampled``."""
+    code = ("import os, resource, sys\n"
+            "def maxrss():\n"
+            "    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss\n"
+            "inherited = maxrss()\n"
+            "pid = os.fork()\n"
+            "if pid:\n"
+            "    sys.exit(os.waitstatus_to_exitcode(os.waitpid(pid, 0)[1]))\n"
+            "import threading, torch\n"
+            "from repro_torch.kernels import build, ops\n"
             "from repro_torch.index import build_sharded_index\n"
             "torch.zeros(1, device='cuda')\n"
             "build.entry('minimizer_launch')\n"
-            "def vm(key):\n"
+            "def rss():\n"
             "    try:\n"
             "        with open('/proc/self/status') as f:\n"
             "            for ln in f:\n"
-            "                if ln.startswith(key):\n"
+            "                if ln.startswith('VmRSS:'):\n"
             "                    return int(ln.split()[1])\n"
             "    except OSError:\n"
-            "        return None\n"
-            "def maxrss():\n"
-            "    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss\n"
-            "start = vm('VmRSS:')\n"
-            "now = start is not None\n"
-            "reset = vm('VmHWM:') is not None\n"
-            "if reset:\n"
-            "    try:\n"
-            "        with open('/proc/self/clear_refs', 'w') as f:\n"
-            "            f.write('5')\n"
-            "    except OSError:\n"
-            "        reset = False\n"
-            "start = start if now else maxrss()\n"
+            "        pass\n"
+            "    return 0\n"
+            "top, done = [0], threading.Event()\n"
+            "def sample():\n"
+            "    while not done.wait(0.005):\n"
+            "        top[0] = max(top[0], rss())\n"
+            "ops.reset_launch_counts()\n"
+            "start, before = rss(), maxrss()\n"
+            "th = threading.Thread(target=sample, daemon=True)\n"
+            "th.start()\n"
             "build_sharded_index(sys.argv[1], sys.argv[2],\n"
             "                    num_partitions=int(sys.argv[3]))\n"
-            "print(start, vm('VmHWM:') if reset else maxrss(), int(now),\n"
-            "      int(reset))\n")
+            "torch.cuda.synchronize()\n"
+            "done.set()\n"
+            "th.join()\n"
+            "print(inherited, start, before, maxrss(), top[0],\n"
+            "      ops.LAUNCHES['minimizer_scan'])\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", code, fa, out,
@@ -1664,11 +1678,10 @@ def _build_rss(fa, out):
                              f"{proc.returncode}\n{proc.stderr[-4000:]}")
     with open(os.path.join(out, "manifest.json")) as f:
         man = json.load(f)
-    start, peak, now, reset = (int(v) for v in proc.stdout.split()[-4:])
-    where = ("since the build's start" if reset else "of the process",
-             "resident at the build's start" if now
-             else "the process's peak before the build")
-    return dt, (start * 1024, peak * 1024, where), man
+    *kib, launches = (int(v) for v in proc.stdout.split()[-6:])
+    rss = {k: v * 1024 for k, v in zip(
+        ("inherited", "start", "before", "after", "sampled"), kib)}
+    return dt, rss, launches, man
 
 
 def phase_sharded(ref, rs, mf, work):
@@ -1820,16 +1833,28 @@ def phase_sharded(ref, rs, mf, work):
     log(f"chr1-sized reference: {BIG_BASES:,} bases and {BIG_READS:,} "
         f"reads made and written in {time.perf_counter() - t0:.2f} s")
     dir_b = os.path.join(work, "idx_big")
-    dt, (rss0, rss, (since, before)), man_b = _build_rss(fa_b, dir_b)
+    dt, rss, scans, man_b = _build_rss(fa_b, dir_b)
     os.remove(fa_b)
+    if scans != _scanned_tiles(man_b):
+        raise AssertionError(f"256 Mb build: {scans} minimizer launches for "
+                             f"{_scanned_tiles(man_b)} scanned tiles")
+    mib = {k: f"{v / 2**20:,.0f} MiB" for k, v in rss.items()}
+    if rss["after"] > rss["before"]:
+        own = f"the build's own peak {mib['after']} (the process's peak rose"
+    else:
+        own = (f"the build's own peak at most {mib['before']}, the process's "
+               f"peak before it (unchanged by the build")
     log(f"build_sharded_index (own process, kernel scan): {BIG_BASES:,} bases, "
         f"{man_b['build']['n_occurrences']:,} occurrences, "
-        f"{man_b['build']['tiles']} tiles, in {dt:.2f} s wall with the "
-        f"process's start = {BIG_BASES / dt:,.0f} bases/s; manifest "
-        f"wall_s {man_b['build']['wall_s']:.2f} s = "
-        f"{BIG_BASES / man_b['build']['wall_s']:,.0f} bases/s; peak host "
-        f"RSS {rss / 2**20:,.0f} MiB {since} ({before}, with torch, the "
-        f"CUDA context and the kernel's library: {rss0 / 2**20:,.0f} MiB)")
+        f"{man_b['build']['tiles']} tiles, {scans} minimizer launches, in "
+        f"{dt:.2f} s wall with the process's start = {BIG_BASES / dt:,.0f} "
+        f"bases/s; manifest wall_s {man_b['build']['wall_s']:.2f} s = "
+        f"{BIG_BASES / man_b['build']['wall_s']:,.0f} bases/s; host RSS: "
+        f"{own} from {mib['before']} to {mib['after']}); at its start "
+        f"{mib['start']} resident; the largest VmRSS sampled every 5 ms "
+        f"during it {mib['sampled']}; ru_maxrss inherited by the exec'd "
+        f"interpreter from this script {mib['inherited']}")
+    out["big_build"] = scans
     idx_b = open_index(dir_b)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2758,8 +2783,9 @@ def main() -> int:
              for e, l in sharded["map_fastq"].items()},
             evicting=sharded["evicting"][name],
             origin=sharded["origin"][name], chr1_sized=sharded["big"][name])
-    rows["minimizer_scan"]["sharded_launches"]["build_tiles"] = \
-        sharded["build_tiles"]
+    rows["minimizer_scan"]["sharded_launches"].update(
+        build_tiles=sharded["build_tiles"],
+        chr1_sized_build=sharded["big_build"])
     log(f"total {time.perf_counter() - t_all:.2f} s")
     log(smi)
     print(json.dumps({"kernels": list(rows.values())}))

@@ -61,18 +61,14 @@ def seed_reads(uniq_kmers: torch.Tensor, offsets: torch.Tensor,
 def _read_minimizers(reads: np.ndarray, params: SeedParams, backend: str,
                      device):
     """Each read's unique minimizers for routing, on the host: (k-mer
-    codes (R, M) uint32, starts (R, M) int32, valid (R, M) bool).  On
-    ``"cuda"`` from ``unique_read_minimizers`` on ``device`` (the
-    minimizer kernel once a call, for a CUDA device); on ``"torch"`` from
-    ``index.npscan``, the reference's host scan."""
-    M = params.max_minis
-    if backend == "torch":
-        from ..index.npscan import np_unique_read_minimizers
-        return np_unique_read_minimizers(reads, params.k, params.w, M)
+    codes (R, M) uint32, starts (R, M) int32, valid (R, M) bool), from
+    ``unique_read_minimizers`` on ``device`` (the minimizer kernel once a
+    call on ``"cuda"`` with a CUDA device, else its plain version)."""
     t = torch.from_numpy(np.ascontiguousarray(reads, dtype=np.uint8)).to(
         device)
     kmers, pos, valid = unique_read_minimizers(t, k=params.k, w=params.w,
-                                               max_uniq=M, backend=backend)
+                                               max_uniq=params.max_minis,
+                                               backend=backend)
     return (kmers.cpu().numpy().astype(np.uint32),
             pos.cpu().numpy().astype(np.int32), valid.cpu().numpy())
 

@@ -1,15 +1,12 @@
-"""Pure-numpy minimizer scan — a copy of ``repro.index.npscan``.
+"""The sharded index's routing hash on the host — ``np_hash32`` of
+``repro.index.npscan``, a bit-identical numpy twin of
+``core.minimizers.hash32`` on uint32 arrays.
 
-Bit-identical twins of ``core.minimizers`` (``hash32``, ``kmer_codes``,
-``sliding_argmin``, ``minimizers``, ``unique_read_minimizers``) on uint32
-numpy arrays: every operation is exact integer arithmetic.
-
-In the port it is the plain host route of two callers: the routing rule
-of the sharded index (``np_hash32``: partition ``hash32(kmer) % P``), and
-routed seeding on ``wf_backend="torch"``
-(``core.seeding.seed_reads_routed``).  The sharded build scans its tiles
-through ``core.wf_backend.minimizers`` instead (the minimizer kernel on
-``"cuda"``).
+A k-mer's partition is ``hash32(kmer) % P``: the build spills each
+occurrence by it, routed seeding sends each read minimizer by it.  The
+minimizer scans themselves (the build's tiles, routed seeding's reads)
+go through ``core.minimizers`` and ``core.wf_backend``: the kernel on
+``"cuda"``, the plain torch version on ``"torch"`` or the CPU.
 """
 from __future__ import annotations
 
@@ -22,77 +19,3 @@ def np_hash32(x: np.ndarray) -> np.ndarray:
     x = (x ^ (x >> np.uint32(16))) * np.uint32(0x7FEB352D)
     x = (x ^ (x >> np.uint32(15))) * np.uint32(0x846CA68B)
     return x ^ (x >> np.uint32(16))
-
-
-def np_kmer_codes(seq: np.ndarray, k: int) -> np.ndarray:
-    """All k-mer integer codes along the last axis -> (..., L-k+1) uint32."""
-    assert k <= 16, "k-mer code must fit 32 bits"
-    n = seq.shape[-1] - k + 1
-    acc = np.zeros(seq.shape[:-1] + (n,), dtype=np.uint32)
-    for j in range(k):
-        acc |= seq[..., j : j + n].astype(np.uint32) << np.uint32(
-            2 * (k - 1 - j))
-    return acc
-
-
-def np_sliding_argmin(values: np.ndarray, window: int):
-    """Sliding-window (min, leftmost argmin) by (value, index) doubling —
-    the same step schedule as ``core.minimizers.sliding_argmin``, so tie
-    resolution is identical, not merely equivalent."""
-    n = values.shape[-1] - window + 1
-    idx = np.broadcast_to(
-        np.arange(values.shape[-1], dtype=np.int32), values.shape)
-    val, pos = values, idx
-    span = 1
-    while span < window:
-        step = min(span, window - span)
-        a_v, a_p = val[..., : val.shape[-1] - step], \
-            pos[..., : pos.shape[-1] - step]
-        b_v, b_p = val[..., step:], pos[..., step:]
-        take_b = (b_v < a_v) | ((b_v == a_v) & (b_p < a_p))
-        val = np.where(take_b, b_v, a_v)
-        pos = np.where(take_b, b_p, a_p)
-        span += step
-    return val[..., :n], pos[..., :n]
-
-
-def np_minimizers(seq: np.ndarray, k: int, w: int):
-    """Window minimizers -> (min_hash, min_kmer, min_pos), each
-    (..., n_windows); ``min_pos`` is the k-mer start within ``seq``."""
-    codes = np_kmer_codes(seq, k)
-    minh, min_pos = np_sliding_argmin(np_hash32(codes), w)
-    min_kmer = np.take_along_axis(codes, min_pos, axis=-1)
-    return minh, min_kmer, min_pos
-
-
-def np_unique_read_minimizers(reads: np.ndarray, k: int, w: int,
-                              max_uniq: int):
-    """Batched unique minimizers per read, static-shape padded.
-
-    reads: (R, rl).  Returns (kmers (R, max_uniq) uint32,
-    positions (R, max_uniq) int32, valid (R, max_uniq) bool) — the host
-    twin of ``vmap(unique_read_minimizers)``: stable sort by kmer, keep
-    the first occurrence of each, compact to the front.
-    """
-    _, kmer, pos = np_minimizers(reads, k, w)
-    R, n_win = kmer.shape
-    order = np.argsort(kmer, axis=-1, kind="stable")
-    ks = np.take_along_axis(kmer, order, -1)
-    ps = np.take_along_axis(pos, order, -1)
-    first = np.concatenate(
-        [np.ones((R, 1), dtype=bool), ks[:, 1:] != ks[:, :-1]], axis=1)
-    rank = np.cumsum(first, axis=-1) - 1
-    slots = np.where(first, rank, n_win)
-    out_k = np.zeros((R, n_win + 1), dtype=ks.dtype)
-    out_p = np.zeros((R, n_win + 1), dtype=np.int32)
-    np.put_along_axis(out_k, slots, ks, axis=-1)
-    np.put_along_axis(out_p, slots, ps.astype(np.int32), axis=-1)
-    n_uniq = first.sum(axis=-1)
-    valid = np.arange(max_uniq)[None, :] < np.minimum(n_uniq,
-                                                      max_uniq)[:, None]
-    m = min(max_uniq, n_win + 1)
-    kmers = np.zeros((R, max_uniq), dtype=ks.dtype)
-    positions = np.zeros((R, max_uniq), dtype=np.int32)
-    kmers[:, :m] = out_k[:, :m]
-    positions[:, :m] = out_p[:, :m]
-    return kmers, positions, valid

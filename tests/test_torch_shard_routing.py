@@ -298,6 +298,24 @@ def test_prefetch_racing_ensure_loads_exactly_once():
                                   parts[p].positions)
 
 
+def test_prefetch_is_best_effort_where_ensure_raises():
+    """``prefetch`` of more than the budget holds returns None where
+    ``ensure`` raises; otherwise it stages as ``ensure(prefetch=True)``,
+    and a later ``ensure`` counts the hit: the reference's bases,
+    residents, counters and arena after every call."""
+    want, got = _pair([60, 30, 20], 8, 70)
+    for res in (want, got):
+        assert res.prefetch([0, 1]) is None
+        with pytest.raises(ValueError):
+            res.ensure([0, 1])
+    _same_residency(want, got)
+    assert got.prefetch([1, 2]) == want.prefetch([1, 2])
+    _same_residency(want, got)
+    assert got.ensure([2]) == want.ensure([2])
+    assert got.prefetch_hits == 1 and got.prefetch_loads >= 2
+    _same_residency(want, got)
+
+
 @pytest.mark.parametrize("ref_len,dtype,row_pos_bytes", [
     (1000, torch.int32, 4), (2**31 + 5, torch.int32, 4),
     (2**32 - 1, torch.int32, 4), (2**32, torch.int64, 8)])

@@ -122,11 +122,34 @@ Phases, each fatal on failure:
    256 Mb built streamed in a process of its own (seconds, bases/s, peak
    host RSS) and mapped by 32,768 reads (accuracy, the arena's device
    bytes).  Phase 7's files are kept for it and removed after.
+12. serving, resilience and observability, on phase 4's index (run after
+   phase 10, before phase 11 frees the index), each check fatal: a
+   ``MappingService`` (buckets of 64 to 16,384 reads) on the compacted and
+   the fused engine fed phase 4's 131,072 reads as requests of 1 to 4,096
+   reads (log-uniform from a seed) and 64 ``submit_paired`` requests of
+   256 of phase 7b's pairs, every request equal to its rows of a plain
+   ``Mapper.map`` / ``map_pairs``, at most 9 plan-cache misses, the four
+   kernels launched, the ladder at rung 0 (requests/s, reads/s, bucket
+   execute p50 and p99); a ``ResilientMapper`` on 16,384 reads with
+   poisoned rows, a 5% transient bucket fault rate and ``engines=fused``,
+   then ``engines=fused;cuda``: the quarantined rows and counters the
+   bisection gives from the spec alone, one step down the ladder, healthy
+   rows equal to a clean run; with the backend marked failing every row
+   quarantined, no rung off the ``cuda`` backend and no kernel launched
+   (the plain versions never stand in on the card); a fetch stall past the watchdog (``FetchStallError``
+   within the watchdog + 5 s, the next run on the session clean);
+   ``map_fastq --no-stream --trace-out --metrics-out --log-json`` on
+   phase 7's files (phase 7's SAM, a valid trace and snapshots, the
+   closing counts the registry's; the wall time split by stage); the
+   device memory allocated after each of a 1-, 4- and 16-chunk run equal
+   to that before it, and the peak over 16 chunks no more than over 4
+   plus one chunk's; printed only: an armed-but-idle ``ResilientMapper`` and
+   armed metrics and tracing against a plain ``Mapper.map``.
 
 Each phase prints its seconds.  The last lines are the kernels JSON line
 (phases 8, 9 and 10, with each kernel's bound computed from its
 inputs; the mapper kernels' rows also hold their launches in phase 11's
-steps; the affine_wf_dist row also holds phase 7b's rescue, the flash
+and phase 12's steps; the affine_wf_dist row also holds phase 7b's rescue, the flash
 row the timed cases of phase 9, the
 float32 ones under ``cuda_core_kernel``) and the contract line ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, when no CUDA device is present or anything fails.
@@ -235,6 +258,24 @@ JUNK_FRAC = 0.02
 PAIR_ACCURACY_BAR = 0.97
 N_KILL = 256
 PAIR_FIELDS = ("proper", "mapq1", "mapq2", "rescued1", "rescued2", "insert")
+# phase 12, serving, resilience and observability: a MappingService over
+# phase 4's index with buckets of 64 to CHUNK reads, fed phase 4's reads
+# as requests of 1 to 4,096 reads (log-uniform) and 64 paired requests of
+# 256 of phase 7b's pairs, flushed a burst of 2 x CHUNK reads at a time;
+# a ResilientMapper on CHUNK reads with poisoned rows and a transient
+# bucket fault rate; a fetch stall past the watchdog; the trace, metrics
+# and JSON log of map_fastq; device memory over 4 and 16 chunks
+SVC_BUCKET_MIN, SVC_MAX_REQUEST = 64, 4_096
+SVC_PAIRED, SVC_PAIRS = 64, 256
+SVC_BURST = 2 * CHUNK
+SVC_SEED = 12
+# poisoned rows where no three block failures run in a row once the
+# failing engine is left (RetryPolicy.degrade_after=3), so the injected
+# engine alone steps the ladder
+RESILIENT_SPEC = "poison=1000;12000,bucket=0.05,seed=7"
+WATCHDOG_S, STALL_S = 2.0, 20.0
+MEM_CHUNK = CHUNK // 2
+OVERHEAD_ROUNDS = 5
 FIELDS = ("position", "distance", "distance2", "mapped", "strand", "ops",
           "op_count", "n_candidates")
 # kernels each engine launches, and those it must not
@@ -906,8 +947,7 @@ def phase_e2e():
 
     log(f"end to end: reference of {GENOME_BASES:,} bases — GRCh38 "
         f"(3.1 Gb) is cut to 64 Mb because the flat index build runs on "
-        f"the host inside this run's time limit; full-genome scale waits "
-        f"for the sharded index")
+        f"the host inside this run's time limit")
     t0 = time.perf_counter()
     ref = make_reference(GENOME_BASES, seed=0, repeat_frac=0.02)
     t1 = time.perf_counter()
@@ -1523,7 +1563,7 @@ def phase_paired(idx, ref):
                 f"--r2's apart from @PG; launches {launches}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return path, rescue
+    return path, rescue, ps
 
 
 def _scanned_tiles(man):
@@ -1874,6 +1914,448 @@ def phase_sharded(ref, rs, mf, work):
     if ok.mean() < ACCURACY_BAR:
         raise AssertionError(f"chr1-sized map: accuracy {ok.mean()}")
     out["big"] = launches
+    return out
+
+
+def _same_slice(what, got, want, lo, hi):
+    """``got`` (a request's result) equals rows [lo, hi) of ``want`` in
+    every field ``want`` holds."""
+    for f in FIELDS + ("linear_dist",):
+        b = getattr(want, f)
+        a = getattr(got, f)
+        if b is None:
+            if a is not None:
+                raise AssertionError(f"{what}: {f} is set, the plain run's "
+                                     f"is None")
+            continue
+        if not np.array_equal(a, b[lo:hi]):
+            raise AssertionError(f"{what}: {f} differs from the plain "
+                                 f"run's rows [{lo}, {hi})")
+    if got.failed is not None and got.failed.any():
+        raise AssertionError(f"{what}: {int(got.failed.sum())} reads "
+                             f"quarantined on a healthy run")
+
+
+def _service_load(rng, n_reads, n_paired):
+    """Request sizes of 1 to SVC_MAX_REQUEST reads, log-uniform, covering
+    ``n_reads``; and the request indices after which each of the
+    ``n_paired`` paired requests is submitted."""
+    sizes = []
+    while sum(sizes) < n_reads:
+        sizes.append(min(int(np.exp(rng.uniform(
+            0, np.log(SVC_MAX_REQUEST + 1)))), SVC_MAX_REQUEST,
+            n_reads - sum(sizes)))
+    return sizes, sorted(rng.choice(len(sizes), n_paired, replace=False))
+
+
+def _run_service(idx, engine, rs, pairs, sizes, after):
+    """One engine's service run on the load; checks it against a plain
+    ``Mapper.map`` / ``map_pairs`` -> the run's launches."""
+    import torch
+    from repro_torch.core.mapper import Mapper
+    from repro_torch.core.pipeline import MapperConfig
+    from repro_torch.core.serving import BatcherConfig
+    from repro_torch.kernels import ops
+    from repro_torch.obs import registry as obs_registry
+
+    cfg = MapperConfig.from_index(idx, both_strands=True, chunk_reads=CHUNK,
+                                  engine=engine, cigar_mode="eager")
+    r1 = pairs.reads1[:SVC_PAIRED * SVC_PAIRS]
+    r2 = pairs.reads2[:SVC_PAIRED * SVC_PAIRS]
+    plain = Mapper(idx, cfg)
+    want = plain.map(rs.reads)
+    want1, want2 = plain.map_pairs(r1, r2)
+    plain.close()
+    mapper = Mapper(idx, cfg)
+    svc = mapper.serve(BatcherConfig(bucket_min=SVC_BUCKET_MIN,
+                                     bucket_max=CHUNK))
+    reg = obs_registry.enable_metrics(obs_registry.MetricsRegistry())
+    spans, results, pending, lo, p = {}, {}, 0, 0, 0
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        for i, n in enumerate(sizes):
+            spans[svc.submit(rs.reads[lo:lo + n])] = ("single", lo, lo + n)
+            lo += n
+            pending += n
+            while p < len(after) and after[p] == i:
+                a, b = p * SVC_PAIRS, (p + 1) * SVC_PAIRS
+                spans[svc.submit_paired(r1[a:b], r2[a:b])] = ("paired", a, b)
+                pending += 2 * SVC_PAIRS
+                p += 1
+            if pending >= SVC_BURST or i == len(sizes) - 1:
+                results.update(svc.flush())
+                pending = 0
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        obs_registry.disable_metrics()
+    launches = dict(ops.LAUNCHES)
+    what = f"MappingService --engine {engine}"
+    _check_launches(what, engine, launches)
+    if sorted(results) != sorted(spans):
+        raise AssertionError(f"{what}: {len(results)} requests resolved of "
+                             f"{len(spans)}")
+    for rid, (kind, a, b) in spans.items():
+        got = results[rid]
+        if kind == "single":
+            _same_slice(f"{what} request {rid}", got, want, a, b)
+        else:
+            _same_slice(f"{what} paired request {rid} R1", got[0], want1,
+                        a, b)
+            _same_slice(f"{what} paired request {rid} R2", got[1], want2,
+                        a, b)
+    misses = mapper.plan_cache_misses
+    bound = int(math.log2(CHUNK // SVC_BUCKET_MIN)) + 1
+    if misses > bound:
+        raise AssertionError(f"{what}: {misses} plan-cache misses, more "
+                             f"than log2({CHUNK}/{SVC_BUCKET_MIN}) + 1 = "
+                             f"{bound}")
+    rm = svc.resilient
+    if rm.ladder.level or any(rm.counters.values()):
+        raise AssertionError(f"{what}: a healthy run left rung 0: "
+                             f"{rm.ladder.describe()}, {rm.counters}")
+    h = reg.histogram("repro_bucket_execute_seconds")
+    n_reads = len(rs.reads) + 2 * len(r1)
+    log(f"{what}: {len(spans):,} requests ({len(sizes):,} single-end, "
+        f"{len(after)} paired of {SVC_PAIRS} pairs), {n_reads:,} reads in "
+        f"{dt:.3f} s = {len(spans) / dt:,.0f} requests/s, "
+        f"{n_reads / dt:,.0f} reads/s; {h.count} bucket executions, p50 "
+        f"{h.quantile(0.5):.4g} s, p99 {h.quantile(0.99):.4g} s (bucket "
+        f"upper edges); plan cache {mapper.plan_cache_hits} hits / {misses} "
+        f"misses (at most {bound}); batcher {svc.batcher.stats['bucket_hist']}"
+        f", padding {svc.batcher.stats['padded_reads']:,} reads; launches "
+        f"{launches}; every request equals the plain run's rows, rung 0")
+    mapper.close()
+    return launches
+
+
+class _PlanOnly:
+    """A session that maps nothing: ``ResilientMapper`` over it, driven by
+    an injector alone, quarantines the blocks that the injector's spec
+    makes the bisection quarantine (``tests/test_torch_resilience.py``
+    holds the same code to the reference's)."""
+
+    def __init__(self, cfg):
+        import torch
+        self.cfg, self.device = cfg, torch.device("cpu")
+
+    def plan(self, n, chunk=None):
+        return n
+
+    def run(self, n, reads):
+        return type("Rows", (), dict(position=np.zeros(n)))
+
+    def with_config(self, cfg):
+        return _PlanOnly(cfg)
+
+
+def _quarantine(segments):
+    from repro_torch.core.resilience import BlockFailure
+    return np.concatenate([np.full(n, isinstance(s, BlockFailure))
+                           for n, s in segments])
+
+
+def _run_resilient(idx, reads, clean, engines):
+    """A ``ResilientMapper`` on ``reads`` with ``RESILIENT_SPEC`` and the
+    fused engine, ``engines`` marked failing: one step down; with the
+    ``cuda`` backend marked failing every row is quarantined on the last
+    rung and no kernel runs.  -> its launches."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.mapper import Mapper
+    from repro_torch.core.pipeline import MapperConfig
+    from repro_torch.core.resilience import (FaultInjector, ResilientMapper,
+                                             RetryPolicy)
+    from repro_torch.kernels import ops
+
+    spec = f"{RESILIENT_SPEC},engines={engines}"
+    policy = RetryPolicy(max_attempts=3, backoff_s=0.0, degrade_after=3)
+    cfg = MapperConfig.from_index(idx, both_strands=True, chunk_reads=CHUNK,
+                                  engine="fused", cigar_mode="eager")
+    with contextlib.redirect_stderr(io.StringIO()):   # its descents
+        want, want_counters = ResilientMapper(
+            _PlanOnly(cfg), policy,
+            FaultInjector.from_spec(spec)).map_segments(reads)
+    want = _quarantine(want)
+    inj = FaultInjector.from_spec(spec)
+    rm = ResilientMapper(Mapper(idx, cfg, injector=inj), policy, inj)
+    err = io.StringIO()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        res, mask, counters = rm.map(reads)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    what = f"ResilientMapper engines={engines}"
+    if not np.array_equal(mask, want):
+        raise AssertionError(f"{what}: quarantined rows "
+                             f"{np.flatnonzero(mask)[:40]}, the bisection "
+                             f"quarantines {np.flatnonzero(want)[:40]}")
+    if counters != want_counters or counters["degraded_steps"] != 1 \
+            or rm.ladder.level != 1:
+        raise AssertionError(f"{what}: {counters}, ladder "
+                             f"{rm.ladder.describe()}; the bisection's "
+                             f"{want_counters}, one step down")
+    backends = {c.wf_backend for c in rm.ladder.rungs}
+    if backends != {"cuda"}:
+        raise AssertionError(f"{what}: ladder rungs on {backends}")
+    if "cuda" in engines.split(";"):
+        if res is not None or not mask.all() or any(launches.values()):
+            raise AssertionError(f"{what}: {int(mask.sum())} of "
+                                 f"{len(reads)} rows quarantined, launches "
+                                 f"{launches}; every row must be, with no "
+                                 f"launch")
+    else:
+        ok = ~mask
+        for f in FIELDS:
+            if not np.array_equal(getattr(res, f)[ok],
+                                  getattr(clean, f)[ok]):
+                raise AssertionError(f"{what}: healthy rows differ in {f}")
+        _check_launches(what, rm.cfg.engine, launches)
+    descents = [ln for ln in err.getvalue().splitlines()
+                if "engine ladder down to" in ln]
+    if len(descents) != 1:
+        raise AssertionError(f"{what}: {len(descents)} descents written to "
+                             f"stderr: {err.getvalue()}")
+    log(f"{what}: {len(reads):,} reads in {dt:.3f} s; quarantined "
+        f"{int(mask.sum())} rows {np.flatnonzero(mask).tolist()[:8]}... "
+        f"(the bisection's, from the spec alone), counters {counters}, "
+        f"ladder {rm.ladder.describe()}, fired {inj.fired}; healthy rows "
+        f"equal the clean run, no rung off the cuda backend; launches "
+        f"{launches}")
+    for ln in descents:
+        log(f"  {ln}")
+    return launches
+
+
+def _run_watchdog(idx, reads, clean):
+    """A fetch stall of STALL_S past a watchdog of WATCHDOG_S: the error
+    within WATCHDOG_S + 5 s, then a clean run on the same session."""
+    from repro_torch.core.mapper import Mapper
+    from repro_torch.core.pipeline import MapperConfig
+    from repro_torch.core.resilience import FaultInjector
+    from repro_torch.core.streaming import FetchStallError
+
+    class StallOnce(FaultInjector):
+        def __init__(self):
+            super().__init__(stall_s=STALL_S, rates={"fetch_stall": 1.0})
+            self.shots = 1
+
+        def fire(self, site):
+            if site == "fetch_stall" and self.shots > 0:
+                self.shots -= 1
+                return True
+            return False
+
+    cfg = MapperConfig.from_index(idx, both_strands=True, chunk_reads=CHUNK)
+    mapper = Mapper(idx, cfg, injector=StallOnce(), watchdog_s=WATCHDOG_S)
+    t0 = time.perf_counter()
+    try:
+        mapper.map(reads)
+    except FetchStallError as e:
+        dt = time.perf_counter() - t0
+        msg = str(e)
+    else:
+        raise AssertionError("a stalled fetch did not trip the watchdog")
+    if dt > WATCHDOG_S + 5:
+        raise AssertionError(f"the watchdog took {dt:.2f} s")
+    t1 = time.perf_counter()
+    again = mapper.map(reads)
+    dt2 = time.perf_counter() - t1
+    for f in FIELDS:
+        if not np.array_equal(getattr(again, f), getattr(clean, f)):
+            raise AssertionError(f"the run after the stall differs in {f}")
+    mapper.close()
+    log(f"watchdog: a {STALL_S:.0f} s fetch stall raised FetchStallError "
+        f"after {dt:.3f} s (watchdog {WATCHDOG_S} s; {msg!r}); the next "
+        f"run on the same session took {dt2:.3f} s and equals the clean "
+        f"run")
+
+
+def _run_map_fastq_obs(mf, work):
+    """``map_fastq --no-stream --trace-out --metrics-out --log-json`` on
+    phase 7's files, compacted: the SAM equals phase 7's, the trace and
+    the snapshots validate, the closing counts are the registry's, and
+    the trace splits the wall time by stage.  -> its launches."""
+    from repro_torch.obs.validate import (load_json, validate_chrome_trace,
+                                          validate_jsonl)
+    out, trace, metrics = (os.path.join(work, f) for f in
+                           ("obs.sam", "trace.json", "metrics.jsonl"))
+    dt, err, launches, n_build = _map_fastq_run(
+        [mf["fa"], mf["fq"], "-o", out, "--chunk-reads", str(CHUNK),
+         "--no-stream", "--trace-out", trace, "--metrics-out", metrics,
+         "--log-json"], "--trace-out --metrics-out --log-json")
+    what = "map_fastq --trace-out"
+    _check_launches(what, "compacted", launches,
+                    minimizer=n_build + -(-N_READS // CHUNK))
+    with open(out) as f:
+        body = [ln for ln in f.read().splitlines()
+                if not ln.startswith("@PG")]
+    if body != mf["body"]:
+        raise AssertionError(f"{what}: the SAM differs from phase 7's")
+    tr = load_json(trace)
+    bad = validate_chrome_trace(tr) + validate_jsonl(
+        metrics, load_json(os.path.join(ROOT, "schemas",
+                                        "metrics_snapshot.schema.json")))
+    if bad:
+        raise AssertionError(f"{what}: {bad[:5]}")
+    with open(metrics) as f:
+        last = json.loads(f.read().splitlines()[-1])["counters"]
+    line = [ln for ln in err.splitlines()
+            if ln.startswith("filter/affine [single]:")][0]
+    got = [int(x) for x in re.findall(r"\d+", line)[:3]]
+    want = [last[f'repro_{f}_total{{topology="single"}}'] for f in
+            ("survivors", "affine_instances", "padded_affine_instances")]
+    if got != want:
+        raise AssertionError(f"{what}: closing line {got}, registry {want}")
+    events = [json.loads(ln)["event"] for ln in err.splitlines()
+              if ln.startswith("{")]
+    if events[0] != "start" or events[-1] != "done" or \
+            events.count("chunk") != -(-N_READS // CHUNK):
+        raise AssertionError(f"{what}: JSON events {events}")
+    split = {}
+    for e in tr["traceEvents"]:
+        if e["ph"] == "X":
+            split[e["name"]] = split.get(e["name"], 0.0) + e["dur"] / 1e6
+    order = ("ingest", "host_prep", "h2d", "seed", "linear", "affine",
+             "traceback", "d2h", "sam_emit")
+    traced = sum(split.get(k, 0.0) for k in order)
+    log(f"{what}: {dt:.2f} s wall (index build included); the SAM equals "
+        f"phase 7's; trace and snapshots valid; closing counts are the "
+        f"registry's {want}; {len(events)} JSON events")
+    log("  wall-time split (s, trace spans, --no-stream): " + ", ".join(
+        f"{k} {split.get(k, 0.0):.4f}" for k in order)
+        + f"; {traced:.3f} s traced, {dt - traced:.3f} s elsewhere (FASTA "
+        f"load, index build, result assembly)")
+    return launches
+
+
+def _run_memory(idx, reads):
+    """Device memory of a compacted run over 1, 4 and 16 chunks of
+    MEM_CHUNK reads: each run leaves allocated what it found (no tensor
+    outlives its chunk), and the 16-chunk peak may pass the 4-chunk one by
+    at most one chunk's tensors (the 1-chunk run's peak over what was
+    allocated before it)."""
+    import torch
+    from repro_torch.core.mapper import Mapper
+    from repro_torch.core.pipeline import MapperConfig
+    cfg = MapperConfig.from_index(idx, both_strands=True,
+                                  chunk_reads=MEM_CHUNK)
+    mapper = Mapper(idx, cfg)
+    mapper.map(reads[:MEM_CHUNK])
+    peaks, held = {}, {}
+    for n_chunks in (1, 4, 16):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        mapper.map(reads[:n_chunks * MEM_CHUNK])
+        torch.cuda.synchronize()
+        peaks[n_chunks] = torch.cuda.max_memory_allocated()
+        held[n_chunks] = (base, torch.cuda.memory_allocated())
+    mapper.close()
+    one = peaks[1] - held[1][0]
+    log(f"device memory: peak {peaks[1]:,} / {peaks[4]:,} / {peaks[16]:,} B "
+        f"over 1 / 4 / 16 chunks of {MEM_CHUNK:,} reads; allocated before "
+        f"and after each run {held}; one chunk's tensors {one:,} B")
+    kept = {n: after - before for n, (before, after) in held.items()
+            if after != before}
+    if kept:
+        raise AssertionError(f"device memory outlives the run: {kept} B "
+                             f"still allocated after n-chunk runs")
+    if peaks[16] > peaks[4] + one:
+        raise AssertionError(f"device memory grows with the stream: "
+                             f"{peaks[16]:,} B over 16 chunks, {peaks[4]:,} "
+                             f"B over 4, one chunk {one:,} B")
+
+
+def _median_s(fn, rounds):
+    import torch
+    out = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return float(np.median(out)), out
+
+
+def _run_overheads(idx, reads):
+    """Printed, not checked: an armed-but-idle ``ResilientMapper`` against
+    ``Mapper.map``, and the metrics registry, the tracer and both armed
+    against none, on every read, compacted, in alternating rounds."""
+    from repro_torch.core.mapper import Mapper
+    from repro_torch.core.pipeline import MapperConfig
+    from repro_torch.core.resilience import ResilientMapper
+    from repro_torch.obs import registry as obs_registry
+    from repro_torch.obs import tracing as obs_tracing
+    cfg = MapperConfig.from_index(idx, both_strands=True, chunk_reads=CHUNK)
+    mapper = Mapper(idx, cfg)
+    rm = ResilientMapper(mapper)
+    mapper.map(reads[:CHUNK])
+
+    def armed(metrics, tracing):
+        def run():
+            if metrics:
+                obs_registry.enable_metrics(obs_registry.MetricsRegistry())
+            if tracing:
+                obs_tracing.enable_tracing(tracer_=obs_tracing.Tracer())
+            try:
+                mapper.map(reads)
+            finally:
+                obs_registry.disable_metrics()
+                obs_tracing.disable_tracing()
+        return run
+    runs = {"plain": lambda: mapper.map(reads),
+            "resilient": lambda: rm.map(reads),
+            "metrics": armed(True, False), "tracing": armed(False, True),
+            "both": armed(True, True)}
+    times = {k: [] for k in runs}
+    for _ in range(OVERHEAD_ROUNDS):
+        for k, fn in runs.items():
+            times[k] += _median_s(fn, 1)[1]
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"overheads, {len(reads):,} reads, compacted, median of "
+        f"{OVERHEAD_ROUNDS} alternating rounds: Mapper.map "
+        f"{med['plain']:.4f} s; "
+        + "; ".join(f"{k} {med[k]:.4f} s ({med[k] / med['plain'] - 1:+.2%})"
+                    for k in runs if k != "plain")
+        + "; rounds "
+        + json.dumps({k: [round(x, 4) for x in v] for k, v in times.items()}))
+    mapper.close()
+
+
+def phase_service(idx, rs, pairs, mf, work):
+    """Phase 12, serving, resilience and observability on phase 4's index,
+    each check fatal (the overheads only printed).  -> {step: launches}
+    for the kernels JSON line."""
+    from repro_torch.core.mapper import Mapper
+    from repro_torch.core.pipeline import MapperConfig
+
+    rng = np.random.default_rng(SVC_SEED)
+    sizes, after = _service_load(rng, N_READS, SVC_PAIRED)
+    out = {}
+    for engine in ("compacted", "fused"):
+        out[f"MappingService {engine}"] = _run_service(
+            idx, engine, rs, pairs, sizes, after)
+    reads = rs.reads[:CHUNK]
+    clean = Mapper(idx, MapperConfig.from_index(
+        idx, both_strands=True, chunk_reads=CHUNK)).map(reads)
+    for engines in ("fused", "fused;cuda"):
+        out[f"ResilientMapper engines={engines}"] = _run_resilient(
+            idx, reads, clean, engines)
+    _run_watchdog(idx, rs.reads[:2 * CHUNK], Mapper(
+        idx, MapperConfig.from_index(idx, both_strands=True,
+                                     chunk_reads=CHUNK)).map(
+        rs.reads[:2 * CHUNK]))
+    out["map_fastq --trace-out"] = _run_map_fastq_obs(mf, work)
+    _run_memory(idx, rs.reads)
+    _run_overheads(idx, rs.reads)
     return out
 
 
@@ -2760,7 +3242,7 @@ def main() -> int:
     try:
         mf = phase_map_fastq(ref, rs, work)
         phase_done("7 map_fastq")
-        runs["paired"], rescue = phase_paired(idx, ref)
+        runs["paired"], rescue, pairs = phase_paired(idx, ref)
         phase_done("7b paired-end")
         rows = phase_mainpath_kernels(runs, generated)
         rows["affine_wf_dist"]["rescue"] = rescue
@@ -2771,7 +3253,9 @@ def main() -> int:
         phase_done("9 LM serving")
         rows["flash_attention_hd80"] = phase_stablelm(timing)
         phase_done("10 StableLM-3B prefill")
-        del idx
+        service = phase_service(idx, rs, pairs, mf, work)
+        phase_done("12 serving, resilience, observability")
+        del idx, pairs
         sharded = phase_sharded(ref, rs, mf, work)
         phase_done("11 sharded index")
     finally:
@@ -2786,6 +3270,10 @@ def main() -> int:
     rows["minimizer_scan"]["sharded_launches"].update(
         build_tiles=sharded["build_tiles"],
         chr1_sized_build=sharded["big_build"])
+    # and on the serving path, engine by engine
+    for name in MAPPER_KERNELS:
+        rows[name]["service_launches"] = {
+            step: l[name] for step, l in service.items()}
     log(f"total {time.perf_counter() - t_all:.2f} s")
     log(smi)
     print(json.dumps({"kernels": list(rows.values())}))

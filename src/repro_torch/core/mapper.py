@@ -11,13 +11,17 @@
   ``Mapper.run(plan, reads)`` / ``Mapper.map(reads)`` / ``map_async``.
   ``Mapper.map_pairs(reads1, reads2)`` — both mates in one stacked batch
       (pair resolution: ``core.pairing``).
+  ``Mapper.serve()`` — a ``MappingService`` request batcher wired to this
+      session (``core.serving``).
 
 The session runs on the CUDA card unless ``device`` names another
-device; with no GPU and no device given it raises.  Not ported yet: the
-mesh topology, the serving batcher and the observability hooks.
+device; with no GPU and no device given it raises.  Each run mirrors its
+``MapperStats`` into the ``repro_torch.obs`` registry when metrics are
+armed.  Not ported yet: the mesh topology.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from concurrent.futures import Future, ThreadPoolExecutor
 
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from ..obs import registry as _metrics
 from . import streaming
 from .device import resolve_device
 from .encoding import revcomp
@@ -35,7 +40,8 @@ from .pipeline import (LazyTraceback, MapperConfig, MappingResult,
 TOPOLOGIES = ("single",)
 
 __all__ = ["Mapper", "MapperStats", "MappingPlan", "TOPOLOGIES",
-           "accumulate_partition_stats", "accumulate_stats", "split_result"]
+           "accumulate_partition_stats", "accumulate_stats", "split_result",
+           "totals_from_registry"]
 
 _PER_READ_FIELDS = ("position", "distance", "distance2", "mapped", "strand",
                     "ops", "op_count", "linear_dist", "n_candidates",
@@ -82,8 +88,8 @@ class MapperStats:
     #                                alignment used the reverse complement
     plan_cache_hits: int = 0       # session cumulative, sampled at run time
     plan_cache_misses: int = 0
-    retries: int = 0               # resilience layer (not ported yet)
-    failed_reads: int = 0
+    retries: int = 0               # resilience: block retries this run
+    failed_reads: int = 0          # resilience: reads quarantined this run
     extra: dict = dataclasses.field(default_factory=dict)
 
     def __getitem__(self, key):
@@ -143,6 +149,41 @@ def accumulate_stats(totals: dict, stats, fields=None) -> dict:
         for k in (fields if fields is not None else tuple(totals)):
             totals[k] = totals.get(k, 0) + getattr(stats, k)
     return totals
+
+
+# MapperStats fields mirrored into the metrics registry per run, and the
+# fields ``totals_from_registry`` re-derives — keep the two in lockstep
+# so registry-sourced closing stats equal the accumulated ones
+_METRIC_RUN_FIELDS = ("reads", "candidates", "survivors",
+                      "affine_instances", "padded_affine_instances",
+                      "dropped_send", "dropped_affine", "reverse_best")
+
+
+def _record_run_metrics(stats: MapperStats) -> None:
+    """Mirror one run's ``MapperStats`` into the active registry (no-op
+    when metrics are disabled).  Summing these counters across runs is
+    ``accumulate_stats`` over the same fields."""
+    reg = _metrics.ACTIVE
+    if reg is None:
+        return
+    lab = dict(topology=stats.topology)
+    reg.counter("repro_runs_total", **lab).inc()
+    for f in _METRIC_RUN_FIELDS:
+        v = int(getattr(stats, f))
+        if v:
+            reg.counter(f"repro_{f}_total", **lab).inc(v)
+
+
+def totals_from_registry(topology: str, reg=None) -> dict | None:
+    """The engine-accounting totals re-derived from the metrics registry
+    (None when metrics are disabled).  On a clean run they equal the
+    ``accumulate_stats`` totals; under faults the registry counts every
+    engine run, retried and bisected blocks included."""
+    reg = reg if reg is not None else _metrics.ACTIVE
+    if reg is None:
+        return None
+    return {f: reg.counter(f"repro_{f}_total", topology=topology).value
+            for f in _METRIC_RUN_FIELDS}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -245,6 +286,13 @@ class Mapper:
         Defaults to ``MapperConfig.from_index(index)``.
     topology : "single"
         The only topology ported so far.
+    injector : FaultInjector, optional
+        Chaos hook threaded into the streaming engine's fetch thread
+        (``core.resilience``); runtime state, not part of the config.
+    watchdog_s : float, optional
+        Streaming fetch watchdog: a chunk fetch past this wall time
+        raises ``streaming.FetchStallError`` instead of hanging the
+        session.  None disables the bound.
     device : torch device, optional
         Where the index lives and the stages run.  None means the CUDA
         card; with no GPU present that raises, and ``device="cpu"`` runs
@@ -262,6 +310,7 @@ class Mapper:
 
     def __init__(self, index, cfg: MapperConfig | None = None, *,
                  topology: str = "single", device=None,
+                 injector=None, watchdog_s: float | None = None,
                  memory_budget_bytes: int | None = None,
                  prefetch: bool = False):
         if topology != "single":
@@ -269,6 +318,9 @@ class Mapper:
                 raise _not_ported('topology="mesh"', "9")
             raise ValueError(f"unknown topology {topology!r}; "
                              f"expected one of {TOPOLOGIES}")
+        if watchdog_s is not None and watchdog_s <= 0:
+            raise ValueError(f"watchdog_s={watchdog_s!r} must be > 0 "
+                             f"(or None to disable)")
         from ..index.sharded import ShardedGenomeIndex
         if not isinstance(index, (GenomeIndex, ShardedGenomeIndex)):
             raise NotImplementedError(
@@ -279,6 +331,8 @@ class Mapper:
                 f"index.shard_flat_index)")
         self.cfg = cfg or MapperConfig.from_index(index)
         self.topology = topology
+        self.injector = injector
+        self.watchdog_s = watchdog_s
         self.part_index = (index if isinstance(index, ShardedGenomeIndex)
                            else None)
         self.router = None
@@ -356,13 +410,21 @@ class Mapper:
                            both_strands=cfg.both_strands)
 
     def _executable(self, plan: MappingPlan):
-        """Plan-cache lookup, counting hits and misses: the chunk pipeline
-        of the compacted and fused engines, or the padded engine."""
+        """Plan-cache lookup, counting hits and misses (in the session and
+        in the metrics registry): the chunk pipeline of the compacted and
+        fused engines, or the padded engine."""
+        reg = _metrics.ACTIVE
         entry = self._plan_cache.get(plan.key)
         if entry is not None:
             self.plan_cache_hits += 1
+            if reg is not None:
+                reg.counter("repro_plan_cache_hits_total",
+                            topology=self.topology).inc()
             return entry
         self.plan_cache_misses += 1
+        if reg is not None:
+            reg.counter("repro_plan_cache_misses_total",
+                        topology=self.topology).inc()
         if plan.engine == "padded":
             entry = map_reads_padded
         elif self.router is not None:
@@ -400,8 +462,30 @@ class Mapper:
         res = self.map(np.concatenate([reads1, reads2]))
         return split_result(res, len(reads1))
 
-    def serve(self, *args, **kwargs):
-        raise _not_ported("Mapper.serve", "8")
+    def serve(self, batcher=None, **kwargs):
+        """A ``MappingService`` request batcher wired to this session.
+        ``kwargs`` forward to ``MappingService`` (``admission=``,
+        ``retry=``, ``injector=``)."""
+        from .serving import BatcherConfig, MappingService
+        return MappingService(self, batcher=batcher or BatcherConfig(),
+                              **kwargs)
+
+    def with_config(self, cfg: MapperConfig) -> "Mapper":
+        """A session running ``cfg`` on this one's device, placed index
+        (or residency arena: a new router over the same arena, so its
+        budget), injector, watchdog and prefetch, with a plan cache of its
+        own — the resilience layer's fallback rungs."""
+        check_card_geometry(cfg, self.device)
+        m = copy.copy(self)
+        m.cfg = cfg
+        m._plan_cache = {}
+        m.plan_cache_hits = m.plan_cache_misses = 0
+        m._pool = None
+        if self.router is not None:
+            from ..index.residency import ShardRouter
+            m.router = ShardRouter(self.part_index, self.router.residency,
+                                   cfg)
+        return m
 
     def map_async(self, reads: np.ndarray) -> Future:
         """Submit a batch to the session worker thread; returns a Future
@@ -462,7 +546,9 @@ class Mapper:
         if cfg.stream:
             times = {} if cfg.profile else None
             fetched = streaming.stream_map(items, pipe.phase1, pipe.phase2,
-                                           pipe.fetch, times=times)
+                                           pipe.fetch, times=times,
+                                           injector=self.injector,
+                                           watchdog_s=self.watchdog_s)
         else:
             times = {}
             fetched = streaming.sync_map(items, pipe.phase1, pipe.phase2,
@@ -497,6 +583,7 @@ class Mapper:
             reverse_best=raw.get("reverse_best", 0),
             plan_cache_hits=self.plan_cache_hits,
             plan_cache_misses=self.plan_cache_misses, extra=raw)
+        _record_run_metrics(stats)
         return MappingResult(position=_host_positions(cat("position")),
                              distance=cat("distance"),
                              distance2=cat("distance2"),

@@ -33,6 +33,7 @@ import warnings
 import numpy as np
 import torch
 
+from ..obs.tracing import annotate as _annotate
 from . import streaming
 from . import wf_backend as wfb
 from .affine_wf import traceback
@@ -459,7 +460,8 @@ class LazyTraceback:
     """Deferred winners-only traceback (``cigar_mode="lazy"``): the
     per-read winner metadata fetched with the batch, plus the session's
     device segments; ``materialize`` runs the same traceback pass the
-    eager mode runs.  Slicing keeps a result lazy."""
+    eager mode runs.  Slicing and concatenation keep results lazy through
+    ``mapper.split_result`` and the serving layer's reassembly."""
 
     def __init__(self, segments, cfg: MapperConfig, reads, occ, mpos,
                  mapped):
@@ -468,9 +470,23 @@ class LazyTraceback:
         self.reads, self.occ, self.mpos = reads, occ, mpos
         self.mapped = mapped
 
+    def __len__(self):
+        return len(self.occ)
+
     def __getitem__(self, sl):
         return LazyTraceback(self.segments, self.cfg, self.reads[sl],
                              self.occ[sl], self.mpos[sl], self.mapped[sl])
+
+    @classmethod
+    def concat(cls, parts: list["LazyTraceback"]) -> "LazyTraceback":
+        first = parts[0]
+        if len(parts) == 1:
+            return first
+        return cls(first.segments, first.cfg,
+                   np.concatenate([p.reads for p in parts]),
+                   np.concatenate([p.occ for p in parts]),
+                   np.concatenate([p.mpos for p in parts]),
+                   np.concatenate([p.mapped for p in parts]))
 
     def materialize(self):
         dev = self.segments.device
@@ -543,8 +559,10 @@ class _ChunkPipeline:
         if times is not None:
             _sync(reads)
         t0 = streaming.timed(times, "h2d", t0)
-        seeds = seed_reads(self.dev[0], self.dev[1], reads,
-                           self.cfg.seed_params, backend=self.cfg.wf_backend)
+        with _annotate("seed_dispatch"):
+            seeds = seed_reads(self.dev[0], self.dev[1], reads,
+                               self.cfg.seed_params,
+                               backend=self.cfg.wf_backend)
         if times is not None:
             _sync(reads)
         streaming.timed(times, "seed", t0)
@@ -581,9 +599,10 @@ class _ChunkPipeline:
 
         if cfg.engine == "fused":
             aff_cap = fused_affine_capacity(n_valid, R, cfg)
-            out = _fused_stage(segments, positions, reads, occ_idx,
-                               occ_valid, mini_pos, n_real, cfg, lin_cap,
-                               aff_cap)
+            with _annotate("fused_dispatch"):
+                out = _fused_stage(segments, positions, reads, occ_idx,
+                                   occ_valid, mini_pos, n_real, cfg, lin_cap,
+                                   aff_cap)
             if times is not None:
                 _sync(reads)
             streaming.timed(times, "fused", t0)
@@ -602,8 +621,9 @@ class _ChunkPipeline:
                                       ("fused", _mark(reads)))
             return out, stats, n_real
 
-        lin_end, best_pl, pass_filter, n_cand = _linear_stage(
-            segments, reads, occ_idx, occ_valid, mini_pos, cfg, lin_cap)
+        with _annotate("linear_dispatch"):
+            lin_end, best_pl, pass_filter, n_cand = _linear_stage(
+                segments, reads, occ_idx, occ_valid, mini_pos, cfg, lin_cap)
         lin_mark = _mark(reads) if profile else None
         if times is not None:
             _sync(reads)
@@ -613,10 +633,11 @@ class _ChunkPipeline:
         n_surv_real = self._real_count(pass_filter, n_surv, n_real, R)
         aff_cap = bucket_capacity(n_surv, align=cfg.aff_block_r,
                                   cap_max=R * M)
-        (best_aff, mapped, position, best_m, distance2, occ_w,
-         mpos_w) = _affine_stage(segments, positions, reads, occ_idx,
-                                 mini_pos, best_pl, pass_filter, lin_end,
-                                 cfg, aff_cap)
+        with _annotate("affine_dispatch"):
+            (best_aff, mapped, position, best_m, distance2, occ_w,
+             mpos_w) = _affine_stage(segments, positions, reads, occ_idx,
+                                     mini_pos, best_pl, pass_filter,
+                                     lin_end, cfg, aff_cap)
         reads_w, strand, reverse_best = reads, None, None
         if cfg.both_strands:
             fold = _strand_stage(best_aff, mapped, position, distance2,
@@ -640,8 +661,9 @@ class _ChunkPipeline:
         if strand is not None:
             out["strand"] = strand
         if cfg.cigar_mode == "eager":
-            out["ops"], out["op_count"] = _winner_traceback(
-                segments, reads_w, occ_w, mpos_w, mapped, cfg)
+            with _annotate("traceback_dispatch"):
+                out["ops"], out["op_count"] = _winner_traceback(
+                    segments, reads_w, occ_w, mpos_w, mapped, cfg)
             if times is not None:
                 _sync(reads)
         elif cfg.cigar_mode == "lazy":
@@ -674,6 +696,7 @@ class _ChunkPipeline:
                     ev.synchronize()
                 t0 = streaming.timed(times, name, t0)
         host = {k: v.cpu().numpy()[:n_real] for k, v in out.items()}
+        out.clear()     # the chunk's device outputs go with its fetch
         streaming.timed(times, "d2h", t0)
         stats = {k: (int(v) if isinstance(v, torch.Tensor) else v)
                  for k, v in stats.items()}

@@ -36,6 +36,8 @@ import torch
 from ..core.device import resolve_device
 from ..core.index import SENTINEL, _scan_tile, validate_geometry
 from ..io.fasta import Contig, stream_fasta
+from ..obs import registry as _metrics
+from ..obs import tracing as _tracing
 from . import format as fmt
 from .npscan import np_hash32
 
@@ -336,6 +338,7 @@ def build_sharded_index(fasta, out_dir: str, *, num_partitions: int = 4,
         scanner.feed(codes)
 
     # -- phase 1: stream contigs through the scanner ----------------------
+    t_scan = time.perf_counter()
     contigs: list[Contig] = []
     cur_name, cur_len, cur_has_acgt = None, 0, False
 
@@ -391,6 +394,17 @@ def build_sharded_index(fasta, out_dir: str, *, num_partitions: int = 4,
         f"{int(n_spilled.sum())} spilled occurrences "
         f"({spills.spill_bytes} spill bytes in {spills.spill_writes} "
         f"writes)")
+    tr = _tracing.ACTIVE
+    if tr is not None:
+        tr.add("index_scan", t_scan, time.perf_counter(),
+               {"tiles": int(scanner.tiles), "ref_len": int(ref_len)})
+    reg = _metrics.ACTIVE
+    if reg is not None:
+        reg.counter("repro_index_tiles_total").inc(int(scanner.tiles))
+        reg.counter("repro_index_spilled_occurrences_total").inc(
+            int(n_spilled.sum()))
+        reg.counter("repro_index_spill_bytes_total").inc(
+            int(spills.spill_bytes))
 
     # -- phase 2: finalize partitions from spills --------------------------
     man_ref = {role: fmt.file_digest(os.path.join(out_dir, fname))
@@ -405,6 +419,7 @@ def build_sharded_index(fasta, out_dir: str, *, num_partitions: int = 4,
     total_occ = 0
     dropped_pls = 0
     for p in range(P):
+        t_part = time.perf_counter()
         data = np.fromfile(spill_paths[p], dtype=np.uint64)
         os.remove(spill_paths[p])
         u = np.unique(data)       # dedup (defensive) + (kmer, pos) sort
@@ -460,6 +475,14 @@ def build_sharded_index(fasta, out_dir: str, *, num_partitions: int = 4,
                       for role, fname in names.items()},
         })
         say(f"partition {p}/{P}: {len(uniq)} kmers, {n_occ} occurrences")
+        tr = _tracing.ACTIVE
+        if tr is not None:
+            tr.add("index_partition", t_part, time.perf_counter(),
+                   {"partition": p, "occurrences": int(n_occ)})
+        reg = _metrics.ACTIVE
+        if reg is not None:
+            reg.counter("repro_index_partitions_total").inc()
+            reg.counter("repro_index_occurrences_total").inc(int(n_occ))
 
     wall_s = time.perf_counter() - t_start
     manifest = {

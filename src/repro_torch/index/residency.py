@@ -49,6 +49,7 @@ from ..core.device import resolve_device
 from ..core.encoding import SENTINEL, revcomp
 from ..core.pipeline import MapperConfig, _ChunkPipeline, _mark
 from ..core.seeding import seed_reads_routed
+from ..obs import registry as _metrics
 
 # arena rows unpacked from 2-bit staging a step, and the rows a
 # compaction copies through a scratch buffer a step
@@ -200,19 +201,32 @@ class DeviceResidency:
         """
         with self._lock:
             pinned = set(parts)
-            pf_hits = 0
+            hits = misses = pf_hits = 0
             for p in parts:
                 if p in self._alloc:
                     self._lru.move_to_end(p)
+                    hits += 1
                     if p in self._prefetched:
                         pf_hits += 1
                         self._prefetched.discard(p)
             for p in parts:
                 if p not in self._alloc:
+                    misses += 1
                     self._load(p, pinned, prefetch=prefetch)
             if prefetch:
                 self._prefetched.update(parts)
             self.prefetch_hits += pf_hits
+            reg = _metrics.ACTIVE
+            if reg is not None:
+                if hits:
+                    reg.counter("repro_partition_hits_total").inc(hits)
+                if misses:
+                    reg.counter("repro_partition_misses_total").inc(misses)
+                if pf_hits:
+                    reg.counter(
+                        "repro_partition_prefetch_hits_total").inc(pf_hits)
+                reg.gauge("repro_partition_resident_rows").set(
+                    self.resident_rows)
             # Bases must come from the allocation table only after every
             # load: a late ``_load`` may ``_compact`` and relocate
             # partitions that were already resident when ensure() started.
@@ -266,12 +280,18 @@ class DeviceResidency:
         del self._lru[victim]
         self._prefetched.discard(victim)
         self.evictions += 1
+        reg = _metrics.ACTIVE
+        if reg is not None:
+            reg.counter("repro_partition_evictions_total").inc()
 
     def _compact(self) -> None:
         """Repack resident partitions to the arena front, sorted
         ascending, so every move is leftward into space already vacated
         (recorded, applied by ``snapshot``)."""
         self.compactions += 1
+        reg = _metrics.ACTIVE
+        if reg is not None:
+            reg.counter("repro_partition_compactions_total").inc()
         cursor = 0
         for p, (lo, rows) in sorted(self._alloc.items(),
                                     key=lambda kv: kv[1][0]):
@@ -323,6 +343,13 @@ class DeviceResidency:
         if prefetch:
             self.prefetch_loads += 1
         self.h2d_bytes += rows * self.row_bytes
+        reg = _metrics.ACTIVE
+        if reg is not None:
+            reg.counter("repro_partition_loads_total").inc()
+            if prefetch:
+                reg.counter("repro_partition_prefetch_loads_total").inc()
+            reg.counter("repro_partition_h2d_bytes_total").inc(
+                rows * self.row_bytes)
         return lo
 
     def _apply(self, kind: str, *args) -> None:

@@ -154,11 +154,15 @@ class FastqStream:
         Where permissive mode writes quarantined raw records (a FASTQ-
         shaped rejects file; ``.gz`` spelled paths compress).  Opened
         lazily on the first rejection.
+    injector : FaultInjector, optional
+        Chaos hook: a fired ``"fastq_record"`` site marks the cleanly
+        parsed record corrupt (rejected or raised per ``on_error``) —
+        deterministic corruption for the chaos tests.
     """
 
     def __init__(self, path_or_handle, read_len: int | None = None,
                  chunk_reads: int = DEFAULT_CHUNK_READS, *,
-                 on_error: str = "strict", rejects=None):
+                 on_error: str = "strict", rejects=None, injector=None):
         if chunk_reads < 1:
             raise ValueError(f"chunk_reads={chunk_reads!r} must be >= 1")
         if on_error not in ON_ERROR:
@@ -170,6 +174,7 @@ class FastqStream:
                        else getattr(self._f, "name", "<stream>"))
         self.chunk_reads = chunk_reads
         self.on_error = on_error
+        self.injector = injector
         self._sink = (rejects if isinstance(rejects, _RejectSink)
                       else _RejectSink(rejects))
         self.n_reads = 0       # records emitted (post length policy)
@@ -252,6 +257,16 @@ class FastqStream:
                 self._reject(e.slug, e.name, e.lines)
                 self._resync()
                 continue
+            if (rec is not None and self.injector is not None
+                    and self.injector.fire("fastq_record")):
+                err = FastqParseError("injected record corruption",
+                                      self.source, self._line_at,
+                                      self._rec_lines, rec[0],
+                                      slug="injected")
+                if self.on_error == "strict":
+                    raise err
+                self._reject(err.slug, err.name, err.lines)
+                continue  # a clean record was consumed: no resync needed
             return rec
 
     def _parse_record(self):
@@ -403,7 +418,7 @@ class PairedFastqStream:
     def __init__(self, r1, r2=None, *, interleaved: bool = False,
                  read_len: int | None = None,
                  chunk_reads: int = DEFAULT_CHUNK_READS,
-                 on_error: str = "strict", rejects=None):
+                 on_error: str = "strict", rejects=None, injector=None):
         if interleaved and r2 is not None:
             raise ValueError("interleaved=True takes a single source; "
                              "r2 must be None")
@@ -419,12 +434,13 @@ class PairedFastqStream:
         self.on_error = on_error
         self._sink = _RejectSink(rejects)
         self._s1 = FastqStream(r1, read_len=read_len, chunk_reads=chunk_reads,
-                               on_error=on_error, rejects=self._sink)
+                               on_error=on_error, rejects=self._sink,
+                               injector=injector)
         self.read_len = self._s1.read_len
         self._s2 = (self._s1 if interleaved else
                     FastqStream(r2, read_len=self.read_len,
                                 chunk_reads=chunk_reads, on_error=on_error,
-                                rejects=self._sink))
+                                rejects=self._sink, injector=injector))
         self.n_pairs = 0      # pairs emitted (post length policy)
         self.n_skipped = 0    # pairs dropped because a mate was short
         self.n_truncated = 0  # mates longer than read_len (counted singly)

@@ -50,6 +50,12 @@ _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
+class KernelBuildError(RuntimeError):
+    """``nvcc`` failed to compile a kernel library (its output attached).
+    The resilience layer never retries around it: a kernel that does not
+    build is a fault to report, not one to degrade past."""
+
+
 def nvcc_path() -> str:
     """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else the one on PATH,
     else ``/usr/local/cuda/bin/nvcc``."""
@@ -73,8 +79,8 @@ def build() -> dict[str, dict]:
     Returns ``{name: {"path", "seconds", "log"}}`` for every library;
     ``log`` holds nvcc's ``-Xptxas -v`` report (registers, shared memory,
     spills) for the libraries compiled by this call, and ``seconds`` is 0
-    for those found already built.  Raises ``RuntimeError`` with nvcc's
-    output when a compile fails.
+    for those found already built.  Raises ``KernelBuildError`` with
+    nvcc's output when a compile fails.
     """
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -100,7 +106,7 @@ def build() -> dict[str, dict]:
             continue
         os.replace(tmp, lib)  # atomic: concurrent builders never see half
     if failed:
-        raise RuntimeError("\n".join(failed))
+        raise KernelBuildError("\n".join(failed))
     return info
 
 

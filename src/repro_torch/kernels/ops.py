@@ -7,7 +7,8 @@ LM layers' (B, S, H, hd) layout.  Each checks its input, and then:
 
   * on CUDA tensors launches its kernel on the tensor's device and that
     device's current stream (building the library at first use), and
-    adds one to its entry of ``LAUNCHES``; a refused launch raises;
+    adds one to its entry of ``LAUNCHES``; a refused launch raises
+    ``KernelLaunchError``;
   * on CPU tensors runs the kernel's plain torch version (from
     ``repro_torch.core``) — the only case where the plain version stands
     in, and it does so because of where the tensor lies.
@@ -43,9 +44,30 @@ FLASH_DTYPES = (torch.float32, torch.bfloat16)
 TMA_ALIGN = 16              # bytes: a TMA load's base and strides
 
 
+# the C entry points of the mapper's kernels (the WF stages, seeding and
+# the index build's scan): ``load_mapper_kernels`` builds and loads them
+MAPPER_ENTRIES = ("linear_wf_launch", "affine_wf_dist_launch",
+                  "affine_wf_launch", "affine_traceback_launch",
+                  "minimizer_launch")
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel launch returned a CUDA error.  The context may be unusable
+    afterwards, so the resilience layer re-raises it instead of retrying
+    the block or degrading to the plain versions on the same device."""
+
+
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def load_mapper_kernels() -> None:
+    """Build (where not built yet) and load every mapper kernel library
+    now, so that a compile failure raises here and not inside a caller's
+    first launch; raises ``build.KernelBuildError``."""
+    for fn in MAPPER_ENTRIES:
+        build.entry(fn)
 
 
 def _check(s1: torch.Tensor, s2_window: torch.Tensor, eth: int) -> None:
@@ -126,7 +148,8 @@ def _on_card(s1: torch.Tensor, eth: int, sat: int | None = None) -> bool:
 
 def _raise_on(rc: int, what: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: cudaError_t {rc}")
+        raise KernelLaunchError(f"{what} kernel launch failed: "
+                                f"cudaError_t {rc}")
 
 
 def _stream(t: torch.Tensor) -> int:

@@ -17,54 +17,53 @@ package.
 
 The command line is the reference's, with the differences of the port's
 ``map_fastq``: ``--wf-backend cuda|torch`` picks the tiles' minimizer
-scan (the kernel, or the plain version), ``--device`` the torch device
-(default: the CUDA card), and ``--trace-out``, ``--metrics-out`` and
-``--log-json`` exit non-zero naming their ``ROADMAP.md`` item.
+scan (the kernel, or the plain version) and ``--device`` the torch
+device (default: the CUDA card).  ``--trace-out`` (scan and
+per-partition finalize spans), ``--metrics-out`` (a final snapshot) and
+``--log-json`` write what the reference's do.
 """
 from __future__ import annotations
 
 import argparse
-import sys
 import time
-
-# the reference's flags whose machinery is not ported yet: parsed as the
-# reference parses them, then refused naming their ROADMAP.md Queue 1
-# item.  flag -> (argparse keywords, item)
-_NOT_PORTED = {
-    "--trace-out": (dict(default=None), 8),
-    "--metrics-out": (dict(default=None), 8),
-    "--log-json": (dict(action="store_true"), 8),
-}
-
-
-def _say(msg: str) -> None:
-    print(msg, file=sys.stderr)
 
 
 def run(args) -> int:
     from ..index import build_sharded_index, verify_index
+    from ..obs import logjson
+    from ..obs.surfaces import obs_surfaces
 
-    t0 = time.perf_counter()
-    idx = build_sharded_index(
-        args.reference, args.output, num_partitions=args.partitions,
-        tile_bp=args.tile_bp, read_len=args.read_len, k=args.k,
-        w=args.w, eth=args.eth, max_pls_per_minimizer=args.max_pls,
-        overwrite=args.force, origin=args.origin,
-        progress=lambda msg: _say(f"build_index: {msg}"),
-        device=args.device, backend=args.wf_backend)
-    if args.verify:
-        verify_index(args.output)
-        _say("build_index: full integrity check passed")
-    stor = idx.storage_bytes()
-    bstats = (idx.manifest or {}).get("build", {})
-    dt = time.perf_counter() - t0
-    _say(f"build_index: {args.output}: {idx.num_partitions} "
-         f"partitions, {len(idx.contigs)} contig(s), {idx.ref_len} "
-         f"bases, {idx.n_occurrences} occurrences, "
-         f"{stor['total_bytes']} B on disk ({stor['blowup']:.1f}x "
-         f"segment blowup), {bstats.get('spill_bytes', 0)} spill B "
-         f"in {dt:.1f}s")
-    return 0
+    with obs_surfaces("build_index", trace_out=args.trace_out,
+                      metrics_out=args.metrics_out, log_json=args.log_json,
+                      final_snapshot=True):
+        t0 = time.perf_counter()
+
+        def say(msg):
+            logjson.say(f"build_index: {msg}", event="progress")
+        idx = build_sharded_index(
+            args.reference, args.output, num_partitions=args.partitions,
+            tile_bp=args.tile_bp, read_len=args.read_len, k=args.k,
+            w=args.w, eth=args.eth, max_pls_per_minimizer=args.max_pls,
+            overwrite=args.force, origin=args.origin, progress=say,
+            device=args.device, backend=args.wf_backend)
+        if args.verify:
+            verify_index(args.output)
+            say("full integrity check passed")
+        stor = idx.storage_bytes()
+        bstats = (idx.manifest or {}).get("build", {})
+        dt = time.perf_counter() - t0
+        logjson.say(
+            f"build_index: {args.output}: {idx.num_partitions} "
+            f"partitions, {len(idx.contigs)} contig(s), {idx.ref_len} "
+            f"bases, {idx.n_occurrences} occurrences, "
+            f"{stor['total_bytes']} B on disk ({stor['blowup']:.1f}x "
+            f"segment blowup), {bstats.get('spill_bytes', 0)} spill B "
+            f"in {dt:.1f}s",
+            event="done", partitions=idx.num_partitions,
+            ref_len=idx.ref_len, occurrences=idx.n_occurrences,
+            bytes_on_disk=stor["total_bytes"],
+            spill_bytes=bstats.get("spill_bytes", 0), wall_s=round(dt, 3))
+        return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -103,22 +102,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device of the scan (default: the CUDA card; "
                          "'cpu' runs the kernel's plain version)")
-    for flag, (kw, item) in _NOT_PORTED.items():
-        ap.add_argument(flag, **kw, help=f"not ported yet (ROADMAP.md, "
-                                         f"Queue 1 item {item})")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="export the build as Chrome trace-event JSON "
+                         "(scan + per-partition finalize spans)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write a final JSONL metrics snapshot (schema: "
+                         "schemas/metrics_snapshot.schema.json)")
+    ap.add_argument("--log-json", action="store_true",
+                    help="structured one-object-per-line JSON progress "
+                         "on stderr")
     return ap
 
 
 def main(argv=None) -> int:
-    ap = build_parser()
-    args = ap.parse_args(argv)
-    for flag, (_, item) in _NOT_PORTED.items():
-        dest = flag[2:].replace("-", "_")
-        if getattr(args, dest) != ap.get_default(dest):
-            raise SystemExit(
-                f"build_index: {flag} is not ported to repro_torch yet "
-                f"(ROADMAP.md, Queue 1 item {item})")
-    return run(args)
+    return run(build_parser().parse_args(argv))
 
 
 if __name__ == "__main__":

@@ -34,13 +34,14 @@ The command line is the reference's, with these differences:
   ``torch`` is the all-plain route;
 * ``--device`` picks the torch device (default: the CUDA card; with no
   GPU and no ``--device`` the run fails rather than drop to the CPU);
-* flags whose machinery is not ported yet exit non-zero naming their
+* ``--shards`` and ``--topology mesh`` exit non-zero naming their
   ``ROADMAP.md`` item;
-* ``--on-error permissive`` quarantines malformed FASTQ records exactly
-  as the reference's parser does, but does not wrap the session in the
-  reference's ``ResilientMapper`` (not ported), on single-end and paired
-  input alike: a healthy run writes the same SAM, and an engine fault
-  fails the run.
+* the ``done:`` line adds the rate without the index build.
+
+``--inject`` or ``--on-error permissive`` wrap the session in a
+``ResilientMapper`` (retry, bisection, the ``fused -> compacted``
+ladder); ``--trace-out``, ``--metrics-out`` and ``--log-json`` write the
+reference's Chrome trace, metrics JSONL and JSON log lines.
 
 Progress and the closing stats lines go to stderr, so ``-o -`` pipes
 clean SAM to stdout.  ``main(argv)`` runs in-process.
@@ -48,6 +49,7 @@ clean SAM to stdout.  ``main(argv)`` runs in-process.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -57,11 +59,6 @@ import time
 # item.  flag -> (argparse keywords, item)
 _NOT_PORTED = {
     "--shards": (dict(type=int, default=None), 9),
-    "--inject": (dict(default=None), 8),
-    "--watchdog": (dict(type=float, default=None), 8),
-    "--trace-out": (dict(default=None), 8),
-    "--metrics-out": (dict(default=None), 8),
-    "--log-json": (dict(action="store_true"), 8),
 }
 
 
@@ -81,12 +78,13 @@ def _refuse_not_ported(ap: argparse.ArgumentParser, args) -> None:
                          "repro_torch yet (ROADMAP.md, Queue 1 item 9)")
 
 
-def _open_stream(args):
+def _open_stream(args, injector=None):
     """Build the FASTQ stream per input layout -> (stream, paired)."""
     from ..io.fastq import FastqStream, PairedFastqStream
 
     kw = dict(read_len=args.read_len, chunk_reads=args.chunk_reads,
-              on_error=args.on_error, rejects=args.rejects)
+              on_error=args.on_error, rejects=args.rejects,
+              injector=injector)
     if args.r2 is not None and args.r1 is None:
         raise SystemExit("map_fastq: --r2 needs --r1")
     if args.r1 is not None:
@@ -108,39 +106,32 @@ def _open_stream(args):
     return FastqStream(args.reads, **kw), False
 
 
-def _print_mapper_stats(mapper, totals: dict, file=None) -> None:
-    """Closing stats lines of a single-topology run (the single-topology
-    part of ``repro.launch.serve._print_mapper_stats``): the unified
-    MapperStats accounting, the session plan-cache counters, the arena's
-    partition accounting of a sharded index and the index footprint."""
-    print(f"filter/affine [single]: {totals['survivors']} "
-          f"survivors -> {totals['affine_instances']} affine instances "
-          f"(of {totals['padded_affine_instances']} padded), dropped "
-          f"send={totals['dropped_send']} affine={totals['dropped_affine']}",
-          file=file)
-    print(f"plan cache: {mapper.plan_cache_hits} hits / "
-          f"{mapper.plan_cache_misses} misses "
-          f"(same-size batches reuse compiled executables after warm-up)",
-          file=file)
-    part = totals.get("partitions")
-    if part:                          # shard-routed: the arena's account
-        print(f"partitions: routed "
-              f"{part['minis_routed_per_partition']} minimizers "
-              f"(found {part['minis_found_per_partition']}) over "
-              f"{part['chunks_routed']} chunk(s); arena "
-              f"{part['arena_bytes']} B, {part['partition_loads']} "
-              f"load(s), {part['partition_evictions']} eviction(s), "
-              f"{part['h2d_bytes']} B h2d", file=file)
-    stor = mapper.index_storage()
-    per = stor.get("per_partition")
-    breakdown = (" (" + ", ".join(
-        f"p{d['partition']}: "
-        f"{d['hash_table_bytes'] + d['segments_bytes']}"
-        for d in per) + ")" if per else "")
-    print(f"index storage: {stor['total_bytes']} B "
-          f"(hash {stor['hash_table_bytes']} B + segments "
-          f"{stor['materialized_segments_bytes']} B, blowup "
-          f"{stor['blowup']:.1f}x){breakdown}", file=file)
+def _ingest(stream):
+    """Enumerate FASTQ chunks, stamping the span context with the chunk
+    index and recording each chunk's host-side parse as an ``ingest``
+    span when tracing is armed."""
+    from ..obs import tracing as _tracing
+    it = iter(stream)
+    i = 0
+    while True:
+        if _tracing.ACTIVE is not None:
+            _tracing.set_ctx(chunk=i)
+        t0 = time.perf_counter()
+        try:
+            chunk = next(it)
+        except StopIteration:
+            return
+        tr = _tracing.ACTIVE
+        if tr is not None:
+            tr.add("ingest", t0, time.perf_counter())
+        yield i, chunk
+        i += 1
+
+
+def _span(name):
+    from ..obs import tracing as _tracing
+    tr = _tracing.ACTIVE
+    return tr.span(name) if tr is not None else contextlib.nullcontext()
 
 
 def _open_sharded(args):
@@ -165,31 +156,54 @@ def _open_sharded(args):
 
 
 def run(args) -> int:
+    """Entry point: arms the ``--log-json`` / ``--metrics-out`` /
+    ``--trace-out`` surfaces around the mapping run and always tears
+    them down."""
+    from ..obs.surfaces import obs_surfaces
+
+    with obs_surfaces("map_fastq", trace_out=args.trace_out,
+                      metrics_out=args.metrics_out,
+                      log_json=args.log_json) as fresh:
+        args.obs_fresh_registry = fresh
+        return _run(args)
+
+
+def _run(args) -> int:
     import torch
 
     from ..core.device import resolve_device
     from ..core.index import build_index
     from ..core.mapper import (Mapper, accumulate_partition_stats,
-                               accumulate_stats, check_card_geometry)
+                               accumulate_stats, check_card_geometry,
+                               totals_from_registry)
     from ..core.pairing import InsertSizeTracker, resolve_pairs
     from ..core.pipeline import MapperConfig
+    from ..core.resilience import FaultInjector, ResilientMapper
     from ..io.fasta import ReferenceMap, load_reference
     from ..io.sam import emit_alignments, emit_paired_alignments, sam_header
+    from ..obs import logjson
+    from ..obs.surfaces import metrics_snapshot
+    from .report import print_mapper_stats
 
     t0 = time.perf_counter()
     device = resolve_device(args.device)   # no GPU and no --device: raise
+    injector = (FaultInjector.from_spec(args.inject)
+                if args.inject is not None else None)
     if args.prefetch and args.index_dir is None:
         raise SystemExit(
             "map_fastq: --prefetch needs --index-dir with --topology "
             "single — only the shard-routed arena path has per-chunk "
             "partition uploads to overlap")
     sharded = _open_sharded(args) if args.index_dir is not None else None
-    stream, paired = _open_stream(args)
+    stream, paired = _open_stream(args, injector)
     rl = stream.read_len
     cfg = MapperConfig(
         read_len=rl, k=args.k, w=args.w, eth=args.eth, engine=args.engine,
         wf_backend=args.wf_backend, chunk_reads=args.chunk_reads,
-        stream=not args.no_stream, both_strands=not args.single_strand)
+        stream=not args.no_stream, both_strands=not args.single_strand,
+        # --trace-out needs per-stage times on the streamed path: spans
+        # come from the same clock reads as stage_times_s
+        profile=args.trace_out is not None)
     check_card_geometry(cfg, device)    # before the FASTA load and index
     if sharded is not None:
         contigs = sharded.contigs
@@ -217,15 +231,25 @@ def run(args) -> int:
     refmap = ReferenceMap(contigs)
     budget = (int(args.index_budget_mb * (1 << 20))
               if args.index_budget_mb is not None else None)
-    mapper = Mapper(idx, cfg, device=device, memory_budget_bytes=budget,
+    mapper = Mapper(idx, cfg, device=device, injector=injector,
+                    watchdog_s=args.watchdog, memory_budget_bytes=budget,
                     prefetch=args.prefetch)
+    # fault containment (retry/bisect/degrade) is armed alongside the
+    # injector or a permissive run; a strict run fails fast, unwrapped
+    resilient = (ResilientMapper(mapper, injector=injector)
+                 if injector is not None or args.on_error == "permissive"
+                 else None)
     # mate rescue reads the genome: on the device once a run
     ref_dev = torch.from_numpy(ref).to(device) if paired else None
-    _say(f"map_fastq: {len(contigs)} contig(s), {n_indexed} indexed bases "
-         f"({src}), read_len={rl}, topology={mapper.topology}, "
-         f"paired={paired}, both_strands={cfg.both_strands}, "
-         f"engine={cfg.engine}, wf_backend={cfg.wf_backend}, "
-         f"device={mapper.device}")
+    logjson.say(
+        f"map_fastq: {len(contigs)} contig(s), {n_indexed} indexed bases "
+        f"({src}), read_len={rl}, topology={mapper.topology}, "
+        f"paired={paired}, both_strands={cfg.both_strands}, "
+        f"engine={cfg.engine}, wf_backend={cfg.wf_backend}, "
+        f"device={mapper.device}",
+        event="start", contigs=len(contigs), indexed_bases=n_indexed,
+        read_len=rl, topology=mapper.topology, paired=paired,
+        engine=cfg.engine, wf_backend=cfg.wf_backend)
 
     # resume-safe atomic output: SAM accumulates in a .partial segment
     # and lands on the final path in one os.replace only after a clean
@@ -245,19 +269,30 @@ def run(args) -> int:
         for line in sam_header(contigs, command_line=args.command_line):
             out.write(line + "\n")
         t_map = time.perf_counter()
-        for i, chunk in enumerate(stream):
+        n_chunks = 0
+        for i, chunk in _ingest(stream):
+            n_chunks = i + 1
             if paired:
                 c1, c2 = chunk
-                res1, res2 = mapper.map_pairs(c1.reads, c2.reads)
+                if resilient is not None:
+                    res1, res2, _ = resilient.map_pairs(c1.reads, c2.reads)
+                    if res1 is None:  # every block failed after retries
+                        _say(f"chunk {i}: all {2 * len(c1)} reads failed "
+                             f"after retries; chunk quarantined")
+                        totals["reads"] += 2 * len(c1)
+                        continue
+                else:
+                    res1, res2 = mapper.map_pairs(c1.reads, c2.reads)
                 pr = resolve_pairs(res1, res2, cfg=cfg, tracker=tracker,
                                    ref=ref_dev, reads1=c1.reads,
                                    reads2=c2.reads,
                                    contig_starts=contig_starts,
                                    device=device)
-                for rec in emit_paired_alignments(
-                        pr, c1.names, c1.reads, c1.quals, c2.reads,
-                        c2.quals, refmap, seqs1=c1.seqs, seqs2=c2.seqs):
-                    out.write(rec + "\n")
+                with _span("sam_emit"):
+                    for rec in emit_paired_alignments(
+                            pr, c1.names, c1.reads, c1.quals, c2.reads,
+                            c2.quals, refmap, seqs1=c1.seqs, seqs2=c2.seqs):
+                        out.write(rec + "\n")
                 n_new = 2 * len(c1)
                 n_mapped = int(pr.res1.mapped.sum() + pr.res2.mapped.sum())
                 res = res1  # stats object is shared by both halves
@@ -272,11 +307,20 @@ def run(args) -> int:
                          f"{pr.stats['n_pairs']} "
                          f"(insert median {pr.stats['insert_median']})")
             else:
-                res = mapper.map(chunk.reads)
-                for rec in emit_alignments(res, chunk.names, chunk.reads,
-                                           chunk.quals, refmap,
-                                           seqs=chunk.seqs):
-                    out.write(rec + "\n")
+                if resilient is not None:
+                    res, _, _ = resilient.map(chunk.reads)
+                    if res is None:  # every block failed after retries
+                        _say(f"chunk {i}: all {len(chunk)} reads failed "
+                             f"after retries; chunk quarantined")
+                        totals["reads"] += len(chunk)
+                        continue
+                else:
+                    res = mapper.map(chunk.reads)
+                with _span("sam_emit"):
+                    for rec in emit_alignments(res, chunk.names,
+                                               chunk.reads, chunk.quals,
+                                               refmap, seqs=chunk.seqs):
+                        out.write(rec + "\n")
                 n_new = len(chunk)
                 n_mapped = int(res.mapped.sum())
                 # from the result, not stats: the padded engine has
@@ -295,11 +339,16 @@ def run(args) -> int:
                     "dropped_affine"))
                 accumulate_partition_stats(totals, res.stats)
             out.flush()  # each chunk's records land in the .partial segment
+            metrics_snapshot(args.metrics_out, seq=i)
             rate = totals["reads"] / max(time.perf_counter() - t_map, 1e-9)
-            _say(f"chunk {i}: {n_new} reads, "
-                 f"mapped {n_mapped / max(n_new, 1):.3f} "
-                 f"(cumulative {totals['reads']} reads, {rate:.0f} reads/s)"
-                 f"{extra}")
+            logjson.say(
+                f"chunk {i}: {n_new} reads, "
+                f"mapped {n_mapped / max(n_new, 1):.3f} "
+                f"(cumulative {totals['reads']} reads, {rate:.0f} reads/s)"
+                f"{extra}",
+                event="chunk", chunk=i, reads=n_new, mapped=n_mapped,
+                cumulative_reads=totals["reads"],
+                reads_per_s=round(rate, 1))
         complete = True
     except BaseException:
         complete = False
@@ -320,11 +369,14 @@ def run(args) -> int:
     skipped = (f", skipped {stream.n_skipped} short" if stream.n_skipped
                else "") + (f", truncated {stream.n_truncated} long"
                            if stream.n_truncated else "")
-    _say(f"done: {totals['reads']} reads in {dt:.1f}s "
-         f"({totals['reads'] / max(dt, 1e-9):.0f} reads/s incl. index "
-         f"build; {totals['reads'] / max(t_end - t_map, 1e-9):.0f} reads/s "
-         f"mapping and SAM), mapped {totals['mapped']} "
-         f"({totals['reverse_best']} reverse-strand){skipped}")
+    logjson.say(
+        f"done: {totals['reads']} reads in {dt:.1f}s "
+        f"({totals['reads'] / max(dt, 1e-9):.0f} reads/s incl. index "
+        f"build; {totals['reads'] / max(t_end - t_map, 1e-9):.0f} reads/s "
+        f"mapping and SAM), mapped {totals['mapped']} "
+        f"({totals['reverse_best']} reverse-strand){skipped}",
+        event="done", reads=totals["reads"], mapped=totals["mapped"],
+        wall_s=round(dt, 3))
     if stream.n_rejected:
         reasons = dict(stream.reject_reasons)
         subs = {id(s): s for s in (getattr(stream, "_s1", None),
@@ -336,16 +388,33 @@ def run(args) -> int:
         where = f" -> {args.rejects}" if args.rejects else ""
         _say(f"quarantined: {stream.n_rejected} malformed record(s) "
              f"{reasons}{where}")
+    if resilient is not None:
+        rc = resilient.counters
+        if any(rc.values()) or resilient.ladder.degraded:
+            _say(f"resilience: {rc['retries']} retries, "
+                 f"{rc['failed_reads']} quarantined reads in "
+                 f"{rc['failed_blocks']} block(s), engine ladder "
+                 f"{resilient.ladder.describe()}")
     if paired:
         lo, hi = tracker.window()
         _say(f"pairing: {totals['proper']}/{totals['pairs']} proper, "
              f"{totals['rescued']} rescued, insert median "
              f"{tracker.median} window [{lo}, {hi}]")
     if saw_stats:
-        _print_mapper_stats(mapper, totals, file=sys.stderr)
+        if args.obs_fresh_registry:
+            # the engine counters from the metrics registry, so the
+            # closing lines and the snapshots cannot disagree (the
+            # registry counts every engine run)
+            derived = totals_from_registry(mapper.topology)
+            for k in ("survivors", "affine_instances",
+                      "padded_affine_instances", "dropped_send",
+                      "dropped_affine"):
+                totals[k] = derived[k]
+        print_mapper_stats(mapper, totals, file=sys.stderr)
     else:  # padded reference engine: no instance accounting to report
         _say(f"plan cache: {mapper.plan_cache_hits} hits / "
              f"{mapper.plan_cache_misses} misses")
+    metrics_snapshot(args.metrics_out, seq=n_chunks)
     return 0
 
 
@@ -413,6 +482,28 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--rejects", default=None,
                     help="permissive mode: write quarantined raw FASTQ "
                          "records to this file (.gz ok)")
+    ap.add_argument("--inject", default=None, metavar="SPEC",
+                    help="deterministic fault injection, e.g. "
+                         "'bucket=0.125,record=0.005,seed=3' (sites: "
+                         "bucket, record, stall, error, flush; plus "
+                         "seed=, stall_s=, poison=r1;r2, "
+                         "engines=fused;cuda) — chaos testing")
+    ap.add_argument("--watchdog", type=float, default=None, metavar="S",
+                    help="streaming fetch watchdog seconds: a stalled "
+                         "chunk fetch fails (and is retried/quarantined) "
+                         "instead of hanging the run")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="export the run as Chrome trace-event JSON "
+                         "(loadable in Perfetto / chrome://tracing); "
+                         "implies per-stage profiling, so the span "
+                         "durations equal stage_times_s")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write JSONL metrics snapshots (one per chunk "
+                         "plus a final one; schema: "
+                         "schemas/metrics_snapshot.schema.json)")
+    ap.add_argument("--log-json", action="store_true",
+                    help="structured one-object-per-line JSON progress "
+                         "on stderr instead of human-readable lines")
     ap.add_argument("--k", type=int, default=12)
     ap.add_argument("--w", type=int, default=30)
     ap.add_argument("--eth", type=int, default=6)

@@ -38,6 +38,10 @@ print("LOADED", bad)
     # the sharded index
     ("repro_torch.index", "repro_torch.index.residency",
      "repro_torch.launch.build_index"),
+    # serving, resilience and observability
+    ("repro_torch.obs", "repro_torch.obs.surfaces",
+     "repro_torch.core.resilience", "repro_torch.core.serving",
+     "repro_torch.launch.serve", "repro_torch.launch.report"),
     # the flash wrapper's plain version, first in a fresh process
     ("repro_torch.core.attention", "repro_torch.kernels.ops",
      "repro_torch.models.layers"),

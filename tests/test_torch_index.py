@@ -9,6 +9,7 @@ geometry (k=10, w=12, eth=4) as the reference's index tests use, odd
 tiles."""
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -294,13 +295,46 @@ def test_build_index_cli_matches_reference(world, tmp_path, capsys):
     _assert_same_dir(tmp_path / "ref", tmp_path / "port")
 
 
-@pytest.mark.parametrize("argv", [("--trace-out", "t.json"),
-                                  ("--metrics-out", "m.jsonl"),
-                                  ("--log-json",)])
-def test_build_index_cli_refuses_unported_flags(world, tmp_path, argv):
-    with pytest.raises(SystemExit) as e:
-        build_cli.main([str(world / "ref.fa"), "-o", str(tmp_path / "idx"),
-                        "--device", "cpu", *argv])
-    msg = str(e.value.code)
-    assert "not ported" in msg and "Queue 1 item 8" in msg
-    assert not (tmp_path / "idx").exists()
+def test_build_index_cli_obs_matches_reference(world, tmp_path, capsys):
+    """``--trace-out``, ``--metrics-out`` and ``--log-json``: the
+    reference launcher's span names, metrics snapshot (the build's
+    counters) and JSON events, and a trace and snapshot that validate."""
+    from repro_torch.obs.validate import (load_json, validate_chrome_trace,
+                                          validate_jsonl)
+    argv = [str(world / "ref.fa"), "--partitions", "2", "--tile-bp", "999",
+            "--read-len", str(READ_LEN), "--k", str(K), "--w", str(W),
+            "--eth", str(ETH), "--log-json"]
+    out = {}
+    for who in ("ref", "port"):
+        flags = ["-o", str(tmp_path / who), "--trace-out",
+                 str(tmp_path / f"{who}.json"), "--metrics-out",
+                 str(tmp_path / f"{who}.jsonl")]
+        if who == "ref":
+            env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
+                       + os.environ.get("PYTHONPATH", ""))
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro.launch.build_index", *argv,
+                 *flags], env=env, capture_output=True, text=True,
+                timeout=600)
+            assert proc.returncode == 0, proc.stderr
+            err = proc.stderr
+        else:
+            assert build_cli.main([*argv, *flags, "--device", "cpu"]) == 0
+            err = capsys.readouterr().err
+        trace = load_json(tmp_path / f"{who}.json")
+        assert validate_chrome_trace(trace) == []
+        snap = [json.loads(ln) for ln in
+                (tmp_path / f"{who}.jsonl").read_text().splitlines()]
+        events = [json.loads(ln) for ln in err.splitlines()
+                  if ln.startswith("{")]
+        out[who] = (sorted({e["name"] for e in trace["traceEvents"]
+                            if e["ph"] == "X"}),
+                    [(s["seq"], s["counters"], s["gauges"]) for s in snap],
+                    [(e["event"], re.sub(r"[\d.]+s\b.*", "", e["msg"])
+                      .replace(str(tmp_path / who), "OUT"))
+                     for e in events])
+    assert out["port"] == out["ref"]
+    assert out["port"][0] == ["index_partition", "index_scan"]
+    assert validate_jsonl(tmp_path / "port.jsonl", load_json(os.path.join(
+        SRC, "..", "schemas", "metrics_snapshot.schema.json"))) == []
+    _assert_same_dir(tmp_path / "ref", tmp_path / "port")

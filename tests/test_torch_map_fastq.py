@@ -6,10 +6,14 @@ run and 24 reads of 120 bases on both strands, plus a copy of the FASTQ
 with one malformed record for the permissive path; and 24 pairs of those
 contigs (some R2 mates junk) as R1/R2 files, one interleaved file and an
 R2 file that lost a record (a mate desync); and sharded indexes of the
-FASTA built by each package (``--index-dir``)."""
+FASTA built by each package (``--index-dir``).  Injected faults under
+``--on-error permissive`` and the ``--trace-out``, ``--metrics-out`` and
+``--log-json`` surfaces are held to the reference CLI's too."""
+import json
 import os
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -20,12 +24,18 @@ from repro.data.genome import (make_reference, sample_pairs, sample_reads,
 from repro_torch.io.fastq import FastqParseError
 from repro_torch.io.sam import validate_sam
 from repro_torch.launch import map_fastq
+from repro_torch.obs.validate import (load_json, validate_chrome_trace,
+                                      validate_jsonl)
 
 READ_LEN = 120
 N_READS = 24
 BAD_RECORD = 5
 N_PAIRS = 24
 LOST_MATE = 5
+INJECT = "record=0.1,bucket=0.2,poison=3;11,seed=3"
+PAIR_INJECT = "record=0.1,poison=2;30,seed=4"
+SCHEMA = os.path.join(os.path.dirname(__file__), "..", "schemas",
+                      "metrics_snapshot.schema.json")
 
 # the reference runs: (name, FASTQ, argv).  The reference's three engines
 # write the same SAM, so each engine is run once, each with one of the
@@ -37,6 +47,10 @@ REF_RUNS = (
                                    "--chunk-reads", "7")),
     ("permissive", "bad.fq", ("--on-error", "permissive", "--rejects",
                               "ref_rejects.fq")),
+    ("inject", "reads.fq", ("--on-error", "permissive", "--rejects",
+                            "ref_inject_rejects.fq", "--inject", INJECT)),
+    ("obs", "reads.fq", ("--trace-out", "ref_trace.json", "--metrics-out",
+                         "ref_metrics.jsonl", "--log-json")),
 )
 
 
@@ -83,36 +97,38 @@ def paired_world(world):
 
 
 def _ref_cli(world, runs):
-    """The reference CLI's SAM for each of ``runs`` (name, inputs, argv),
-    the runs in parallel subprocesses."""
+    """The reference CLI's SAM and stderr for each of ``runs`` (name,
+    inputs, argv), at most four subprocesses at a time."""
     env = dict(os.environ)
     env["PYTHONPATH"] = (os.path.join(os.path.dirname(__file__), "..",
                                       "src") +
                          os.pathsep + env.get("PYTHONPATH", ""))
-    procs = {}
-    for name, inputs, argv in runs:
+
+    def one(run):
+        name, inputs, argv = run
         fasta = [] if "--index-dir" in argv else [str(world / "ref.fa")]
         cmd = [sys.executable, "-m", "repro.launch.map_fastq",
                *fasta, *inputs,
                "-o", str(world / f"ref_{name}.sam"), "--chunk-reads", "16",
                *argv]
-        procs[name] = subprocess.Popen(cmd, env=env, cwd=str(world),
-                                       stdout=subprocess.PIPE,
-                                       stderr=subprocess.PIPE, text=True)
-    out = {}
-    for name, proc in procs.items():
-        _, err = proc.communicate(timeout=600)
-        assert proc.returncode == 0, err
-        out[name] = (world / f"ref_{name}.sam").read_text(), err
-    return out
+        proc = subprocess.run(cmd, env=env, cwd=str(world),
+                              capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr
+        return name, ((world / f"ref_{name}.sam").read_text(), proc.stderr)
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        return dict(pool.map(one, runs))
 
 
 @pytest.fixture(scope="module")
-def ref_sams(world):
-    """The reference CLI's SAM for each of ``REF_RUNS``."""
-    return {name: sam for name, (sam, _) in _ref_cli(
-        world, [(name, [str(world / fq)], argv)
-                for name, fq, argv in REF_RUNS]).items()}
+def ref_runs(world):
+    """The reference CLI's SAM and stderr for each of ``REF_RUNS``."""
+    return _ref_cli(world, [(name, [str(world / fq)], argv)
+                            for name, fq, argv in REF_RUNS])
+
+
+@pytest.fixture(scope="module")
+def ref_sams(ref_runs):
+    return {name: sam for name, (sam, _) in ref_runs.items()}
 
 
 # the reference's paired runs: (name, inputs, argv).  Its three engines
@@ -120,6 +136,9 @@ def ref_sams(world):
 # interleaved one on another engine and chunk size.
 REF_PAIRED_RUNS = (
     ("pairs", ("--r1", "r1.fq", "--r2", "r2.fq"), ()),
+    ("pairs_inject", ("--r1", "r1.fq", "--r2", "r2.fq"),
+     ("--on-error", "permissive", "--rejects", "ref_pair_inject_rejects.fq",
+      "--inject", PAIR_INJECT)),
     ("pairs_interleaved", ("i.fq", "--interleaved"),
      ("--engine", "fused", "--chunk-reads", "7")),
     ("pairs_permissive", ("--r1", "r1.fq", "--r2", "r2_lost.fq"),
@@ -206,10 +225,8 @@ def test_stdout_output(world, ref_sams, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (("--watchdog", "5"), 8),
     (("--topology", "mesh"), 9),
-    (("--inject", "record=0.1"), 8),
-    (("--trace-out", "t.json"), 8),
+    (("--shards", "4"), 9),
 ])
 def test_not_ported_flags_exit_naming_their_item(world, argv, item):
     with pytest.raises(SystemExit) as e:
@@ -217,6 +234,84 @@ def test_not_ported_flags_exit_naming_their_item(world, argv, item):
                         "--device", "cpu", *argv])
     msg = str(e.value.code)
     assert "not ported" in msg and f"Queue 1 item {item}" in msg
+
+
+def test_inject_permissive_same_sam_and_rejects(world, ref_runs, capsys):
+    """Corrupted records, poisoned rows and transient block faults from
+    one seeded spec: the reference CLI's SAM (quarantined rows as unmapped
+    records) and rejects file, with the fetch watchdog armed."""
+    text = _port(world, "port_inject.sam", "--on-error", "permissive",
+                 "--rejects", str(world / "port_inject_rejects.fq"),
+                 "--inject", INJECT, "--watchdog", "60")
+    want, want_err = ref_runs["inject"]
+    assert _body(text) == _body(want)
+    rejects = (world / "port_inject_rejects.fq").read_text()
+    assert rejects == (world / "ref_inject_rejects.fq").read_text()
+    assert rejects.count("@") >= 1
+    err = capsys.readouterr().err
+    assert _line(err, "quarantined:").split(" -> ")[0] == \
+        _line(want_err, "quarantined:").split(" -> ")[0]
+    # the same counts and ladder: the reference maps on jnp, the port on
+    # the cuda backend (its plain versions on the CPU)
+    assert _line(err, "resilience:") == \
+        _line(want_err, "resilience:").replace("/jnp", "/cuda")
+
+
+def _json_events(err):
+    out = []
+    for ln in err.splitlines():
+        try:
+            rec = json.loads(ln)
+        except json.JSONDecodeError:
+            continue
+        out.append((rec["event"], sorted(rec)))
+    return out
+
+
+def _counts(snapshot):
+    return {k: v for k, v in snapshot["counters"].items()
+            if not k.startswith("repro_stage_seconds")}
+
+
+def test_obs_flags_write_the_references_trace_metrics_and_log(
+        world, ref_runs, capsys):
+    """``--trace-out``, ``--metrics-out`` and ``--log-json``: a valid
+    trace with the reference's span names, a snapshot a chunk plus a
+    final one with the reference's metric names and counts (times aside)
+    that validates against the schema, and the reference's JSON events;
+    the SAM is unchanged.  The trace's per-stage durations equal the
+    stage-seconds counters."""
+    text = _port(world, "port_obs.sam", "--trace-out",
+                 str(world / "trace.json"), "--metrics-out",
+                 str(world / "metrics.jsonl"), "--log-json")
+    assert _body(text) == _body(ref_runs["compacted"][0])
+    err = capsys.readouterr().err
+    trace, want_trace = (load_json(world / f"{p}trace.json")
+                         for p in ("", "ref_"))
+    assert validate_chrome_trace(trace) == []
+
+    def names(t):
+        return sorted({e["name"] for e in t["traceEvents"]
+                       if e["ph"] == "X"})
+    assert names(trace) == names(want_trace)
+    assert {"ingest", "sam_emit", "seed", "d2h"} <= set(names(trace))
+    assert validate_jsonl(world / "metrics.jsonl", load_json(SCHEMA)) == []
+    snaps, want_snaps = ([json.loads(ln) for ln in
+                          (world / f"{p}metrics.jsonl").read_text()
+                          .splitlines()] for p in ("", "ref_"))
+    assert [s["seq"] for s in snaps] == [s["seq"] for s in want_snaps]
+    assert [_counts(s) for s in snaps] == [_counts(s) for s in want_snaps]
+    assert sorted(snaps[-1]["counters"]) == sorted(
+        want_snaps[-1]["counters"])
+    spans = {}
+    for e in trace["traceEvents"]:
+        if e["ph"] == "X":
+            spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"] / 1e6
+    for k, v in snaps[-1]["counters"].items():
+        if k.startswith("repro_stage_seconds"):
+            stage = k.split('stage="')[1].rstrip('"}')
+            assert spans[stage] == pytest.approx(v, rel=1e-6, abs=1e-7)
+    assert _json_events(err) == _json_events(ref_runs["obs"][1])
 
 
 def test_no_device_and_no_gpu_raises(world, monkeypatch):
@@ -310,6 +405,22 @@ def test_paired_permissive_same_sam_and_rejects(paired_world, ref_paired,
     assert got.split(" -> ")[0] == _line(want_err,
                                          "quarantined:").split(" -> ")[0]
     assert "{'mate_desync': 1}" in got
+
+
+def test_paired_inject_permissive_same_sam_and_rejects(paired_world,
+                                                       ref_paired):
+    """Injected record faults quarantine both mates of a pair, and a
+    poisoned row quarantines its block of the stacked mates: the
+    reference CLI's SAM and rejects."""
+    w = paired_world
+    text = _port_paired(w, "port_pairs_inject.sam", "--r1",
+                        str(w / "r1.fq"), "--r2", str(w / "r2.fq"),
+                        "--on-error", "permissive", "--rejects",
+                        str(w / "port_pair_inject_rejects.fq"),
+                        "--inject", PAIR_INJECT)
+    assert _body(text) == _body(ref_paired["pairs_inject"][0])
+    assert (w / "port_pair_inject_rejects.fq").read_text() == \
+        (w / "ref_pair_inject_rejects.fq").read_text()
 
 
 @pytest.mark.parametrize("argv,msg", [

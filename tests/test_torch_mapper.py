@@ -104,7 +104,7 @@ def test_mapping_is_accurate_and_cigars_decode(world):
 
 
 def test_session_api(world):
-    """Plan, plan-cache counters, map_async, map_pairs and the
+    """Plan, plan-cache counters, map_async, map_pairs, serve and the
     not-yet-ported paths."""
     _, tidx, _, reads = world
     m = Mapper(tidx, MapperConfig.from_index(tidx, chunk_reads=4),
@@ -124,8 +124,8 @@ def test_session_api(world):
     np.testing.assert_array_equal(r2.position, a.position[::-1])
     with pytest.raises(ValueError, match="pairwise"):
         m.map_pairs(reads, reads[:-1])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.serve()
+    svc = m.serve()                    # a MappingService on this session
+    assert svc.mapper is m and svc.batcher.cfg.bucket_max == 1024
     padded = Mapper(tidx, MapperConfig.from_index(tidx, engine="padded",
                                                   both_strands=True),
                     device="cpu")

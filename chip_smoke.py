@@ -238,6 +238,8 @@ MINI_OPS_PER_WINDOW = 3 * 3
 GENOME_BASES = 64_000_000
 N_READS = 131_072
 CHUNK = 16_384
+# phase 7 writes chr1 with a run of N over these bases
+N_RUN = (1_000_000, 1_000_200)
 # phase 11, the sharded index: phase 7's FASTA in 4 partitions; the same in
 # 64 partitions mapped a read a chunk under half its size with prefetch
 # (each chunk touches a strict subset of the partitions); a slice built at
@@ -275,6 +277,14 @@ SVC_SEED = 12
 RESILIENT_SPEC = "poison=1000;12000,bucket=0.05,seed=7"
 WATCHDOG_S, STALL_S = 2.0, 20.0
 MEM_CHUNK = CHUNK // 2
+# phase 13, the mesh topology: phase 4's reads on MESH_SHARDS logical
+# shards of the card (the reference's mesh on 8 virtual devices); its
+# overflow checks at send_cap MESH_SEND_CAP and survivor fraction
+# MESH_FRAC, its service on the first MESH_REQUESTS of phase 12's requests
+MESH_SHARDS = 8
+MESH_SEND_CAP, MESH_FRAC = 2, 0.001
+MESH_REQUESTS = 64
+MESH_OVERFLOW_BAR = 0.9
 OVERHEAD_ROUNDS = 5
 FIELDS = ("position", "distance", "distance2", "mapped", "strand", "ops",
           "op_count", "n_candidates")
@@ -1202,7 +1212,7 @@ def phase_map_fastq(ref, rs, work):
 
     half = GENOME_BASES // 2
     chr1 = ref[:half].copy()
-    chr1[1_000_000:1_000_200] = 4          # a run of N
+    chr1[N_RUN[0]:N_RUN[1]] = 4            # a run of N
     fa, fq = os.path.join(work, "ref.fa"), os.path.join(work, "reads.fq")
     t0 = time.perf_counter()
     write_fasta(fa, [("chr1", chr1), ("chr2", ref[half:])])
@@ -2135,7 +2145,11 @@ def _run_resilient(idx, reads, clean, engines):
 
 def _run_watchdog(idx, reads, clean):
     """A fetch stall of STALL_S past a watchdog of WATCHDOG_S: the error
-    within WATCHDOG_S + 5 s, then a clean run on the same session."""
+    within WATCHDOG_S + 5 s, then a clean run on the same session.  ->
+    the threads it left running: the abandoned fetch worker, which holds
+    its chunk's device outputs until its stall ends."""
+    import threading
+
     from repro_torch.core.mapper import Mapper
     from repro_torch.core.pipeline import MapperConfig
     from repro_torch.core.resilience import FaultInjector
@@ -2154,6 +2168,7 @@ def _run_watchdog(idx, reads, clean):
 
     cfg = MapperConfig.from_index(idx, both_strands=True, chunk_reads=CHUNK)
     mapper = Mapper(idx, cfg, injector=StallOnce(), watchdog_s=WATCHDOG_S)
+    known = set(threading.enumerate())
     t0 = time.perf_counter()
     try:
         mapper.map(reads)
@@ -2175,6 +2190,8 @@ def _run_watchdog(idx, reads, clean):
         f"after {dt:.3f} s (watchdog {WATCHDOG_S} s; {msg!r}); the next "
         f"run on the same session took {dt2:.3f} s and equals the clean "
         f"run")
+    return [t for t in threading.enumerate()
+            if t not in known and t.is_alive()]
 
 
 def _run_map_fastq_obs(mf, work):
@@ -2349,14 +2366,453 @@ def phase_service(idx, rs, pairs, mf, work):
     for engines in ("fused", "fused;cuda"):
         out[f"ResilientMapper engines={engines}"] = _run_resilient(
             idx, reads, clean, engines)
-    _run_watchdog(idx, rs.reads[:2 * CHUNK], Mapper(
+    stalled = _run_watchdog(idx, rs.reads[:2 * CHUNK], Mapper(
         idx, MapperConfig.from_index(idx, both_strands=True,
                                      chunk_reads=CHUNK)).map(
         rs.reads[:2 * CHUNK]))
+    t_stall = time.perf_counter()
     out["map_fastq --trace-out"] = _run_map_fastq_obs(mf, work)
+    # device memory is measured once the abandoned fetch worker has
+    # ended and freed its chunk's outputs
+    if not stalled:
+        raise AssertionError("the watchdog left no abandoned fetch worker")
+    for t in stalled:
+        t.join(timeout=STALL_S + 10)
+        if t.is_alive():
+            raise AssertionError(f"the abandoned fetch worker {t.name} "
+                                 f"outlived its {STALL_S} s stall by 10 s")
+    log(f"watchdog: {len(stalled)} abandoned fetch worker(s) ended "
+        f"{time.perf_counter() - t_stall:.2f} s after the step")
     _run_memory(idx, rs.reads)
     _run_overheads(idx, rs.reads)
     return out
+
+
+def _mesh_map(m, reads, what):
+    """The mesh session ``m`` on ``reads`` once -> (result, seconds,
+    launches, peak device GB)."""
+    import torch
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = m.map(reads)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    st = res.stats
+    log(f"mesh {what}: {len(reads):,} reads in {dt:.3f} s; dropped send "
+        f"{st.dropped_send}, affine {st.dropped_affine}; stage-B survivors "
+        f"{st.survivors:,} of {st.candidates:,} entries, capacity "
+        f"{st['stage_b_affine_capacity']:,}/shard; peak device memory "
+        f"{peak:.3f} GB; launches {launches}")
+    return res, dt, launches, peak
+
+
+def _mesh_same(what, got, want, fields=("position", "distance", "strand")):
+    for f in fields:
+        if not np.array_equal(getattr(got, f), getattr(want, f)):
+            bad = int((getattr(got, f) != getattr(want, f)).sum())
+            raise AssertionError(f"mesh {what}: {f} differs on {bad} reads")
+
+
+def _mesh_right(res, rs):
+    """Per read: position within eth of the truth, on the right strand."""
+    return ((np.abs(res.position - rs.true_pos) <= ETH)
+            & (res.strand == rs.strand))
+
+
+def _sam_fields(lines):
+    """{read name: (RNAME, POS, reverse?)} of the mapped records, and the
+    set of their CIGARs."""
+    out, cigars = {}, set()
+    for ln in lines:
+        if ln.startswith("@"):
+            continue
+        f = ln.split("\t", 6)
+        if not int(f[1]) & 0x4:
+            out[f[0]] = (f[2], f[3], bool(int(f[1]) & 0x10))
+            cigars.add(f[5])
+    return out, cigars
+
+
+def _leading_deletions(res):
+    """Per read of the result ``res`` (with its ops), the reference bases
+    the SAM writer trims off the front of its alignment: the shift of
+    ``io.cigar.trim_edge_deletions``, 0 where none or unmapped."""
+    from repro_torch.core.encoding import OP_DEL
+    from repro_torch.io.cigar import (cigar_from_ops, parse_cigar,
+                                      trim_edge_deletions)
+    ops, cnt = np.asarray(res.ops), np.asarray(res.op_count)
+    L = ops.shape[1]
+    first = np.take_along_axis(ops, np.clip(L - cnt, 0, L - 1)[:, None],
+                               axis=1)[:, 0]
+    lead = np.zeros(len(cnt), dtype=np.int64)
+    for i in np.flatnonzero((cnt > 0) & (cnt <= L) & (first == OP_DEL)):
+        cig = cigar_from_ops(ops[i], int(cnt[i]))
+        if cig != "*":
+            lead[i] = trim_edge_deletions(parse_cigar(cig))[1]
+    return lead
+
+
+def _mesh_cli(idx, ref, rs, lead, pairs, mf, work):
+    """``map_fastq --topology mesh --shards 8`` on phase 7's files and on
+    phase 7b's pairs (written again here) -> {step: launches}.  ``lead``:
+    each read's leading deletion in phase 4's compacted alignment
+    (``_leading_deletions``)."""
+    from repro_torch.data.genome import write_fasta, write_fastq_pair
+    out = {}
+    sam = os.path.join(work, "mesh.sam")
+    mesh_args = ["--topology", "mesh", "--shards", str(MESH_SHARDS),
+                 "--chunk-reads", str(CHUNK)]
+    dt, err, out["map_fastq"], n_build = _map_fastq_run(
+        [mf["fa"], mf["fq"], "-o", sam, *mesh_args], "--topology mesh")
+    with open(sam) as f:
+        got, cigars = _sam_fields(f.read().splitlines())
+    want, _ = _sam_fields(mf["body"])
+    if cigars != {"*"}:
+        raise AssertionError(f"map_fastq --topology mesh: CIGARs {cigars}")
+    # a record whose alignment opens with a deletion has its POS moved
+    # past it when its CIGAR is normalized (io.sam.trim_edge_deletions);
+    # a mesh record has no CIGAR, so its POS is the mapped position — as
+    # in the reference.  So each mesh POS is phase 7's less the leading
+    # deletion of the read's alignment, taken from phase 4's compacted
+    # result; reads over phase 7's run of N or its contig junction (where
+    # phase 4's reference differs) are held to a shift of 0 to ETH bases
+    # only.  Every other field must be equal.
+    near_n = np.zeros(len(rs.true_pos), dtype=bool)
+    for a, b in (N_RUN, (GENOME_BASES // 2, GENOME_BASES // 2)):
+        near_n |= (rs.true_pos > a - N - 2 * ETH) & (rs.true_pos < b + ETH)
+    shifted, loose, bad = 0, 0, []
+    for k, v in got.items():
+        w = want.get(k)
+        i = int(k[len("read"):])
+        if w is None or w[0] != v[0] or w[2] != v[2]:
+            bad.append(k)
+            continue
+        d = int(w[1]) - int(v[1])
+        if near_n[i]:
+            loose += d != 0
+            if not 0 <= d <= ETH:
+                bad.append(k)
+        elif d != lead[i]:
+            bad.append(k)
+        else:
+            shifted += d != 0
+    if bad or len(got) != len(want):
+        raise AssertionError(f"map_fastq --topology mesh: {len(bad)} "
+                             f"mapped records differ from phase 7's, "
+                             f"{len(got)} mapped of its {len(want)}"
+                             + (f" (first {bad[0]}: {got[bad[0]]} vs "
+                                f"{want.get(bad[0])}, leading deletion "
+                                f"{lead[int(bad[0][len('read'):])]})"
+                                if bad else ""))
+    done = [ln for ln in err.splitlines() if ln.startswith("done:")][0]
+    log(f"map_fastq --topology mesh --shards {MESH_SHARDS}: {dt:.2f} s "
+        f"wall, {len(got):,} mapped records, each with phase 7's RNAME, "
+        f"strand and POS ({shifted:,} of them before phase 7's by the "
+        f"leading deletion its CIGAR trims, each equal to that deletion's "
+        f"length in phase 4's alignment; {int(near_n.sum())} reads over "
+        f"the run of N or the contig junction held to a shift of 0 to "
+        f"{ETH}, {loose} shifted), "
+        f"CIGAR *; launches {out['map_fastq']}")
+    log(f"  {done}")
+    log("  " + [ln for ln in err.splitlines()
+                if ln.startswith("stage B [mesh]")][0])
+    fa = os.path.join(work, "mesh_pairs.fa")
+    r1, r2 = (os.path.join(work, f"mesh_{m}.fq") for m in ("r1", "r2"))
+    write_fasta(fa, [("chr1", ref)])
+    write_fastq_pair(r1, r2, pairs)
+    sam = os.path.join(work, "mesh_pairs.sam")
+    dt, err, out["map_fastq --r1 --r2"], _ = _map_fastq_run(
+        [fa, "--r1", r1, "--r2", r2, "-o", sam, *mesh_args],
+        "--topology mesh --r1 --r2")
+    junk = (np.random.default_rng(PAIR_SEED + 0x7777).random(N_PAIRS)
+            < JUNK_FRAC)
+    with open(sam) as f:
+        acc = _sam_pair_accuracy(f.read(), pairs, ~junk)
+    log(f"map_fastq --topology mesh --r1 --r2: {dt:.2f} s wall; "
+        f"proper-pair accuracy from the SAM {acc:.5f}; launches "
+        f"{out['map_fastq --r1 --r2']}")
+    log("  " + [ln for ln in err.splitlines()
+                if ln.startswith("pairing:")][0])
+    if acc < PAIR_ACCURACY_BAR:
+        raise AssertionError(f"map_fastq --topology mesh --r1 --r2: "
+                             f"accuracy {acc} below {PAIR_ACCURACY_BAR}")
+    return out
+
+
+def _mesh_kernel_parity(m, reads, want):
+    """The mesh session ``m`` on ``reads`` once more, keeping every
+    kernel's inputs (``KernelInputs``; equal to ``want``, its first run),
+    then each kept launch's wrapper held against its plain version on the
+    same inputs and timed beside it (CUDA events; the plain version once).
+    -> {kernel: launches, instances, max_abs_err, ms, plain_ms}."""
+    import torch
+    from repro_torch.kernels import ops
+    with KernelInputs() as kept:
+        again = m.map(reads)
+    torch.cuda.synchronize()
+    _mesh_same("run keeping its kernel inputs", again, want,
+               ("position", "distance", "distance2", "strand"))
+    del again
+    kern = _kernels()
+    out = {}
+    for name, calls in kept.calls.items():
+        if name == "minimizer_scan":
+            def run(c):
+                return ops.minimizer_scan(c, k=K, w=W, codes=True)
+
+            def plain(c):
+                return _minimizer_plain(c, K, W, codes=True)
+            calls = [(c,) for c in calls]
+        else:
+            def run(s1, s2, mo, k=kern[name]):
+                return k["run"](s1, s2, ETH, mo)
+
+            def plain(s1, s2, mo, k=kern[name]):
+                return k["plain"](s1, s2, ETH, mo)
+        if not calls:
+            continue
+        err, ms, plain_ms = 0, 0.0, 0.0
+        for c in calls:
+            got = run(*c)
+            torch.cuda.synchronize()
+            err = max(err, _compare(f"mesh {name} R={c[0].shape[0]:,}", got,
+                                    plain(*c)))
+            del got
+            ms += cuda_ms(lambda: run(*c), 3, 1)
+            plain_ms += cuda_ms(lambda: plain(*c), 1, 0)
+        rows = [int(c[0].shape[0]) for c in calls]
+        out[name] = dict(launches=len(calls), instances=rows,
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        log(f"mesh {name} on the main run's inputs: {len(calls)} launches "
+            f"of {rows} rows, bit-identical to the plain version; "
+            f"{ms:.4f} ms, plain {plain_ms:.2f} ms")
+    for name in ("minimizer_scan", "linear_wf", "affine_wf_dist"):
+        if name not in out:
+            raise AssertionError(f"mesh: no {name} input kept")
+    del kept
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_service(m, rs, whole):
+    """A ``MappingService`` on the mesh session ``m`` fed the first
+    MESH_REQUESTS of phase 12's requests twice: every request equals its
+    rows of ``whole`` (the mesh ``Mapper.map``), and the second pass
+    builds no new plan."""
+    from repro_torch.core.serving import BatcherConfig
+    sizes, _ = _service_load(np.random.default_rng(SVC_SEED), N_READS,
+                             SVC_PAIRED)
+    sizes = sizes[:MESH_REQUESTS]
+    svc = m.serve(BatcherConfig(bucket_min=SVC_BUCKET_MIN,
+                                bucket_max=CHUNK))
+    misses = []
+    t0 = time.perf_counter()
+    for _ in range(2):
+        spans, lo = {}, 0
+        for n in sizes:
+            spans[svc.submit(rs.reads[lo:lo + n])] = (lo, lo + n)
+            lo += n
+        out = svc.flush()
+        for rid, (a, b) in spans.items():
+            for f in ("position", "distance", "strand"):
+                if not np.array_equal(getattr(out[rid], f),
+                                      getattr(whole, f)[a:b]):
+                    raise AssertionError(f"mesh service: request [{a}, "
+                                         f"{b}) differs in {f}")
+        misses.append(m.plan_cache_misses)
+    dt = time.perf_counter() - t0
+    if misses[1] != misses[0]:
+        raise AssertionError(f"mesh service: the second pass built "
+                             f"{misses[1] - misses[0]} new plans")
+    log(f"mesh service: {len(sizes)} requests ({sum(sizes):,} reads) twice "
+        f"in {dt:.3f} s; every request equals its rows of Mapper.map; plan "
+        f"cache {m.plan_cache_hits} hits / {m.plan_cache_misses} misses, "
+        f"none new in the second pass; dropped send "
+        f"{svc.totals['dropped_send']}, affine {svc.totals['dropped_affine']}")
+
+
+def _mesh_group(sidx1, cfg, reads, local):
+    """A one-rank NCCL group on the card: the group form (the exchange
+    through ``all_to_all_single``, the results through ``all_gather``) on
+    the one-shard index ``sidx1`` equals the local form's session
+    ``local``."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.mapper import Mapper
+    from repro_torch.launch.mesh import make_genomics_mesh
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_genomics_mesh(group=dist.group.WORLD)
+        got, dt, _, _ = _mesh_map(
+            Mapper(sidx1, cfg, topology="mesh", mesh=mesh), reads,
+            "NCCL group of one rank")
+    finally:
+        dist.destroy_process_group()
+    want, _, _, _ = _mesh_map(local, reads, "local form, one shard")
+    _mesh_same("NCCL group", got, want, ("position", "distance",
+                                         "distance2", "strand"))
+    if got.stats.as_dict().keys() != want.stats.as_dict().keys():
+        raise AssertionError("mesh NCCL group: stats keys differ")
+    log(f"mesh NCCL group of one rank on {mesh.device}: {len(reads):,} "
+        f"reads in {dt:.3f} s, equal to the local form")
+
+
+def phase_mesh(idx, ref, rs, single, lead, pairs, mf, work):
+    """Phase 13, the mesh topology at full width: phase 4's index and its
+    131,072 reads on both strands over MESH_SHARDS logical shards of the
+    card, each check fatal.  ``single`` holds phase 4's compacted result,
+    ``lead`` its leading deletions.  Each sharded layout is built and
+    placed once; the sessions that differ only in their config share it
+    (``Mapper.with_config``).  -> ({step: launches}, {kernel: its parity
+    on the main run's inputs}) for the kernels JSON line."""
+    import torch
+    from repro_torch.core.distributed import shard_index
+    from repro_torch.core.mapper import Mapper
+    from repro_torch.core.pipeline import MapperConfig
+    from repro_torch.index import shard_flat_index
+    from repro_torch.kernels import ops
+
+    def cfg(**kw):
+        return MapperConfig.from_index(idx, both_strands=True, **kw)
+
+    out = {}
+    t0 = time.perf_counter()
+    sidx = shard_index(idx, MESH_SHARDS)
+    sidx1 = shard_index(idx, 1)
+    main = Mapper(sidx, cfg(profile=True), topology="mesh",
+                  n_shards=MESH_SHARDS)
+    log(f"mesh: shard_index into {MESH_SHARDS} shards and 1, and the "
+        f"{MESH_SHARDS} placed on the card: {time.perf_counter() - t0:.2f} "
+        f"s ({sidx.segments.nbytes / 1e9:.3f} GB of padded segments)")
+    # 1. the main run, after one warm-up, and two more rounds
+    _mesh_map(main, rs.reads, "warm-up")
+    times, res = [], None
+    for r in range(3):
+        got, dt, launches, peak = _mesh_map(main, rs.reads, f"round {r}")
+        times.append(dt)
+        if r == 0:
+            res, out["Mapper.map"], main_peak = got, launches, peak
+    st = res.stats
+    if st.dropped_send or st.dropped_affine:
+        raise AssertionError(f"mesh: dropped send {st.dropped_send}, "
+                             f"affine {st.dropped_affine}")
+    _mesh_same(f"{MESH_SHARDS} shards against the single topology", res,
+               single)
+    acc = float(_mesh_right(res, rs).mean())
+    launches = out["Mapper.map"]
+    for name in ("minimizer_scan", "linear_wf", "affine_wf_dist"):
+        if launches[name] < 1:
+            raise AssertionError(f"mesh: {name} never launched: {launches}")
+    for name in ("affine_traceback", "affine_wf"):
+        if launches[name]:
+            raise AssertionError(f"mesh: {name} launched: {launches}")
+    rate = [N_READS / t for t in times]
+    log(f"mesh {MESH_SHARDS} shards: {N_READS:,} reads on both strands, "
+        f"equal to phase 4's compacted result in position, distance and "
+        f"strand; accuracy {acc:.5f}; reads/s over three rounds "
+        f"{', '.join(f'{x:,.0f}' for x in rate)}; stage_times_s "
+        + json.dumps({k: round(v, 4) for k, v in
+                      st["stage_times_s"].items()})
+        + f"; peak device memory {main_peak:.3f} GB; launches {launches}; "
+        f"send_cap {st['stage_b_entries'] // MESH_SHARDS ** 2:,}, "
+        f"stage-B entries {st['stage_b_entries']:,}, survivors "
+        f"{st.survivors:,}, affine capacity "
+        f"{st['stage_b_affine_capacity']:,}/shard")
+    if acc < ACCURACY_BAR:
+        raise AssertionError(f"mesh: accuracy {acc} below {ACCURACY_BAR}")
+    # 2. each kernel against its plain version on the inputs the main run
+    # gave it, and the all-plain route on the whole batch
+    parity = _mesh_kernel_parity(main, rs.reads, res)
+    plain, plain_dt, plain_l, _ = _mesh_map(
+        main.with_config(cfg(wf_backend="torch")), rs.reads, "plain")
+    if any(plain_l[k] for k in MAPPER_KERNELS):
+        raise AssertionError(f"mesh wf_backend torch launched {plain_l}")
+    _mesh_same("wf_backend torch", plain, res,
+               ("position", "distance", "distance2", "strand"))
+    for f in ("survivors", "dropped_send", "dropped_affine"):
+        if getattr(plain.stats, f) != getattr(st, f):
+            raise AssertionError(f"mesh wf_backend torch: {f} "
+                                 f"{getattr(plain.stats, f)} != "
+                                 f"{getattr(st, f)}")
+    log(f"mesh wf_backend torch: {N_READS:,} reads in {plain_dt:.3f} s "
+        f"with no launch, equal to the main run in position, distance, "
+        f"distance2, strand, survivors and drops")
+    del plain
+    head = rs.reads[:CHUNK]
+    # 3. overflow: send capacity and survivor capacity
+    small, _, _, _ = _mesh_map(
+        Mapper(sidx, cfg(), topology="mesh", n_shards=MESH_SHARDS,
+               send_cap=MESH_SEND_CAP), rs.reads,
+        f"send_cap={MESH_SEND_CAP}")
+    mapped = small.position >= 0
+    acc2 = float(_mesh_right(small, rs)[mapped].mean())
+    if not small.stats.dropped_send or acc2 <= MESH_OVERFLOW_BAR:
+        raise AssertionError(f"mesh send_cap={MESH_SEND_CAP}: dropped "
+                             f"{small.stats.dropped_send}, accuracy of "
+                             f"the mapped {acc2}")
+    tight, _, _, _ = _mesh_map(
+        main.with_config(cfg(stage_b_survivor_frac=MESH_FRAC)), head,
+        f"survivor frac {MESH_FRAC}")
+    if not tight.stats.dropped_affine:
+        raise AssertionError(f"mesh survivor frac {MESH_FRAC}: no affine "
+                             f"drop")
+    log(f"mesh overflow: send_cap={MESH_SEND_CAP} dropped "
+        f"{small.stats.dropped_send:,} entries, {int(mapped.sum()):,} reads "
+        f"mapped at accuracy {acc2:.5f}; survivor frac {MESH_FRAC} dropped "
+        f"{tight.stats.dropped_affine:,} survivors")
+    del small
+    # 4. one shard
+    one_m = Mapper(sidx1, cfg(), topology="mesh", n_shards=1)
+    one, _, out["Mapper.map, one shard"], _ = _mesh_map(
+        one_m, rs.reads, "one shard")
+    _mesh_same("one shard against the single topology", one, single)
+    # 5. mesh placement of a partitioned index
+    t0 = time.perf_counter()
+    parts = shard_flat_index(idx, SHARD_PARTS)
+    placed = parts.to_mesh_shards()
+    hashed = shard_index(idx, SHARD_PARTS)
+    for f in ("uniq_kmers", "offsets", "positions", "segments"):
+        a, b = getattr(placed, f), getattr(hashed, f)
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"mesh placement: {f} differs from "
+                                 f"shard_index's")
+    log(f"mesh placement: to_mesh_shards of a {SHARD_PARTS}-partition "
+        f"shard_flat_index equals shard_index(flat, {SHARD_PARTS}) "
+        f"({time.perf_counter() - t0:.2f} s with both)")
+    del placed
+    a, _, _, _ = _mesh_map(
+        Mapper(parts, cfg(), topology="mesh", n_shards=SHARD_PARTS), head,
+        "partitions placed")
+    b, _, _, _ = _mesh_map(
+        Mapper(hashed, cfg(), topology="mesh", n_shards=SHARD_PARTS), head,
+        "flat index sharded")
+    _mesh_same("partitions placed against the flat index", a, b,
+               ("position", "distance", "distance2", "strand"))
+    del parts, hashed
+    # 6, 7. the command line, single-end and paired
+    out.update({f"{k} --topology mesh": v for k, v in
+                _mesh_cli(idx, ref, rs, lead, pairs, mf, work).items()})
+    # 8. the service
+    _mesh_service(main.with_config(cfg()), rs, res)
+    # 9. the group form
+    _mesh_group(sidx1, cfg(), head, one_m)
+    del main, one_m
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    return out, parity
 
 
 def _minimizer_row(runs, generated):
@@ -3246,6 +3702,11 @@ def main() -> int:
         phase_done("7b paired-end")
         rows = phase_mainpath_kernels(runs, generated)
         rows["affine_wf_dist"]["rescue"] = rescue
+        lead = _leading_deletions(compacted)
+        single = type(compacted)(position=compacted.position,
+                                 distance=compacted.distance,
+                                 mapped=compacted.mapped,
+                                 strand=compacted.strand)
         del runs, compacted                 # the kept kernel inputs
         phase_done("8 main-path kernels")
         timing = phase_flash_parity()
@@ -3255,7 +3716,10 @@ def main() -> int:
         phase_done("10 StableLM-3B prefill")
         service = phase_service(idx, rs, pairs, mf, work)
         phase_done("12 serving, resilience, observability")
-        del idx, pairs
+        mesh, mesh_parity = phase_mesh(idx, ref, rs, single, lead, pairs,
+                                       mf, work)
+        phase_done("13 mesh topology")
+        del idx, pairs, single, lead
         sharded = phase_sharded(ref, rs, mf, work)
         phase_done("11 sharded index")
     finally:
@@ -3274,6 +3738,12 @@ def main() -> int:
     for name in MAPPER_KERNELS:
         rows[name]["service_launches"] = {
             step: l[name] for step, l in service.items()}
+    # and on the mesh (phase 13), step by step
+    for name in MAPPER_KERNELS:
+        rows[name]["mesh_launches"] = {step: l[name]
+                                       for step, l in mesh.items()}
+        if name in mesh_parity:
+            rows[name]["mesh_parity"] = mesh_parity[name]
     log(f"total {time.perf_counter() - t_all:.2f} s")
     log(smi)
     print(json.dumps({"kernels": list(rows.values())}))

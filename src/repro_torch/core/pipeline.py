@@ -74,11 +74,12 @@ class MapperConfig:
     stream: bool = True           # overlapped chunk schedule; False = fully
     #                               synchronous path with per-stage wall
     #                               times in stats
-    stage_b_survivor_frac: float = 0.5  # mesh stage B (not ported yet)
+    stage_b_survivor_frac: float = 0.5  # mesh stage B survivor capacity
     profile: bool = False         # streamed path: record per-stage
     #                               completion-time offsets into
     #                               stats["stage_times_s"]
-    stage_b_adaptive: bool = False  # mesh stage B (not ported yet)
+    stage_b_adaptive: bool = False  # mesh stage B: size the capacity
+    #                               from the survivor history
     stage_b_quantile: float = 0.9
     stage_b_history: int = 32
 

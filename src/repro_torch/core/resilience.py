@@ -27,9 +27,11 @@ the one home of that policy layer:
     Graceful degradation after repeated failures: ``fused -> compacted``
     engine.  The backend never steps down: the reference's third rung
     (``pallas -> jnp``) would run the kernels' plain versions on the card
-    and hide the kernels.  Sticky by design — a session that had to
-    degrade stays degraded until rebuilt.  Every step down is counted and
-    written to stderr.
+    and hide the kernels.  A rung's session is ``Mapper.with_config`` of
+    the base session: the same device and placed index, arena, or mesh
+    and ``send_cap``.  Sticky by design — a session that had to degrade
+    stays degraded until rebuilt.  Every step down is counted and written
+    to stderr.
 ``FaultInjector``
     The deterministic chaos hook threaded through
     ``streaming.stream_map`` (fetch stalls/errors), the bucket executor
@@ -552,14 +554,16 @@ class ResilientMapper:
     # ------------------------------------------------------------- mapping
 
     def map_segments(self, reads: np.ndarray, *, chunk: int | None = None,
-                     base: int = 0,
+                     plan_n: int | None = None, base: int = 0,
                      counters: dict | None = None) -> tuple[list, dict]:
         """Map ``reads`` with containment; -> ``(segments, counters)``.
 
         ``segments`` is an ordered ``[(n_rows, MappingResult |
         BlockFailure)]`` cover of the input.  ``chunk`` is forwarded to
-        the plan (the serving layer's streamed full-bucket runs); halves
-        created by bisection re-plan at their own size.  ``base`` is the
+        the plan (the serving layer's streamed full-bucket runs) and
+        ``plan_n`` overrides the planned batch size (the serving layer's
+        mesh buckets plan at bucket size, so same-size buckets share one
+        plan); halves created by bisection re-plan at their own size.  ``base`` is the
         absolute row offset of ``reads[0]`` — the coordinate the
         injector's ``poison_rows`` are expressed in.  The kernels' own
         errors are re-raised at once (module docstring).
@@ -578,7 +582,8 @@ class ResilientMapper:
                     self.injector.check_block(base, base + n,
                                               engine=m.cfg.engine,
                                               backend=m.cfg.wf_backend)
-                res = m.run(m.plan(n, chunk=chunk), reads)
+                res = m.run(m.plan(plan_n if plan_n is not None else n,
+                                   chunk=chunk), reads)
                 if len(res.position) != n:
                     raise RuntimeError(
                         f"engine returned {len(res.position)} rows for "

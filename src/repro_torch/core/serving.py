@@ -1,5 +1,5 @@
 """Request batching for the mapping service (the serving front-end) —
-torch twin of ``repro.core.serving`` on the single topology.
+torch twin of ``repro.core.serving``.
 
 A mapping service receives read batches of arbitrary size — per-client
 FASTQ slices, not the engine's chunk shape.  ``ReadBatcher`` is the
@@ -16,9 +16,10 @@ into **power-of-two bucket shapes** between ``bucket_min`` and
 
 ``MappingService`` wraps the batcher + a ``repro_torch.core.mapper.Mapper``
 session with per-request result reassembly and padding/throughput
-accounting: full buckets run as one streamed multi-chunk plan, the
-residue as its own pow-2 chunk shape.  The mesh topology is not ported
-(ROADMAP.md, Queue 1 item 9).
+accounting.  On the single topology full buckets run as one streamed
+multi-chunk plan and the residue as its own pow-2 chunk shape; on the
+mesh every bucket is one distributed batch planned at its bucket size,
+so same-size buckets share one plan-cache entry.
 
 Fault tolerance (``repro_torch.core.resilience``): admission control
 bounds the pending queue at ``submit`` (``AdmissionConfig`` — block or
@@ -38,9 +39,8 @@ import numpy as np
 
 from ..obs import registry as _metrics
 from .compaction import bucket_capacity
-from .mapper import (_PER_READ_FIELDS, Mapper, _not_ported,
-                     accumulate_partition_stats, accumulate_stats,
-                     split_result)
+from .mapper import (_PER_READ_FIELDS, Mapper, accumulate_partition_stats,
+                     accumulate_stats, split_result)
 from .pipeline import MapperConfig, MappingResult
 from .resilience import (_KERNEL_ERRORS, AdmissionConfig, MappingError,
                          ResilientMapper, RetryPolicy, ShedError,
@@ -209,8 +209,6 @@ class MappingService:
         else:
             self.mapper = Mapper(index_or_mapper, cfg, injector=injector,
                                  device=device)
-        if self.mapper.topology != "single":
-            raise _not_ported("MappingService on the mesh topology", "9")
         self.index = self.mapper.index
         self.cfg = self.mapper.cfg
         self.batcher = ReadBatcher(self.cfg.read_len, batcher)
@@ -445,6 +443,17 @@ class MappingService:
                     reg.histogram("repro_bucket_execute_seconds").observe(
                         time.perf_counter() - t0)
 
+        if self.mapper.topology == "mesh":
+            # every bucket is one distributed batch; same-size buckets
+            # share a plan key, so one mesh program
+            off = 0
+            for b in buckets:
+                block = reads[off : off + b]  # last block may be short
+                seg, counters = timed_map(
+                    block, plan_n=b, base=off, counters=counters)
+                segments += seg
+                off += b
+            return segments, counters
         hi = self.batcher.cfg.bucket_max
         n_full = sum(1 for b in buckets if b == hi)
         if n_full:  # full buckets: one streamed multi-chunk plan

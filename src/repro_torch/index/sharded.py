@@ -14,8 +14,8 @@ whole thing lives either
 
 ``Mapper(index)`` (``topology="single"``) routes reads to partitions on
 the host with lazy/LRU residency in a device arena under a memory budget
-(``index.residency``).  The mesh placement (``to_mesh_shards``) is not
-ported yet.
+(``index.residency``); ``Mapper(index, topology="mesh")`` places
+partition *i* on mesh shard *i* (``to_mesh_shards``).
 """
 from __future__ import annotations
 
@@ -202,11 +202,22 @@ class ShardedGenomeIndex:
             read_len=self.read_len, k=self.k, w=self.w, eth=self.eth)
 
     def to_mesh_shards(self):
-        """Partition *i* on mesh shard *i*: the mesh topology is not
-        ported yet."""
-        raise NotImplementedError(
-            "ShardedGenomeIndex.to_mesh_shards (the mesh topology) is not "
-            "ported to repro_torch yet (ROADMAP.md, Queue 1 item 9)")
+        """Stack partitions into the mesh's padded per-shard layout
+        (``core.distributed.ShardedIndex``) — partition *i* goes to shard
+        *i*, nothing is re-hashed."""
+        from ..core.distributed import ShardedIndex
+        if self.ref_len - 1 > fmt.INT32_MAX:
+            raise ValueError(
+                f"mesh shards hold int32 positions but this index ends at "
+                f"global position {self.ref_len - 1} (> {fmt.INT32_MAX}); "
+                f"map references past 2^31 bases on topology='single', "
+                f"which routes through the int64-clean device arena")
+        return ShardedIndex.from_partitions(
+            [(np.asarray(p.kmers), np.asarray(p.offsets).astype(np.int32),
+              np.asarray(p.positions).astype(np.int32), p.read_segments())
+             for p in self.parts],
+            read_len=self.read_len, k=self.k, w=self.w, eth=self.eth,
+            seg_len=self.seg_len)
 
     # ----------------------------------------------------------- accounting
     def storage_bytes(self) -> dict:

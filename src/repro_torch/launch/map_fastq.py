@@ -1,5 +1,5 @@
-"""FASTA + FASTQ -> SAM, end-to-end over the ``Mapper`` session — the
-single-topology part of ``repro.launch.map_fastq``.
+"""FASTA + FASTQ -> SAM, end-to-end over the ``Mapper`` session — torch
+twin of ``repro.launch.map_fastq``.
 
     PYTHONPATH=src python -m repro_torch.launch.map_fastq ref.fa reads.fq \
         -o out.sam                      # on the CUDA card
@@ -11,6 +11,8 @@ single-topology part of ``repro.launch.map_fastq``.
         --interleaved -o out.sam
     PYTHONPATH=src python -m repro_torch.launch.map_fastq --index-dir \
         ref.idx reads.fq -o out.sam --index-budget-mb 512 --prefetch
+    PYTHONPATH=src python -m repro_torch.launch.map_fastq ref.fa reads.fq \
+        -o out.sam --topology mesh --shards 8
 
 A (multi-contig) FASTA reference is indexed in memory (or a prebuilt
 sharded index is opened, ``--index-dir``: ``launch.build_index`` of
@@ -26,6 +28,11 @@ mates of every pair in one stacked batch, resolves proper pairs (FR
 orientation, insert window from a running median, mate rescue on the
 mapper's device — see ``repro_torch.core.pairing``) and emits the full
 pairing FLAGs, RNEXT/PNEXT/TLEN and calibrated MAPQ.
+``--topology mesh --shards N`` maps each chunk on the distributed mapper
+over N logical shards on the device (``core.distributed``; with
+``--index-dir`` partition *i* is shard *i*); its stage B computes
+distances and positions only, so mesh records carry CIGAR ``*``
+(strand, POS and pairing still present).
 
 The command line is the reference's, with these differences:
 
@@ -34,8 +41,6 @@ The command line is the reference's, with these differences:
   ``torch`` is the all-plain route;
 * ``--device`` picks the torch device (default: the CUDA card; with no
   GPU and no ``--device`` the run fails rather than drop to the CPU);
-* ``--shards`` and ``--topology mesh`` exit non-zero naming their
-  ``ROADMAP.md`` item;
 * the ``done:`` line adds the rate without the index build.
 
 ``--inject`` or ``--on-error permissive`` wrap the session in a
@@ -54,28 +59,8 @@ import os
 import sys
 import time
 
-# the reference's flags whose machinery is not ported yet: parsed as the
-# reference parses them, then refused naming their ROADMAP.md Queue 1
-# item.  flag -> (argparse keywords, item)
-_NOT_PORTED = {
-    "--shards": (dict(type=int, default=None), 9),
-}
-
-
 def _say(msg: str) -> None:
     print(msg, file=sys.stderr)
-
-
-def _refuse_not_ported(ap: argparse.ArgumentParser, args) -> None:
-    for flag, (_, item) in _NOT_PORTED.items():
-        dest = flag[2:].replace("-", "_")
-        if getattr(args, dest) != ap.get_default(dest):
-            raise SystemExit(
-                f"map_fastq: {flag} is not ported to repro_torch yet "
-                f"(ROADMAP.md, Queue 1 item {item})")
-    if args.topology != "single":
-        raise SystemExit("map_fastq: --topology mesh is not ported to "
-                         "repro_torch yet (ROADMAP.md, Queue 1 item 9)")
 
 
 def _open_stream(args, injector=None):
@@ -189,7 +174,8 @@ def _run(args) -> int:
     device = resolve_device(args.device)   # no GPU and no --device: raise
     injector = (FaultInjector.from_spec(args.inject)
                 if args.inject is not None else None)
-    if args.prefetch and args.index_dir is None:
+    if args.prefetch and (args.index_dir is None
+                          or args.topology != "single"):
         raise SystemExit(
             "map_fastq: --prefetch needs --index-dir with --topology "
             "single — only the shard-routed arena path has per-chunk "
@@ -204,7 +190,8 @@ def _run(args) -> int:
         # --trace-out needs per-stage times on the streamed path: spans
         # come from the same clock reads as stage_times_s
         profile=args.trace_out is not None)
-    check_card_geometry(cfg, device)    # before the FASTA load and index
+    # before the FASTA load and index
+    check_card_geometry(cfg, device, topology=args.topology)
     if sharded is not None:
         contigs = sharded.contigs
         # only the paired-end mate rescue needs the genome itself;
@@ -231,7 +218,8 @@ def _run(args) -> int:
     refmap = ReferenceMap(contigs)
     budget = (int(args.index_budget_mb * (1 << 20))
               if args.index_budget_mb is not None else None)
-    mapper = Mapper(idx, cfg, device=device, injector=injector,
+    mapper = Mapper(idx, cfg, topology=args.topology, n_shards=args.shards,
+                    device=device, injector=injector,
                     watchdog_s=args.watchdog, memory_budget_bytes=budget,
                     prefetch=args.prefetch)
     # fault containment (retry/bisect/degrade) is armed alongside the
@@ -461,6 +449,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "'cpu' runs the kernels' plain versions)")
     ap.add_argument("--topology", default="single",
                     choices=("single", "mesh"))
+    ap.add_argument("--shards", type=int, default=None,
+                    help="mesh topology: shard count (default: one per "
+                         "device the mesh spans, so 1 on one card)")
     ap.add_argument("--chunk-reads", type=int, default=1024,
                     help="FASTQ batch size == engine streaming chunk")
     ap.add_argument("--read-len", type=int, default=None,
@@ -507,9 +498,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--k", type=int, default=12)
     ap.add_argument("--w", type=int, default=30)
     ap.add_argument("--eth", type=int, default=6)
-    for flag, (kw, item) in _NOT_PORTED.items():
-        ap.add_argument(flag, **kw, help=f"not ported yet (ROADMAP.md, "
-                                         f"Queue 1 item {item})")
     return ap
 
 
@@ -519,7 +507,6 @@ def main(argv=None) -> int:
     args.command_line = " ".join(
         sys.argv if argv is None else ["repro_torch.launch.map_fastq",
                                        *argv])
-    _refuse_not_ported(ap, args)
     if args.index_dir is not None:
         if args.reference is not None and args.reads is None:
             # `map_fastq --index-dir DIR reads.fq`: the sole positional

@@ -1,21 +1,27 @@
-"""Genomics mapping service launcher — the single-topology ``--service``
-mode of ``repro.launch.serve``.
+"""Genomics mapping service launcher — torch twin of
+``repro.launch.serve``.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --shards 8 \
+        --reads 256                        # on the CUDA card
     PYTHONPATH=src python -m repro_torch.launch.serve --service \
-        --batches 16                       # on the CUDA card
+        --batches 16
     PYTHONPATH=src python -m repro_torch.launch.serve --service \
-        --batches 4 --genome 20000 --device cpu --metrics-out m.jsonl
+        --topology mesh --shards 4 --batches 4 --genome 20000 --device cpu
 
-Variable-sized request batches are coalesced by the pow-2
-``ReadBatcher`` into bucket shapes and mapped through a ``Mapper``
-session (``repro_torch.core.serving``); full buckets stream through the
-chunk engine.  The command line is the reference's, with the
-differences of the port's ``map_fastq``: ``--wf-backend cuda|torch``
-(default ``cuda``) and ``--device`` (default: the CUDA card).  The
-distributed mode (no ``--service``), ``--topology mesh``, ``--shards``
-and ``--send-cap`` exit non-zero naming ``ROADMAP.md`` Queue 1 item 9.
-``--profiler-port`` reports that torch has no profiler server and
-continues.
+Both modes drive the ``Mapper`` session:
+
+  * distributed (default) — ``Mapper(topology="mesh")`` batch loop over
+    ``--shards`` logical shards on the device (``launch.mesh``);
+  * ``--service`` — variable-sized request batches coalesced by the
+    pow-2 ``ReadBatcher`` into bucket shapes (``core.serving``):
+    ``--topology single`` streams buckets through the chunk engine,
+    ``--topology mesh`` maps each bucket on the distributed mapper, where
+    same-size buckets hit the session plan cache.
+
+The command line is the reference's, with the differences of the port's
+``map_fastq``: ``--wf-backend cuda|torch`` (default ``cuda``) and
+``--device`` (default: the CUDA card).  ``--profiler-port`` reports that
+torch has no profiler server and continues.
 """
 from __future__ import annotations
 
@@ -41,7 +47,8 @@ def run_service(args) -> int:
     idx = build_index(ref, device=device, backend=args.wf_backend)
     cfg = MapperConfig.from_index(idx, wf_backend=args.wf_backend,
                                   stream=not args.no_stream)
-    mapper = Mapper(idx, cfg, device=device)
+    mapper = Mapper(idx, cfg, topology=args.topology, n_shards=args.shards,
+                    device=device)
     svc = mapper.serve(BatcherConfig(bucket_min=args.bucket_min,
                                      bucket_max=args.bucket_max))
     rng = np.random.default_rng(7)
@@ -78,8 +85,48 @@ def run_service(args) -> int:
     return 0
 
 
+def run_distributed(args) -> int:
+    import numpy as np
+
+    from ..core.device import resolve_device
+    from ..core.index import build_index
+    from ..core.mapper import Mapper, accumulate_stats
+    from ..core.pipeline import MapperConfig
+    from ..data.genome import make_reference, sample_reads
+    from .mesh import make_genomics_mesh
+    from .report import print_mapper_stats
+
+    device = resolve_device(args.device)
+    mesh = make_genomics_mesh(args.shards, device=device)
+    n_shards = mesh.n_shards
+    ref = make_reference(args.genome, seed=0, repeat_frac=0.02)
+    idx = build_index(ref, device=device, backend=args.wf_backend)
+    cfg = MapperConfig.from_index(idx, wf_backend=args.wf_backend)
+    mapper = Mapper(idx, cfg, topology="mesh", mesh=mesh,
+                    send_cap=args.send_cap)
+    print(f"serving: {n_shards} shards, {len(idx.uniq_kmers)} minimizers, "
+          f"{len(ref)} bases")
+    totals = dict(survivors=0, affine_instances=0,
+                  padded_affine_instances=0, dropped_send=0,
+                  dropped_affine=0, reverse_best=0)
+    total = correct = 0
+    t0 = time.perf_counter()
+    for b in range(args.batches):
+        rs = sample_reads(ref, args.reads, seed=1000 + b)
+        res = mapper.map(rs.reads)
+        total += len(res.position)
+        correct += int((np.abs(res.position - rs.true_pos) <= 6).sum())
+        accumulate_stats(totals, res.stats)
+    dt = time.perf_counter() - t0
+    print(f"{total} reads in {dt:.1f}s ({total / dt:.0f} reads/s), "
+          f"accuracy {correct / total:.4f}, dropped {totals['dropped_send']}")
+    print_mapper_stats(mapper, totals)
+    return 0
+
+
 def run(args) -> int:
-    """``run_service`` inside the observability surfaces asked for: the
+    """``run_service`` or ``run_distributed`` inside the observability
+    surfaces asked for: the
     ``--log-json`` / ``--metrics-out`` (a final snapshot) /
     ``--trace-out`` ones of ``map_fastq``, plus ``--metrics-port``
     (Prometheus exposition thread) and ``--profiler-port``."""
@@ -106,7 +153,7 @@ def run(args) -> int:
                         "torch build; continuing without it",
                         event="profiler_server", port=None)
         try:
-            return run_service(args)
+            return (run_service if args.service else run_distributed)(args)
         finally:
             if srv is not None:
                 srv.stop()
@@ -115,20 +162,23 @@ def run(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
     ap.add_argument("--service", action="store_true",
-                    help="request batcher + Mapper session service mode "
-                         "(the only mode ported)")
+                    help="request batcher + Mapper session service mode")
     ap.add_argument("--topology", default="single",
                     choices=("single", "mesh"),
-                    help="service mode: execute buckets on the single-"
-                         "device streaming engine (mesh: not ported)")
+                    help="service mode only: execute buckets on the "
+                         "single-device streaming engine or route them "
+                         "onto the distributed mesh mapper")
     ap.add_argument("--shards", type=int, default=None,
-                    help="mesh only (not ported)")
+                    help="mesh shard count (default: one per device the "
+                         "mesh spans, so 1 on one card)")
     ap.add_argument("--genome", type=int, default=50_000)
     ap.add_argument("--reads", type=int, default=128,
-                    help="max request size (service)")
+                    help="reads per batch (distributed) / max request size "
+                         "(service)")
     ap.add_argument("--batches", type=int, default=4)
     ap.add_argument("--send-cap", type=int, default=None,
-                    help="mesh only (not ported)")
+                    help="distributed mode: per-destination send "
+                         "capacity (default: scaled from the batch)")
     ap.add_argument("--bucket-min", type=int, default=64)
     ap.add_argument("--bucket-max", type=int, default=1024)
     ap.add_argument("--wf-backend", default="cuda", choices=("cuda", "torch"))
@@ -136,7 +186,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch device to run on (default: the CUDA card; "
                          "'cpu' runs the kernels' plain versions)")
     ap.add_argument("--no-stream", action="store_true",
-                    help="synchronous path (per-stage timings)")
+                    help="service mode only: synchronous path (per-stage "
+                         "timings)")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="export the run as Chrome trace-event JSON "
                          "(Perfetto / chrome://tracing)")
@@ -159,17 +210,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    mesh_only = [f for f, v in (("--shards", args.shards),
-                                ("--send-cap", args.send_cap))
-                 if v is not None]
-    if not args.service or args.topology != "single" or mesh_only:
-        what = ("the distributed mode (no --service)" if not args.service
-                else "--topology mesh" if args.topology != "single"
-                else mesh_only[0])
-        raise SystemExit(f"serve: {what} is not ported to repro_torch yet "
-                         f"(ROADMAP.md, Queue 1 item 9)")
-    return run(args)
+    return run(build_parser().parse_args(argv))
 
 
 if __name__ == "__main__":

@@ -195,7 +195,7 @@ def decode_attention(x, p, cfg, cache, pos: int, *,
     if seq_shard_axes:
         raise NotImplementedError(
             "sequence-sharded KV cache (distributed flash-decode) needs the "
-            "mesh: ROADMAP Queue 1 item 9")
+            "production mesh: ROADMAP Queue 1 item 11")
     B = x.shape[0]
     pos = int(pos)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)

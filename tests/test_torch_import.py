@@ -42,6 +42,8 @@ print("LOADED", bad)
     ("repro_torch.obs", "repro_torch.obs.surfaces",
      "repro_torch.core.resilience", "repro_torch.core.serving",
      "repro_torch.launch.serve", "repro_torch.launch.report"),
+    # the mesh topology
+    ("repro_torch.core.distributed", "repro_torch.launch.mesh"),
     # the flash wrapper's plain version, first in a fresh process
     ("repro_torch.core.attention", "repro_torch.kernels.ops",
      "repro_torch.models.layers"),

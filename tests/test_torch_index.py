@@ -254,8 +254,10 @@ def test_shard_flat_index_matches_reference(world):
     assert got.storage_bytes() == want.storage_bytes()
     assert np.array_equal(got.reference_codes(), ref)
     assert np.array_equal(got.to_genome_index().segments, flat.segments)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        got.to_mesh_shards()
+    mw, mg = want.to_mesh_shards(), got.to_mesh_shards()   # shard i = part i
+    for f in ("uniq_kmers", "offsets", "positions", "segments"):
+        x, y = getattr(mw, f), getattr(mg, f)
+        assert x.dtype == y.dtype and x.tobytes() == y.tobytes(), f
     with pytest.raises(ValueError, match="power of two"):
         shard_flat_index(flat, 3)
 

@@ -558,7 +558,7 @@ def test_unported_families_raise(arch):
 def test_sequence_sharded_decode_raises():
     _, tc, _, tparams = _models("smollm-135m")
     cache = tt.init_cache(tc, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         tt.decode_step(tparams, cache, torch.zeros((1, 1), dtype=torch.int64),
                        0, tc, seq_shard_axes=("model",))
 

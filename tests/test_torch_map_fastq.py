@@ -51,6 +51,8 @@ REF_RUNS = (
                             "ref_inject_rejects.fq", "--inject", INJECT)),
     ("obs", "reads.fq", ("--trace-out", "ref_trace.json", "--metrics-out",
                          "ref_metrics.jsonl", "--log-json")),
+    ("mesh", "reads.fq", ("--topology", "mesh", "--shards", "2")),
+    ("shards4", "reads.fq", ("--shards", "4")),
 )
 
 
@@ -143,6 +145,8 @@ REF_PAIRED_RUNS = (
      ("--engine", "fused", "--chunk-reads", "7")),
     ("pairs_permissive", ("--r1", "r1.fq", "--r2", "r2_lost.fq"),
      ("--on-error", "permissive", "--rejects", "ref_pair_rejects.fq")),
+    ("pairs_mesh", ("--r1", "r1.fq", "--r2", "r2.fq"),
+     ("--topology", "mesh", "--shards", "2")),
 )
 
 
@@ -224,16 +228,29 @@ def test_stdout_output(world, ref_sams, capsys):
     assert _body(capsys.readouterr().out) == _body(ref_sams["compacted"])
 
 
-@pytest.mark.parametrize("argv,item", [
-    (("--topology", "mesh"), 9),
-    (("--shards", "4"), 9),
+def _cigars(text):
+    return {ln.split("\t")[5] for ln in _body(text)
+            if not ln.startswith("@")}
+
+
+@pytest.mark.parametrize("argv,run", [
+    (("--topology", "mesh", "--shards", "2"), "mesh"),
+    (("--shards", "4"), "shards4"),
 ])
-def test_not_ported_flags_exit_naming_their_item(world, argv, item):
-    with pytest.raises(SystemExit) as e:
-        map_fastq.main([str(world / "ref.fa"), str(world / "reads.fq"),
-                        "--device", "cpu", *argv])
-    msg = str(e.value.code)
-    assert "not ported" in msg and f"Queue 1 item {item}" in msg
+def test_mesh_flags_same_sam_as_reference(world, ref_runs, argv, run,
+                                          capsys):
+    """``--topology mesh --shards 2``: the reference's mesh SAM (CIGAR
+    ``*``) and closing ``stage B [mesh]`` line; ``--shards`` alone is
+    ignored off the mesh, as by the reference."""
+    text = _port(world, f"port_{run}.sam", *argv)
+    want, want_err = ref_runs[run]
+    assert _body(text) == _body(want)
+    validate_sam(text, expect_reads=N_READS)
+    err = capsys.readouterr().err
+    label = "stage B [mesh]:" if run == "mesh" else "filter/affine [single]:"
+    assert _line(err, label) == _line(want_err, label)
+    assert _line(err, "plan cache:") == _line(want_err, "plan cache:")
+    assert (_cigars(text) == {"*"}) == (run == "mesh")
 
 
 def test_inject_permissive_same_sam_and_rejects(world, ref_runs, capsys):
@@ -386,6 +403,26 @@ def test_interleaved_same_sam_as_reference(paired_world, ref_paired):
     assert _body(text) == _body(ref_paired["pairs_interleaved"][0])
 
 
+@pytest.mark.parametrize("layout", ["r1_r2", "interleaved"])
+def test_paired_mesh_same_sam_as_reference(paired_world, ref_paired, layout,
+                                           capsys):
+    """Paired input on a 2-shard mesh: the reference's mesh SAM (pairing
+    FLAGs, MAPQ and mate rescue on CIGAR-less mesh results) from either
+    input layout."""
+    w = paired_world
+    inputs = (("--r1", str(w / "r1.fq"), "--r2", str(w / "r2.fq"))
+              if layout == "r1_r2" else (str(w / "i.fq"), "--interleaved"))
+    text = _port_paired(w, f"port_pairs_mesh_{layout}.sam", *inputs,
+                        "--topology", "mesh", "--shards", "2")
+    want, want_err = ref_paired["pairs_mesh"]
+    assert _body(text) == _body(want)
+    validate_sam(text, expect_reads=2 * N_PAIRS, require_mapq=True)
+    err = capsys.readouterr().err
+    assert _line(err, "pairing:") == _line(want_err, "pairing:")
+    assert _line(err, "stage B [mesh]:") == _line(want_err,
+                                                  "stage B [mesh]:")
+
+
 def test_paired_permissive_same_sam_and_rejects(paired_world, ref_paired,
                                                 capsys):
     """A lost R2 record: the permissive stream re-pairs past it, and
@@ -481,14 +518,20 @@ def index_world(paired_world):
 
 @pytest.fixture(scope="module")
 def ref_index_sams(index_world):
-    """The reference CLI's SAM over ``--index-dir idx``, single-end and
-    paired (two parallel subprocesses)."""
+    """The reference CLI's SAM over ``--index-dir idx``, single-end,
+    paired and on an 8-shard mesh (three parallel subprocesses), and the
+    mesh run's stderr."""
     w = index_world
-    return {name: sam for name, (sam, _) in _ref_cli(w, [
+    runs = _ref_cli(w, [
         ("index", [str(w / "reads.fq")], ("--index-dir", "idx")),
         ("index_pairs", ["--r1", str(w / "r1.fq"), "--r2", str(w / "r2.fq")],
          ("--index-dir", "idx")),
-    ]).items()}
+        ("index_mesh", [str(w / "reads.fq")],
+         ("--index-dir", "idx", "--topology", "mesh", "--shards", "8")),
+    ])
+    out = {name: sam for name, (sam, _) in runs.items()}
+    out["index_mesh_err"] = runs["index_mesh"][1]
+    return out
 
 
 def _budget_mb(index_dir):
@@ -529,6 +572,25 @@ def test_index_dir_same_sam_as_reference(index_world, ref_index_sams, case,
     assert "(8 partitions)" in err and "partitions: routed" in err
     if case == "reference_index":
         assert "--eth 5 ignored; index manifest has eth=6" in err
+
+
+@pytest.mark.parametrize("index", ["idx", "idx_port"])
+def test_index_dir_mesh_same_sam_as_reference(index_world, ref_index_sams,
+                                              index, capsys):
+    """``--index-dir`` on an 8-shard mesh: partition i of either
+    package's index placed on shard i, the reference's mesh SAM and its
+    ``partitions: 8 mesh-placed`` line."""
+    w = index_world
+    text = _port_index(w, f"port_index_mesh_{index}.sam", "--index-dir",
+                       str(w / index), str(w / "reads.fq"), "--topology",
+                       "mesh", "--shards", "8")
+    assert _body(text) == _body(ref_index_sams["index_mesh"])
+    validate_sam(text, expect_reads=N_READS)
+    assert _cigars(text) == {"*"}
+    err = capsys.readouterr().err
+    assert _line(err, "partitions:") == \
+        _line(ref_index_sams["index_mesh_err"], "partitions:")
+    assert "8 mesh-placed" in err
 
 
 def test_index_dir_paired_same_sam_as_reference(index_world, ref_index_sams):

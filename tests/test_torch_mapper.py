@@ -104,8 +104,8 @@ def test_mapping_is_accurate_and_cigars_decode(world):
 
 
 def test_session_api(world):
-    """Plan, plan-cache counters, map_async, map_pairs, serve and the
-    not-yet-ported paths."""
+    """Plan, plan-cache counters, map_async, map_pairs, serve, a
+    one-shard mesh session against the reference's, and the refusals."""
     _, tidx, _, reads = world
     m = Mapper(tidx, MapperConfig.from_index(tidx, chunk_reads=4),
                device="cpu")
@@ -132,14 +132,45 @@ def test_session_api(world):
     pplan = padded.plan(len(reads))     # one unchunked batch of 2n rows
     assert pplan.chunk_sizes == (2 * len(reads),)
     assert pplan.key == ("single", "padded", len(reads))
-    with pytest.raises(NotImplementedError):
-        Mapper(tidx, topology="mesh", device="cpu")
+    mesh = Mapper(tidx, topology="mesh", device="cpu")     # one shard
+    want = JMapper(world[0], topology="mesh", n_shards=1).map(reads)
+    got = mesh.map(reads)
+    for f in ("position", "distance", "distance2", "mapped"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    assert got.stats.as_dict().keys() == want.stats.as_dict().keys()
+    assert mesh.plan(len(reads)).key == \
+        JMapper(world[0], topology="mesh", n_shards=1).plan(len(reads)).key
     with pytest.raises(NotImplementedError, match="from_arrays"):
         Mapper(world[0], device="cpu")     # the reference's own index
     with pytest.raises(ValueError, match="wf_backend"):
         MapperConfig(wf_backend="pallas")
     with pytest.raises(ValueError, match="lin_block_r"):
         MapperConfig(lin_block_r=96)
+
+
+@pytest.mark.parametrize("both_strands", [True, False])
+def test_mesh_map_pairs_matches_reference(world, both_strands):
+    """``map_pairs`` on a one-shard mesh: one stacked batch (on both
+    strands, one fwd-then-rc stack reduced on the host), split per mate,
+    equal to the reference's mesh session field for field."""
+    jidx, tidx, _, reads = world
+    kw = dict(both_strands=both_strands)
+    jm = JMapper(jidx, JConfig.from_index(jidx, **kw), topology="mesh",
+                 n_shards=1)
+    tm = Mapper(tidx, MapperConfig.from_index(tidx, **kw), topology="mesh",
+                device="cpu")
+    for got, want in zip(tm.map_pairs(reads, reads[::-1]),
+                         jm.map_pairs(reads, reads[::-1])):
+        for f in ("position", "distance", "distance2", "mapped", "strand",
+                  "ops"):
+            a, b = getattr(got, f), getattr(want, f)
+            assert (a is None) == (b is None), f
+            if b is not None:
+                np.testing.assert_array_equal(a, b, err_msg=f)
+        assert got.stats.reverse_best == want.stats.reverse_best
+        assert got.stats.reads == want.stats.reads
+    assert (tm.plan_cache_hits, tm.plan_cache_misses) == \
+        (jm.plan_cache_hits, jm.plan_cache_misses)
 
 
 def test_profiled_stream_records_stage_offsets(world):

@@ -230,6 +230,39 @@ def test_resilient_map_matches_reference(world, engine, tback, jback, spec):
         assert trm.ladder.level == len(trm.ladder.rungs) - 1 > 0
 
 
+@pytest.mark.parametrize("spec", ["engines=fused,poison=17,bucket=0.2,"
+                                  "seed=4", "poison=5;40,seed=1"])
+def test_resilient_mesh_matches_reference(world, spec):
+    """A ``ResilientMapper`` over a one-shard mesh session: poisoned rows
+    bisected and quarantined, a failing fused engine stepped down to the
+    compacted rung on the same mesh — the reference's masks, counters,
+    ladder and results."""
+    jidx, tidx, reads = world
+    kw = dict(engine="fused", both_strands=True)
+    jm = JMapper(jidx, JConfig.from_index(jidx, **kw), topology="mesh",
+                 n_shards=1)
+    tm = Mapper(tidx, MapperConfig.from_index(tidx, **kw), topology="mesh",
+                device="cpu")
+    jrm = jres.ResilientMapper(jm, policy(jres),
+                               injector=jres.FaultInjector.from_spec(spec))
+    trm = tres.ResilientMapper(tm, policy(tres),
+                               injector=tres.FaultInjector.from_spec(spec))
+    for batch in (reads, reads[:24]):
+        want, wmask, wc = jrm.map(batch)
+        got, gmask, gc = trm.map(batch)
+        np.testing.assert_array_equal(gmask, wmask)
+        assert gc == wc
+        assert_same_result(got, want, spec)
+        assert (got.stats.dropped_send, got.stats.dropped_affine) == \
+            (want.stats.dropped_send, want.stats.dropped_affine)
+        assert trm.ladder.level == jrm.ladder.level
+    assert trm.counters == jrm.counters
+    rung = trm._mapper_at(trm.ladder.level)
+    assert rung.topology == "mesh" and rung.mesh is tm.mesh
+    if "engines" in spec:
+        assert trm.cfg.engine == "compacted" and rung is not tm
+
+
 def test_resilient_map_pairs_and_lazy_traceback(world):
     """``map_pairs`` splits the quarantine mask per mate; a lazy result
     stitched from bisected blocks (``LazyTraceback.concat``) materializes

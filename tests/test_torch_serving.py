@@ -3,8 +3,11 @@ the batcher's pow-2 buckets, and ``MappingService`` on the same requests
 — per-request results in every field, the totals, admission (``block``
 and ``shed``), deadlines, ``submit_paired``, an injected ``flush`` fault,
 a poisoned row quarantined per request, the tenant gauges and the
-service's metrics — then ``launch.serve``: ``--service`` on the CPU
-against the reference's ``run_service``, and its refused modes.
+service's metrics, and the service on a one-shard mesh — then
+``launch.serve``: ``--service`` on the CPU against the reference's
+``run_service``, and its mesh modes (the distributed mode, ``--service
+--topology mesh`` and ``--shards`` off the mesh) against the reference
+CLI run as a subprocess with its host devices forced.
 
 The world: an 8 kb genome and 64 reads of 150 bases, the reference's
 service tests' own, on buckets of 8 to 32 reads."""
@@ -311,18 +314,82 @@ def test_serve_service_matches_reference(capsys, tmp_path):
     assert (tmp_path / "m.jsonl").read_text().count("\n") == 1
 
 
-@pytest.mark.parametrize("argv", [[], ["--service", "--topology", "mesh"],
-                                  ["--service", "--shards", "4"]])
-def test_serve_refuses_the_mesh_modes(argv):
-    with pytest.raises(SystemExit) as e:
-        serve_cli.main(argv + ["--device", "cpu"])
-    msg = str(e.value.code)
-    assert "not ported" in msg and "Queue 1 item 9" in msg
+SERVE_SMALL = ["--genome", "20000", "--reads", "64", "--batches", "2",
+               "--bucket-max", "128"]
 
 
-def test_mesh_service_refused(world):
-    _, tidx, _ = world
-    m = Mapper(tidx, device="cpu")
-    m.topology = "mesh"
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tsrv.MappingService(m)
+def _timeless(line):
+    """A closing line without its wall time and rate."""
+    return line.split(" in ")[0] + (
+        " accuracy" + line.split("accuracy")[1] if "accuracy" in line
+        else "")
+
+
+@pytest.mark.parametrize("argv", [["--shards", "2"],
+                                  ["--service", "--topology", "mesh",
+                                   "--shards", "2"],
+                                  ["--service", "--shards", "4"]],
+                         ids=["distributed", "service_mesh",
+                              "service_shards"])
+def test_serve_mesh_modes_match_reference(argv, capsys):
+    """The distributed mode, the service on the mesh, and ``--shards``
+    ignored by the single-topology service: the reference CLI's lines
+    apart from the wall times and the start line's device; the index
+    storage line's hash table counts the port's int64 offsets and
+    positions (a documented difference), its segment bytes are equal."""
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    env.pop("XLA_FLAGS", None)      # the reference CLI sets its own
+    proc = subprocess.run([sys.executable, "-m", "repro.launch.serve",
+                           *argv, *SERVE_SMALL, "--wf-backend", "jnp"],
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    want = proc.stdout.splitlines()
+    assert serve_cli.main(argv + SERVE_SMALL + ["--device", "cpu"]) == 0
+    got = capsys.readouterr().out.splitlines()
+    assert len(got) == len(want)
+    # the start line: the service's names its backend and device
+    assert got[0].split(", wf_backend")[0] == want[0].split(", wf_backend")[0]
+    assert _timeless(got[1]) == _timeless(want[1])
+    assert got[2:-1] == want[2:-1]
+    assert got[-1].split(" B,")[0].split("+")[1] == \
+        want[-1].split(" B,")[0].split("+")[1]
+    if "mesh" in argv or "--service" not in argv:
+        assert any(ln.startswith("stage B [mesh]:") for ln in got)
+
+
+def test_mesh_service_matches_reference(world):
+    """``MappingService`` on a one-shard mesh session: each bucket one
+    mesh batch planned at its bucket size, every request's fields, the
+    totals and the plan-cache counters equal the reference's."""
+    from repro.core.mapper import Mapper as JMapper
+    jidx, tidx, reads = world
+    bc = dict(bucket_min=8, bucket_max=32)
+    jm = JMapper(jidx, JConfig.from_index(jidx, both_strands=True),
+                 topology="mesh", n_shards=1)
+    tm = Mapper(tidx, MapperConfig.from_index(tidx, both_strands=True),
+                topology="mesh", device="cpu")
+    js = jsrv.MappingService(jm, batcher=jsrv.BatcherConfig(**bc))
+    ts = tsrv.MappingService(tm, batcher=tsrv.BatcherConfig(**bc))
+    for _ in range(2):
+        sizes = (40, 3, 21)
+        jr, tr = [], []
+        lo = 0
+        for n in sizes:
+            jr.append(js.submit(reads[lo:lo + n]))
+            tr.append(ts.submit(reads[lo:lo + n]))
+            lo += n
+        jout, tout = js.flush(), ts.flush()
+        for a, b in zip(jr, tr):
+            for f in ("position", "distance", "distance2", "mapped",
+                      "strand"):
+                np.testing.assert_array_equal(getattr(tout[b], f),
+                                              getattr(jout[a], f), f)
+        assert (tm.plan_cache_hits, tm.plan_cache_misses) == \
+            (jm.plan_cache_hits, jm.plan_cache_misses)
+    assert ts.totals == js.totals
+    assert tm.plan_cache_hits > 0

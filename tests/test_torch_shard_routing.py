@@ -361,6 +361,44 @@ def test_refusals_in_the_reference_words(world):
                           prefetch=kw.get("prefetch", False), **extra)
 
 
+@pytest.mark.parametrize("kw,msg", [
+    (dict(budget=1 << 20), "the mesh topology places one whole partition"),
+    (dict(prefetch=True), "prefetch=True only applies"),
+    (dict(), "has 32 partitions but the mesh has 1 devices"),
+])
+def test_mesh_refusals_in_the_reference_words(world, kw, msg):
+    """A partitioned index on the mesh: no arena budget, no prefetch, and
+    one partition per shard — refused alike by both packages."""
+    ref_idx, idx, _, _ = world
+    for MapperCls, sidx, extra in ((RefMapper, ref_idx, {}),
+                                   (Mapper, idx, dict(device="cpu"))):
+        with pytest.raises(ValueError, match=msg):
+            MapperCls(sidx, topology="mesh", n_shards=1,
+                      memory_budget_bytes=kw.get("budget"),
+                      prefetch=kw.get("prefetch", False), **extra)
+
+
+def test_mesh_maps_the_partitions_as_the_routed_session(world, flat_runs):
+    """The 32 partitions on a 32-shard mesh (partition i on shard i)
+    against the flat index's single-topology result: the same positions,
+    distances and strands where the mesh dropped nothing, and the
+    per-partition survivor counts summing to the stage-B survivors."""
+    _, idx, _, reads = world
+    got = Mapper(idx, MapperConfig.from_index(idx, both_strands=True),
+                 topology="mesh", n_shards=N_PARTS, device="cpu").map(reads)
+    want = Mapper(idx, MapperConfig.from_index(idx, both_strands=True,
+                                               chunk_reads=4),
+                  device="cpu").map(reads)
+    assert got.stats.dropped_send == got.stats.dropped_affine == 0
+    for f in ("position", "distance", "strand", "mapped"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    part = got.stats["partitions"]
+    assert part["num_partitions"] == N_PARTS
+    assert part["occurrences_per_partition"] == \
+        [p.n_occurrences for p in idx.parts]
+    assert sum(part["survivors_per_partition"]) == got.stats.survivors
+
+
 def test_evict_error_accounts_for_freed_unpinned_rows():
     want, got = _pair([60, 30], 8, 70)
     for res in (want, got):

@@ -118,10 +118,8 @@ Phases, each fatal on failure:
    of half the index with prefetch, every result field equal to the
    whole index's, at least one eviction; a 4 Mb slice built at an origin
    of 2^31 - 2,000,000, its 4,096 reads mapped at positions straddling
-   2^31, equal to the origin-0 build's shifted; a chr1-sized reference of
-   256 Mb built streamed in a process of its own (seconds, bases/s, peak
-   host RSS) and mapped by 32,768 reads (accuracy, the arena's device
-   bytes).  Phase 7's files are kept for it and removed after.
+   2^31, equal to the origin-0 build's shifted.  Phase 7's files are
+   kept for it and removed after.
 12. serving, resilience and observability, on phase 4's index (run after
    phase 10, before phase 11 frees the index), each check fatal: a
    ``MappingService`` (buckets of 64 to 16,384 reads) on the compacted and
@@ -145,9 +143,30 @@ Phases, each fatal on failure:
    to that before it, and the peak over 16 chunks no more than over 4
    plus one chunk's; printed only: an armed-but-idle ``ResilientMapper`` and
    armed metrics and tracing against a plain ``Mapper.map``.
+14. LM families (run after phase 10), three models at full width, each
+   drawn on the card from seed 0 in bf16 (``init_params(cast=True)``) and
+   freed before the next, the device memory held before each logged:
+   Moonlight-16B-A3B (moe: 48 layers, 16/16 heads of 128, 64 experts
+   top-6), Zamba2-2.7B (hybrid: 54 Mamba-2 layers, one shared attention
+   block of 32 heads of 80 at 9 sites) and Falcon-Mamba-7B (ssm: 64
+   Mamba-1 layers, no attention).  Each: a 32,768-token prefill through
+   ``transformer.forward`` (its aux loss, finite; the MoE's (token,
+   expert) pairs dropped past capacity, counted), the same prefill timed
+   (the tensor-core flash kernel once an attention layer: 48, 9 and 0
+   launches; Falcon-Mamba-7B's at 8,192 tokens) and, Moonlight's,
+   profiled, the last-token logits of a 4,096-token prefill
+   against the plain version's (and, but for the hybrid, against the
+   planted faults'), decode against forward over 16 tokens (the MoE's
+   forward at the decode's capacity), ``greedy_generate`` at batch 8.
+   Moonlight's layer-0 q, k, v (hd=128) against the kernel's plain version
+   and the planted faults, timed beside ``scaled_dot_product_attention``;
+   Zamba2's first site against the plain version, timed (x 9 sites: the
+   kernel's share of the prefill).  Then the lowTh=3 split
+   of phase 4's index and the paper's cost model (``core.costmodel``) on
+   it.
 
 Each phase prints its seconds.  The last lines are the kernels JSON line
-(phases 8, 9 and 10, with each kernel's bound computed from its
+(phases 8, 9, 10 and 14, with each kernel's bound computed from its
 inputs; the mapper kernels' rows also hold their launches in phase 11's
 and phase 12's steps; the affine_wf_dist row also holds phase 7b's rescue, the flash
 row the timed cases of phase 9, the
@@ -243,12 +262,10 @@ N_RUN = (1_000_000, 1_000_200)
 # phase 11, the sharded index: phase 7's FASTA in 4 partitions; the same in
 # 64 partitions mapped a read a chunk under half its size with prefetch
 # (each chunk touches a strict subset of the partitions); a slice built at
-# an origin straddling 2^31; a chr1-sized reference (GRCh38's chr1 is
-# 248.96 Mb) built streamed and mapped
+# an origin straddling 2^31
 SHARD_PARTS = 4
 EVICT_PARTS, EVICT_READS = 64, 256
 ORIGIN, ORIGIN_BASES, ORIGIN_READS = 2**31 - 2_000_000, 4_000_000, 4_096
-BIG_BASES, BIG_READS = 256_000_000, 32_768
 PLAIN_CHECK_READS = 2_048
 ACCURACY_BAR = 0.95
 # phase 7b: FR pairs of 150-base mates (the read count of phase 4), 2% of
@@ -407,6 +424,32 @@ LOGITS_TOL = 0.05
 # |element|, which grows through 30 layers as the prefill's ulps do
 DECODE_TOL = 1e-3
 DECODE_INT8_TOL = 0.05
+# LM families (phase 14), each at full width: Moonlight-16B-A3B (moe,
+# 16/16 heads of 128: the tensor-core kernel's hd=128 instance on a
+# full-width path), Zamba2-2.7B (hybrid: 54 Mamba-2 layers and one shared
+# attention block of 32 heads of 80 at 9 sites), Falcon-Mamba-7B (ssm: 64
+# Mamba-1 layers, no attention)
+MOE_ARCH, HYBRID_ARCH, SSM_ARCH = ("moonshot-v1-16b-a3b", "zamba2-2.7b",
+                                   "falcon-mamba-7b")
+# Falcon-Mamba-7B's prefill at a quarter of it: its plain chunked scan
+# (jax.lax.associative_scan's combine tree over (chunk, d_inner, state) f32
+# tensors, strided halves at every level) took 20.96 s at 32,768 tokens,
+# three prefills a minute of the script's time (PERF.md §4)
+FAMILY_SEQ = {MOE_ARCH: LM_SEQ, HYBRID_ARCH: LM_SEQ, SSM_ARCH: LM_SEQ // 4}
+# the logits against the plain version's prefill (as phase 10's)
+FAMILY_CHECK_SEQ = STABLELM_CHECK_SEQ
+# decode against forward over this prefix, as a share of the largest
+# |logit| (the MoE's forward at the decode's capacity, so that neither
+# drops a token): the reference's tolerance for the SSM families
+# (tests/test_models_smoke.py), and the int8 cache's.  The MoE's experts
+# take one-row products in decode and cap-row ones in forward, which
+# round apart by a bf16 step here and there (on the CPU, reduced: up to
+# 0.94% over seeds 3-9, where the dense families read 0)
+FAMILY_DEC_SEQ = 16
+FAMILY_DECODE_TOL = 0.05
+FAMILY_GEN_BATCH, FAMILY_GEN_PROMPT, FAMILY_GEN_NEW = 8, 16, 16
+# the paper's lowTh (Sec. V-A)
+LOW_TH = 3
 
 
 def log(msg: str) -> None:
@@ -1666,85 +1709,15 @@ def _same_fields(what, a, b):
             raise AssertionError(f"{what}: {f} differs")
 
 
-def _build_rss(fa, out):
-    """``build_sharded_index`` in a process of its own, with torch, the
-    CUDA context and the minimizer kernel's library loaded first -> (wall
-    s, the host resident set in bytes, its minimizer launches, its
-    manifest).  A process started by ``exec`` inherits its parent's
-    ``ru_maxrss``, so the interpreter forks before it imports anything
-    and the build runs in the fork, whose peak is its own.  The resident
-    set is a dict: ``inherited`` (the exec'd interpreter's ``ru_maxrss``
-    at its first line: this script's peak so far), ``start`` (``VmRSS``
-    at the build's start), ``before`` and ``after`` (the fork's
-    ``ru_maxrss`` just before and just after the build) and ``sampled``
-    (the largest ``VmRSS`` a thread read every 5 ms during the build; 0
-    where ``/proc`` has none).  ``after > before`` makes ``after`` the
-    build's own peak; else that peak is at most ``before``, at least
-    ``sampled``."""
-    code = ("import os, resource, sys\n"
-            "def maxrss():\n"
-            "    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss\n"
-            "inherited = maxrss()\n"
-            "pid = os.fork()\n"
-            "if pid:\n"
-            "    sys.exit(os.waitstatus_to_exitcode(os.waitpid(pid, 0)[1]))\n"
-            "import threading, torch\n"
-            "from repro_torch.kernels import build, ops\n"
-            "from repro_torch.index import build_sharded_index\n"
-            "torch.zeros(1, device='cuda')\n"
-            "build.entry('minimizer_launch')\n"
-            "def rss():\n"
-            "    try:\n"
-            "        with open('/proc/self/status') as f:\n"
-            "            for ln in f:\n"
-            "                if ln.startswith('VmRSS:'):\n"
-            "                    return int(ln.split()[1])\n"
-            "    except OSError:\n"
-            "        pass\n"
-            "    return 0\n"
-            "top, done = [0], threading.Event()\n"
-            "def sample():\n"
-            "    while not done.wait(0.005):\n"
-            "        top[0] = max(top[0], rss())\n"
-            "ops.reset_launch_counts()\n"
-            "start, before = rss(), maxrss()\n"
-            "th = threading.Thread(target=sample, daemon=True)\n"
-            "th.start()\n"
-            "build_sharded_index(sys.argv[1], sys.argv[2],\n"
-            "                    num_partitions=int(sys.argv[3]))\n"
-            "torch.cuda.synchronize()\n"
-            "done.set()\n"
-            "th.join()\n"
-            "print(inherited, start, before, maxrss(), top[0],\n"
-            "      ops.LAUNCHES['minimizer_scan'])\n")
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", code, fa, out,
-                           str(SHARD_PARTS)], env=env, capture_output=True,
-                          text=True, timeout=900)
-    dt = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"build_sharded_index of {fa}: exit "
-                             f"{proc.returncode}\n{proc.stderr[-4000:]}")
-    with open(os.path.join(out, "manifest.json")) as f:
-        man = json.load(f)
-    *kib, launches = (int(v) for v in proc.stdout.split()[-6:])
-    rss = {k: v * 1024 for k, v in zip(
-        ("inherited", "start", "before", "after", "sampled"), kib)}
-    return dt, rss, launches, man
-
-
 def phase_sharded(ref, rs, mf, work):
     """Phase 11, the sharded index, each step fatal: phase 7's FASTA built
     by ``launch.build_index`` (the kernel once a tile, ``--verify``, a
     ``--wf-backend torch`` build with equal digests); ``map_fastq
     --index-dir`` on phase 7's FASTQ per engine (SAM equal to phase 7's);
     the arena's write order under a budget that evicts while chunks are
-    in flight; an origin build straddling 2^31; a chr1-sized streamed
-    build, mapped.  -> {step: launches} for the kernels JSON line."""
-    import torch
-    from repro_torch.data.genome import (make_reference, sample_reads,
-                                         write_fasta)
+    in flight; an origin build straddling 2^31.  -> {step: launches} for
+    the kernels JSON line."""
+    from repro_torch.data.genome import sample_reads, write_fasta
     from repro_torch.index import build_sharded_index, open_index
     from repro_torch.kernels import ops
 
@@ -1873,57 +1846,6 @@ def phase_sharded(ref, rs, mf, work):
         f"{ok.mean():.5f}")
     out["origin"] = launches
 
-    # 5. a chr1-sized reference, built streamed and mapped
-    t0 = time.perf_counter()
-    big = make_reference(BIG_BASES, seed=5, repeat_frac=0.02)
-    fa_b = os.path.join(work, "big.fa")
-    write_fasta(fa_b, [("chrB", big)])
-    rs_b = sample_reads(big, BIG_READS, seed=7, both_strands=True)
-    del big
-    log(f"chr1-sized reference: {BIG_BASES:,} bases and {BIG_READS:,} "
-        f"reads made and written in {time.perf_counter() - t0:.2f} s")
-    dir_b = os.path.join(work, "idx_big")
-    dt, rss, scans, man_b = _build_rss(fa_b, dir_b)
-    os.remove(fa_b)
-    if scans != _scanned_tiles(man_b):
-        raise AssertionError(f"256 Mb build: {scans} minimizer launches for "
-                             f"{_scanned_tiles(man_b)} scanned tiles")
-    mib = {k: f"{v / 2**20:,.0f} MiB" for k, v in rss.items()}
-    if rss["after"] > rss["before"]:
-        own = f"the build's own peak {mib['after']} (the process's peak rose"
-    else:
-        own = (f"the build's own peak at most {mib['before']}, the process's "
-               f"peak before it (unchanged by the build")
-    log(f"build_sharded_index (own process, kernel scan): {BIG_BASES:,} bases, "
-        f"{man_b['build']['n_occurrences']:,} occurrences, "
-        f"{man_b['build']['tiles']} tiles, {scans} minimizer launches, in "
-        f"{dt:.2f} s wall with the process's start = {BIG_BASES / dt:,.0f} "
-        f"bases/s; manifest wall_s {man_b['build']['wall_s']:.2f} s = "
-        f"{BIG_BASES / man_b['build']['wall_s']:,.0f} bases/s; host RSS: "
-        f"{own} from {mib['before']} to {mib['after']}); at its start "
-        f"{mib['start']} resident; the largest VmRSS sampled every 5 ms "
-        f"during it {mib['sampled']}; ru_maxrss inherited by the exec'd "
-        f"interpreter from this script {mib['inherited']}")
-    out["big_build"] = scans
-    idx_b = open_index(dir_b)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()
-    res_b, dt_m, launches = _routed_map(idx_b, rs_b.reads, "chr1-sized",
-                                        chunk_reads=CHUNK)
-    ok = ((np.abs(res_b.position - rs_b.true_pos) <= ETH)
-          & (res_b.strand == rs_b.strand))
-    part = res_b.stats["partitions"]
-    log(f"chr1-sized map: {BIG_READS:,} reads in {dt_m:.2f} s (the "
-        f"partitions' first loads included) = {BIG_READS / dt_m:,.0f} "
-        f"reads/s; accuracy {ok.mean():.5f}; arena {part['arena_rows']:,} "
-        f"rows = {part['arena_bytes']:,} B of device memory, "
-        f"{part['partition_loads']} loads, {part['h2d_bytes']:,} B h2d; "
-        f"peak device memory {(torch.cuda.max_memory_allocated() - held) / 1e9:.3f} "
-        f"GB above the {held / 1e9:.3f} GB held before")
-    if ok.mean() < ACCURACY_BAR:
-        raise AssertionError(f"chr1-sized map: accuracy {ok.mean()}")
-    out["big"] = launches
     return out
 
 
@@ -3363,9 +3285,12 @@ def _profile_prefill(prefill, params, toks):
         prefill(params, {"tokens": toks})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
     dev = sorted(((e.self_device_time_total, e.count, e.key)
                   for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA), reverse=True)
+    log(f"prefill profile: the trace read in {time.perf_counter() - t0:.2f} "
+        f"s")
     total = sum(us for us, _, _ in dev)
     if not total:
         log("prefill profile: the trace holds no device time")
@@ -3431,31 +3356,61 @@ def _logits_close(what, got, want, tol):
     return rel
 
 
-def _draw_params(arch):
+def _describe(cfg) -> str:
+    """The config's widths, as its family has them."""
+    if cfg.family == "ssm":
+        what = (f"Mamba-1, d_inner {cfg.ssm_d_inner}, state {cfg.ssm_state},"
+                f" dt rank {cfg.ssm_dt_rank}")
+    else:
+        what = (f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, "
+                f"d_ff {cfg.d_ff}")
+    if cfg.family == "moe":
+        what += f" per expert, {cfg.n_experts} experts top-{cfg.top_k}"
+    if cfg.family == "hybrid":
+        what = (f"Mamba-2, d_inner {cfg.ssm_d_inner}, {cfg.ssm_heads} heads,"
+                f" state {cfg.ssm_state}; one shared attention block of "
+                f"{what} after every {cfg.attn_every} layers")
+    return (f"{cfg.arch} at full width ({cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {what}, vocab {cfg.vocab_size}, norm "
+            f"{cfg.norm})")
+
+
+def _draw_params(arch, cast=False):
     """``arch``'s config at full width and its weights drawn on the card
-    from seed 0.  -> (cfg, params)."""
+    from seed 0 (``cast``: the matrices stored in bf16, as the forward
+    casts them).  -> (cfg, params)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
     cfg = get_config(arch)
     t0 = time.perf_counter()
     params = transformer.init_params(
-        cfg, torch.Generator(device="cuda").manual_seed(0))
+        cfg, torch.Generator(device="cuda").manual_seed(0), cast=cast)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    log(f"LM: {cfg.arch} at full width ({cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
-        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, norm "
-        f"{cfg.norm}): {n_params:,} parameters drawn on the card from seed 0 "
-        f"in {time.perf_counter() - t0:.2f} s; TF32 off for matmuls and "
-        f"cuDNN")
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"LM: {_describe(cfg)}: {n_params:,} parameters ({n_bytes / 1e9:.3f}"
+        f" GB) drawn on the card from seed 0 in {time.perf_counter() - t0:.2f}"
+        f" s; TF32 off for matmuls and cuDNN")
     return cfg, params
+
+
+def _attention_layers(cfg) -> int:
+    """Flash launches a prefill past ATTN_CHUNK_THRESHOLD makes: one a
+    layer of the attention families, one a shared-attention site of a
+    hybrid, none for the ssm family."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+    return cfg.n_layers
 
 
 def _timed_prefill(prefill, params, toks, cfg):
     """One prefill, timed on the host clock around a synchronise; raises
-    unless it launched the tensor-core flash kernel once a layer and gave
-    (B, vocab) logits.  -> (logits, seconds)."""
+    unless it launched the tensor-core flash kernel once an attention
+    layer (``_attention_layers``) and gave finite (B, vocab) logits.  ->
+    (logits, seconds, peak device memory in bytes)."""
     import torch
     from repro_torch.kernels import ops
     torch.cuda.synchronize()
@@ -3467,30 +3422,34 @@ def _timed_prefill(prefill, params, toks, cfg):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = ops.LAUNCHES["flash_attention_wgmma"]
-    if not launches == ops.LAUNCHES["flash_attention"] == cfg.n_layers:
+    want = _attention_layers(cfg)
+    if not launches == ops.LAUNCHES["flash_attention"] == want:
         raise AssertionError(f"prefill launched flash_attention "
                              f"{ops.LAUNCHES['flash_attention']} times, "
                              f"{launches} of them the tensor-core kernel, "
-                             f"not once per layer ({cfg.n_layers}) on the "
+                             f"not once per attention layer ({want}) on the "
                              f"tensor cores")
     B, S = toks.shape
     if tuple(logits.shape) != (B, cfg.vocab_size):
         raise AssertionError(f"prefill logits {tuple(logits.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill {cfg.arch}: logits not finite")
+    peak = torch.cuda.max_memory_allocated()
     log(f"prefill {cfg.arch}: B={B} S={S:,} in {dt:.3f} s = "
         f"{B * S / dt:,.0f} tokens/s; flash_attention launches "
         f"{launches}, all on the tensor cores; peak device memory "
-        f"{(torch.cuda.max_memory_allocated() - held) / 1e9:.3f} GB above "
-        f"the {held / 1e9:.3f} GB held before it")
-    return logits, dt
+        f"{(peak - held) / 1e9:.3f} GB above the {held / 1e9:.3f} GB held "
+        f"before it")
+    return logits, dt, peak
 
 
-def _logits_check(prefill, params, toks, logits, tol):
+def _logits_check(prefill, params, toks, logits, tol, faults_fail=True):
     """The last-token ``logits`` of a kernel prefill on ``toks`` against a
     prefill on the kernel's plain version, and the prefills with planted
     faults against the same: the readings first, then the checks (sound
-    within ``tol`` with the same argmax; every fault beyond it).  -> (the
-    plain prefill's layer-0 flash inputs, the sound reading, {fault:
-    reading})."""
+    within ``tol`` with the same argmax; with ``faults_fail``, every fault
+    beyond it).  -> (the plain prefill's layer-0 flash inputs, the sound
+    reading, {fault: reading})."""
     import torch
     with FlashInputs(_flash_plain) as kept:
         t0 = time.perf_counter()
@@ -3515,7 +3474,7 @@ def _logits_check(prefill, params, toks, logits, tol):
         raise AssertionError("prefill logits, kernel against plain: beyond "
                              "the tolerance")
     passed = [n for n, r in fault_rel.items() if r <= tol]
-    if passed:
+    if passed and faults_fail:
         raise AssertionError(f"planted faults pass the logits check: "
                              f"{passed}")
     return kept.first, rel, fault_rel
@@ -3577,7 +3536,7 @@ def phase_lm(timing):
         LM_BATCH, LM_SEQ))).cuda()
     prefill = lm.make_prefill_step(cfg)
     prefill(params, {"tokens": toks[:, :FLASH_LM_SEQ]})    # warm-up
-    logits, dt = _timed_prefill(prefill, params, toks, cfg)
+    logits, dt, _ = _timed_prefill(prefill, params, toks, cfg)
     profile = _profile_prefill(prefill, params, toks)
     # the same prefill on the plain version keeps layer 0's inputs
     first, _, _ = _logits_check(prefill, params, toks, logits, LOGITS_TOL)
@@ -3652,12 +3611,12 @@ def phase_stablelm(timing):
     with FlashInputs(lambda q, k, v, c, qc, kc: kernel(
             q, k, v, causal=c, q_chunk=qc, kv_chunk=kc)) as kept:
         prefill(params, {"tokens": toks})
-    _, dt = _timed_prefill(prefill, params, toks, cfg)
+    _, dt, _ = _timed_prefill(prefill, params, toks, cfg)
     profile = _profile_prefill(prefill, params, toks)
     row = _layer0(kept.first, "the StableLM-3B prefill")
     del kept
     short = toks[:, :STABLELM_CHECK_SEQ]
-    logits, _ = _timed_prefill(prefill, params, short, cfg)
+    logits, _, _ = _timed_prefill(prefill, params, short, cfg)
     _logits_check(prefill, params, short, logits, LOGITS_TOL)
     return dict(name="flash_attention_hd80", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
@@ -3665,6 +3624,263 @@ def phase_stablelm(timing):
                 launches=cfg.n_layers, **row,
                 prefill_tokens_per_s=LM_BATCH * LM_SEQ / dt,
                 prefill_profile=profile, hd80_s4096=timing["hd80"])
+
+
+class MoeDrops:
+    """Counts, inside it, the (token, k) pairs ``layers._route`` routes and
+    those it drops past their expert's capacity (one device sum a call, read
+    at the end)."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self._saved, self.dropped, self.pairs = layers._route, [], 0
+
+        def wrapped(logits, n_experts, top_k, cap):
+            out = self._saved(logits, n_experts, top_k, cap)
+            self.dropped.append((~out[4]).sum())
+            self.pairs += out[4].numel()
+            return out
+        layers._route = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+        layers._route = self._saved
+
+    def count(self) -> int:
+        import torch
+        return int(torch.stack(self.dropped).sum()) if self.dropped else 0
+
+
+class FullCapacity:
+    """Inside it the MoE's prefill capacity is the decode's (E/K), so that
+    neither drops a token and decode can be held against forward."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self._saved = layers.moe
+        layers.moe = lambda x, p, cfg, capacity_factor=1.25: self._saved(
+            x, p, cfg, cfg.n_experts / cfg.top_k)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+        layers.moe = self._saved
+
+
+def _decode_against_forward(cfg, params, toks):
+    """Decode step by step over the first FAMILY_DEC_SEQ tokens against the
+    forward's last logits (at full capacity: ``FullCapacity``), within
+    FAMILY_DECODE_TOL.  -> (share of the largest |logit|, decode tokens/s
+    of that loop)."""
+    import torch
+    from repro_torch.models import lm, transformer
+    short = toks[:1, :FAMILY_DEC_SEQ]
+    with FullCapacity():
+        full, _ = transformer.forward(params, {"tokens": short}, cfg)
+    serve = lm.make_serve_step(cfg)
+    cache = transformer.init_cache(cfg, 1, FAMILY_DEC_SEQ)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(FAMILY_DEC_SEQ):
+        lg, cache = serve(params, cache, short[:, t : t + 1], t)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rel = _logits_close(f"{cfg.arch}: decode against forward at "
+                        f"S={FAMILY_DEC_SEQ} ({dt:.3f} s, "
+                        f"{FAMILY_DEC_SEQ / dt:.1f} tokens/s at batch 1)", lg,
+                        full[:, -1], FAMILY_DECODE_TOL)
+    return rel, FAMILY_DEC_SEQ / dt
+
+
+def _generate(cfg, params, rng):
+    """``greedy_generate`` at batch FAMILY_GEN_BATCH, timed.  -> new
+    tokens/s."""
+    import torch
+    from repro_torch.models import lm
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        FAMILY_GEN_BATCH, FAMILY_GEN_PROMPT))).cuda()
+    lm.greedy_generate(params, cfg, prompt[:, :2], 1)            # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = lm.greedy_generate(params, cfg, prompt, FAMILY_GEN_NEW)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if tuple(out.shape) != (FAMILY_GEN_BATCH, FAMILY_GEN_PROMPT
+                            + FAMILY_GEN_NEW) or not bool(
+            (out[:, :FAMILY_GEN_PROMPT] == prompt).all()) or not bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"{cfg.arch}: greedy_generate gave bad tokens "
+                             f"{tuple(out.shape)}")
+    steps = FAMILY_GEN_PROMPT + FAMILY_GEN_NEW - 1
+    log(f"{cfg.arch}: greedy_generate B={FAMILY_GEN_BATCH}, "
+        f"{FAMILY_GEN_PROMPT} + {FAMILY_GEN_NEW} tokens in {dt:.3f} s = "
+        f"{FAMILY_GEN_BATCH * FAMILY_GEN_NEW / dt:,.1f} new tokens/s, "
+        f"{steps / dt:.1f} decode steps/s")
+    return FAMILY_GEN_BATCH * FAMILY_GEN_NEW / dt
+
+
+def _family(arch, seed, profile=False):
+    """One family's model at full width, drawn on the card in bf16 and
+    freed on return: a warm-up prefill at FAMILY_SEQ through
+    ``transformer.forward`` (its aux, the MoE's drops, the first flash
+    call's q, k, v), the timed prefill (launches once an attention layer)
+    and, with ``profile``, its profile (reading a trace of 30,000-50,000
+    device ops takes 16-24 s); the logits at FAMILY_CHECK_SEQ against the
+    plain version's and the planted faults' (models with attention);
+    decode against forward; generation.  -> (numbers, the first flash
+    call's inputs or None)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm, transformer
+
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    log(f"device memory held before {arch}: {held / 1e9:.3f} GB")
+    cfg, params = _draw_params(arch, cast=True)
+    weights = torch.cuda.memory_allocated() - held
+    rng = np.random.default_rng(seed)
+    S = FAMILY_SEQ[arch]
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        LM_BATCH, S))).cuda()
+    kernel = ops.flash_attention
+    t0 = time.perf_counter()
+    with FlashInputs(lambda q, k, v, c, qc, kc: kernel(
+            q, k, v, causal=c, q_chunk=qc, kv_chunk=kc)) as kept, \
+            MoeDrops() as drops:
+        warm, aux = transformer.forward(params, {"tokens": toks}, cfg,
+                                        last_only=True)
+        torch.cuda.synchronize()
+    dt_w = time.perf_counter() - t0
+    aux = float(aux)
+    if not (math.isfinite(aux) and bool(torch.isfinite(warm).all())):
+        raise AssertionError(f"{arch}: warm-up prefill not finite (aux {aux})")
+    if (aux > 0) != (cfg.family == "moe"):
+        raise AssertionError(f"{arch}: aux {aux} for family {cfg.family}")
+    n_drop = drops.count()
+    moe = (f"; MoE aux {aux:.6g}; (token, expert) pairs dropped past "
+           f"capacity {n_drop:,} of {drops.pairs:,} "
+           f"({n_drop / drops.pairs:.4%})" if drops.pairs else "")
+    log(f"{arch}: warm-up prefill at S={S:,} in {dt_w:.3f} s{moe}")
+    prefill = lm.make_prefill_step(cfg)
+    logits, dt, peak = _timed_prefill(prefill, params, toks, cfg)
+    rel, _ = _logits_diff("prefill logits", logits, warm[:, -1])
+    log(f"{arch}: the timed prefill's logits against the warm-up's: max "
+        f"|diff| / max |logit| = {rel:.4g}")
+    prof = _profile_prefill(prefill, params, toks) if profile else None
+    del warm, logits
+    out = dict(arch=arch, seq=S, weights_gb=weights / 1e9,
+               prefill_s=dt, prefill_tokens_per_s=LM_BATCH * S / dt,
+               prefill_peak_gb=peak / 1e9, prefill_profile=prof,
+               aux=aux, moe_dropped_pairs=n_drop, moe_pairs=drops.pairs,
+               flash_launches=_attention_layers(cfg))
+    if _attention_layers(cfg):
+        short = toks[:, :FAMILY_CHECK_SEQ]
+        lg, _, _ = _timed_prefill(prefill, params, short, cfg)
+        # a hybrid attends at 9 of its 63 blocks: a fault there may move
+        # the logits less than the tolerance (printed only); the kernel is
+        # held to its plain version on the first site's inputs instead
+        _, rel, faults = _logits_check(prefill, params, short, lg,
+                                       LOGITS_TOL, cfg.family != "hybrid")
+        out.update(logits_rel=rel, logits_faults=faults)
+    out["decode_rel"], out["decode_tokens_per_s"] = _decode_against_forward(
+        cfg, params, toks)
+    out["generate_tokens_per_s"] = _generate(cfg, params, rng)
+    first = kept.first
+    del params, kept
+    return out, first
+
+
+def _low_th_and_cost(idx):
+    """Phase 4's index split at LOW_TH (paper Sec. V-A), and the paper's
+    cost model (``core.costmodel``) on it: the full-system simulation with
+    a read load proportional to each minimizer's PLs (128 reads'
+    worth x 1,000), its Eq. 6 DP-memory time, and the paper's system
+    estimate.  -> the numbers."""
+    from repro_torch.core import costmodel as cm
+    from repro_torch.core.index import low_th_split, minimizer_frequencies
+    t0 = time.perf_counter()
+    split = low_th_split(idx, LOW_TH)
+    freqs = minimizer_frequencies(idx)
+    read_load = freqs * 128.0 / max(freqs.sum(), 1)
+    k_l, k_a, j_l, j_a = cm.full_system_simulation(read_load * 1000, freqs)
+    t_dp = (k_l * cm.linear_wf_cycles()["total_cycles"]
+            + k_a * cm.affine_wf_cycles()["total_cycles"]) * cm.T_CLK
+    est = cm.dart_pim_system()
+    speed = cm.speedup_table()
+    dt = time.perf_counter() - t0
+    log(f"lowTh={LOW_TH} split of phase 4's index: "
+        f"{split['n_rare_minimizers']:,} of {split['n_minimizers']:,} "
+        f"minimizers rare ({split['rare_minimizer_fraction']:.4f}), "
+        f"{split['rare_pl_fraction']:.4f} of the PLs (paper: 0.16% of affine "
+        f"instances on RISC-V)")
+    log(f"cost model on it: K_L={k_l:.4g} K_A={k_a:.4g} J_L={j_l:.4g} "
+        f"J_A={j_a:.4g}, Eq. 6 DP-memory time {t_dp:.4f} s; the paper's "
+        f"system at 25k reads a crossbar: {est.exec_time_s:.2f} s, "
+        f"{est.throughput_reads_s:,.0f} reads/s, {est.energy_J / 1e3:.2f} kJ"
+        f", speedup {speed['minimap2']['speedup']:.1f}x minimap2, "
+        f"{speed['parabricks']['speedup']:.2f}x Parabricks ({dt * 1e3:.1f} "
+        f"ms of host work)")
+    if not 0 < split["n_rare_minimizers"] <= split["n_minimizers"]:
+        raise AssertionError(f"lowTh split: {split['n_rare_minimizers']} of "
+                             f"{split['n_minimizers']}")
+    return dict(n_rare=split["n_rare_minimizers"],
+                n_minimizers=split["n_minimizers"],
+                rare_minimizer_fraction=split["rare_minimizer_fraction"],
+                rare_pl_fraction=split["rare_pl_fraction"], K_L=k_l, K_A=k_a,
+                J_L=j_l, J_A=j_a, eq6_dp_memory_s=t_dp, host_ms=dt * 1e3)
+
+
+def phase_families(idx):
+    """Phase 14: the moe, ssm and hybrid families at full width, each drawn
+    on the card from seed 0 in bf16 and freed before the next
+    (``_family``): Moonlight-16B-A3B (the kernel's hd=128 instance once a
+    layer; its layer-0 q, k, v against the plain version and the planted
+    faults, timed beside ``scaled_dot_product_attention``), Zamba2-2.7B
+    (hd=80 at its 9 shared-attention sites; the first site's q, k, v
+    against the plain version), Falcon-Mamba-7B (no attention); then the
+    lowTh split of phase 4's index and the cost model on it.  -> (the
+    hd=128 kernel's JSON row, the Zamba2 launches, {arch: numbers})."""
+    import torch
+    from repro_torch.kernels import ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    nums = {}
+    nums[MOE_ARCH], first = _family(MOE_ARCH, 19, profile=True)
+    row = _layer0(first, "the Moonlight-16B-A3B prefill")
+    del first
+    nums[HYBRID_ARCH], first = _family(HYBRID_ARCH, 23)
+    q, k, v, causal, qc, kc = first
+
+    def site():
+        return ops.flash_attention(q, k, v, causal=causal, q_chunk=qc,
+                                   kv_chunk=kc)
+    err, share = _flash_close("flash_attention on Zamba2-2.7B's first site",
+                              site(), _flash_plain(*first))
+    ms = cuda_ms(site, 5, 1)
+    hyb = nums[HYBRID_ARCH]
+    kernel_share = hyb["flash_launches"] * ms / (hyb["prefill_s"] * 1e3)
+    log(f"flash_attention, the first shared-attention site of the Zamba2-2.7B"
+        f" prefill: q {tuple(q.shape)}: max |diff| against the plain "
+        f"version {err:.3g}, {share:.3g} x the tolerance; {ms:.4f} ms/call, "
+        f"x {hyb['flash_launches']} sites = {kernel_share:.2%} of the timed "
+        f"prefill's wall time")
+    hyb.update(site0_max_abs_err=err, site0_share=share, site_ms=ms,
+               kernel_share_of_wall=kernel_share)
+    del first, q, k, v
+    nums[SSM_ARCH], first = _family(SSM_ARCH, 29)
+    if first is not None:
+        raise AssertionError("Falcon-Mamba-7B called flash_attention")
+    nums["lowth_cost"] = _low_th_and_cost(idx)
+    moe = nums[MOE_ARCH]
+    hd128 = dict(name="flash_attention_hd128", route="cuda",
+                 source="src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+                 replaces="src/repro/kernels/flash_attention.py:84",
+                 launches=moe["flash_launches"], **row,
+                 prefill_tokens_per_s=moe["prefill_tokens_per_s"],
+                 prefill_profile=moe["prefill_profile"],
+                 moe_dropped_pairs=moe["moe_dropped_pairs"])
+    return hd128, nums[HYBRID_ARCH]["flash_launches"], nums
 
 
 def main() -> int:
@@ -3714,6 +3930,11 @@ def main() -> int:
         phase_done("9 LM serving")
         rows["flash_attention_hd80"] = phase_stablelm(timing)
         phase_done("10 StableLM-3B prefill")
+        rows["flash_attention_hd128"], zamba_sites, families = \
+            phase_families(idx)
+        rows["flash_attention_hd80"]["launches_zamba2_prefill"] = zamba_sites
+        rows["flash_attention_hd128"]["families"] = families
+        phase_done("14 LM families")
         service = phase_service(idx, rs, pairs, mf, work)
         phase_done("12 serving, resilience, observability")
         mesh, mesh_parity = phase_mesh(idx, ref, rs, single, lead, pairs,
@@ -3730,10 +3951,9 @@ def main() -> int:
             {f"map_fastq --index-dir {e}": l[name]
              for e, l in sharded["map_fastq"].items()},
             evicting=sharded["evicting"][name],
-            origin=sharded["origin"][name], chr1_sized=sharded["big"][name])
+            origin=sharded["origin"][name])
     rows["minimizer_scan"]["sharded_launches"].update(
-        build_tiles=sharded["build_tiles"],
-        chr1_sized_build=sharded["big_build"])
+        build_tiles=sharded["build_tiles"])
     # and on the serving path, engine by engine
     for name in MAPPER_KERNELS:
         rows[name]["service_launches"] = {

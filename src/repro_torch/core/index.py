@@ -198,3 +198,27 @@ def build_index(ref: np.ndarray, read_len: int = 150, k: int = 12,
     return GenomeIndex(uniq_kmers=uniq.astype(np.uint32), offsets=offsets,
                        positions=pos.astype(np.int64), segments=segs,
                        read_len=read_len, k=k, w=w, eth=eth)
+
+
+def minimizer_frequencies(index: GenomeIndex) -> np.ndarray:
+    """PLs per unique minimizer — drives the lowTh RISC-V/crossbar split.
+    int64 here (the reference's offsets are int32): the same counts."""
+    return np.diff(index.offsets)
+
+
+def low_th_split(index: GenomeIndex, low_th: int = 3) -> dict:
+    """Paper Sec. V-A: minimizers with frequency <= lowTh are offloaded
+    (to the RISC-V cores in DART-PIM).
+
+    Returns masks + the workload split statistics that drive Eq. 6/7 —
+    ``repro.core.index.low_th_split``, the same values.
+    """
+    freqs = minimizer_frequencies(index)
+    rare = freqs <= low_th
+    return {
+        "rare_mask": rare,
+        "n_rare_minimizers": int(rare.sum()),
+        "n_minimizers": len(freqs),
+        "rare_pl_fraction": float(freqs[rare].sum() / max(freqs.sum(), 1)),
+        "rare_minimizer_fraction": float(rare.mean()),
+    }

@@ -1,5 +1,5 @@
-"""Transformer building blocks on torch tensors: the dense subset of the
-reference's ``models/layers.py``, name for name.
+"""Transformer building blocks on torch tensors: the reference's
+``models/layers.py``, name for name (norms, RoPE, attention, MLP, MoE).
 
 Conventions, as in the reference:
   * params are plain dicts of tensors; fp32 storage, bf16 compute;
@@ -246,3 +246,104 @@ def init_mlp(generator, cfg, device=None):
 def mlp(x, p):
     h = _silu(_mm(x, compute_dtype(p["wg"]))) * _mm(x, compute_dtype(p["wi"]))
     return _mm(h, compute_dtype(p["wo"]))
+
+
+# ----------------------------------------------------------------- MoE
+def init_moe(generator, cfg, device=None):
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    s = 1.0 / math.sqrt(d)
+    return {
+        "router": _normal(generator, (d, e), device) * s,
+        "wi": _normal(generator, (e, d, f), device) * s,
+        "wg": _normal(generator, (e, d, f), device) * s,
+        "wo": _normal(generator, (e, f, d), device) / math.sqrt(f),
+    }
+
+
+MOE_SEQ_CHUNK = 4096
+
+
+def moe(x, p, cfg, capacity_factor: float = 1.25):
+    """Sequence-chunked wrapper over ``_moe_chunk``: long sequences are
+    dispatched in <= MOE_SEQ_CHUNK slices, one after the other, so the
+    (B, E*cap, D) dispatch buffer stays bounded.  Capacity is per chunk;
+    the aux loss is the chunks' mean.  -> (y, aux)."""
+    B, S, D = x.shape
+    C = MOE_SEQ_CHUNK
+    if S <= C:
+        return _moe_chunk(x, p, cfg, capacity_factor)
+    if S % C:
+        raise ValueError(f"S={S} is not a multiple of MOE_SEQ_CHUNK={C}")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ys = []
+    for i in range(S // C):
+        y, a = _moe_chunk(x[:, i * C : (i + 1) * C], p, cfg, capacity_factor)
+        aux = aux + a
+        ys.append(y)
+    return torch.cat(ys, dim=1), aux / (S // C)
+
+
+def _route(logits, n_experts: int, top_k: int, cap: int):
+    """Token-choice top-k routing of f32 router ``logits`` (B, S, E) with
+    ``cap`` slots per expert and batch row.  -> (probs, top_p, top_e,
+    rank, keep).
+
+    ``top_e`` orders equal probabilities lower expert first, as
+    ``jax.lax.top_k`` does (a stable descending sort; ``torch.topk``
+    promises no order among ties).  A (token, k) pair's rank within its
+    expert counts the pairs before it in (token, k) order: a stable sort
+    of the flattened expert ids and, for each, the first position of its
+    id (a leftmost ``searchsorted``).  Pairs ranked ``cap`` or later are
+    dropped (``keep`` False) and pass through on the residual."""
+    B, S, E = logits.shape
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[..., :top_k], top_e[..., :top_k]
+    top_p = top_p / top_p.sum(-1, keepdim=True)
+    flat_e = top_e.reshape(B, S * top_k)
+    sorted_e, order = torch.sort(flat_e, dim=1, stable=True)
+    first = torch.searchsorted(sorted_e, sorted_e)          # leftmost equal
+    rank_sorted = torch.arange(S * top_k, device=logits.device) - first
+    rank = torch.empty_like(rank_sorted).scatter_(1, order, rank_sorted)
+    rank = rank.reshape(B, S, top_k)
+    return probs, top_p, top_e, rank, rank < cap
+
+
+def _moe_chunk(x, p, cfg, capacity_factor: float = 1.25):
+    """Token-choice top-k MoE with per-batch-row capacity.
+
+    Each (token, k) pair that ``_route`` keeps is scattered to its slot
+    ``expert * cap + rank`` of a (B, E*cap + 1, D) buffer; dropped pairs
+    all go to the last row, which is cut off before the expert products
+    (its duplicate writes land in any order, and nothing reads it).  The
+    experts' SwiGLU runs as batched products over (E, cap), the outputs
+    are gathered back (a dropped pair reads a zero row) and summed with
+    the renormalised top-k weights.  -> (y, Switch-style aux loss)."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    cap = max(int(capacity_factor * S * K / E), 1)
+    logits = _mm(x, compute_dtype(p["router"])).float()
+    probs, top_p, top_e, rank, keep = _route(logits, E, K, cap)
+    slot = torch.where(keep, top_e * cap + rank, E * cap)     # (B, S, K)
+    flat_slot = slot.reshape(B, S * K)
+
+    rows = torch.arange(B, device=x.device)[:, None]
+    buf = torch.zeros((B, E * cap + 1, D), dtype=x.dtype, device=x.device)
+    buf[rows, flat_slot] = x.repeat_interleave(K, dim=1)
+    # one (B * cap, D) block an expert: a batched product over E reads
+    # each expert's weights once (broadcasting them over B would copy them)
+    hidden = buf[:, :-1].reshape(B, E, cap, D).transpose(0, 1).reshape(
+        E, B * cap, D)
+    h = _silu(_mm(hidden, compute_dtype(p["wg"])))
+    h = h * _mm(hidden, compute_dtype(p["wi"]))
+    out = _mm(h, compute_dtype(p["wo"])).reshape(E, B, cap, D).transpose(0, 1)
+    outflat = torch.cat([out.reshape(B, E * cap, D),
+                         torch.zeros((B, 1, D), dtype=out.dtype,
+                                     device=x.device)], dim=1)
+    gathered = outflat[rows, flat_slot].reshape(B, S, K, D)
+    combined = (gathered * top_p[..., None].to(out.dtype)).sum(2)
+    # aux load-balancing loss (Switch-style), returned for the trainer
+    me = probs.mean((0, 1))
+    ce = torch.nn.functional.one_hot(top_e[..., 0], E).float().mean((0, 1))
+    aux = E * (me * ce).sum()
+    return combined, aux

@@ -44,6 +44,9 @@ print("LOADED", bad)
      "repro_torch.launch.serve", "repro_torch.launch.report"),
     # the mesh topology
     ("repro_torch.core.distributed", "repro_torch.launch.mesh"),
+    # the cost model and the moe, ssm and hybrid families
+    ("repro_torch.core.costmodel", "repro_torch.core.index",
+     "repro_torch.models.ssm", "repro_torch.models.transformer"),
     # the flash wrapper's plain version, first in a fresh process
     ("repro_torch.core.attention", "repro_torch.kernels.ops",
      "repro_torch.models.layers"),

@@ -544,15 +544,31 @@ def test_greedy_generate_matches_reference():
     np.testing.assert_array_equal(q8[:, :4].numpy(), prompt)
 
 
-# ------------------------------------------------------ what is not ported
+# ------------------------------------------- the families ported last
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "falcon-mamba-7b",
                                   "zamba2-2.7b"])
 def test_unported_families_raise(arch):
+    """The moe, ssm and hybrid families, which these entry points refused
+    until they were ported, now build the reference's trees: the
+    parameters name for name with their shapes, and the decode cache
+    (tests/test_torch_families.py holds them against the reference)."""
+    jc = jconfigs.reduced(jconfigs.ARCHS[arch])
     tc = tconfigs.reduced(tconfigs.ARCHS[arch])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        tt.init_params(tc, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        tt.init_cache(tc, 1, 4, device="cpu")
+    want = {".".join(str(getattr(k, "key", k)) for k in path): leaf
+            for path, leaf in jax.tree_util.tree_flatten_with_path(
+                jax.eval_shape(lambda k: jt.init_params(jc, k), KEY))[0]}
+    got = tt.init_params(tc, torch.Generator().manual_seed(0)).state_dict()
+    assert sorted(got) == sorted(want)
+    assert all(tuple(got[n].shape) == want[n].shape for n in want)
+    want = {".".join(str(getattr(k, "key", k)) for k in path): leaf
+            for path, leaf in jax.tree_util.tree_flatten_with_path(
+                jt.init_cache(jc, 1, 4, abstract=True))[0]}
+    cache = tt.init_cache(tc, 1, 4, device="cpu")
+    got = {f"{a}.{b}": t for a, sub in cache.items() for b, t in sub.items()}
+    assert sorted(got) == sorted(want)
+    for name, leaf in want.items():
+        assert tuple(got[name].shape) == leaf.shape, name
+        assert str(got[name].dtype)[6:] == str(leaf.dtype), name
 
 
 def test_sequence_sharded_decode_raises():

@@ -96,11 +96,12 @@ Phases, each fatal on failure:
    zero rows) are shown to fail the bf16 check on every bf16 case.
    SmolLM-135M at full width from seeded weights: a 32,768-token prefill
    (one tensor-core launch a layer), a ``torch.profiler`` trace of one
-   more (the ten largest device ops), its last-token logits against a
+   more (the ten largest device ops), the kernel on layer 0's inputs
+   against its plain version and the library's attention on the same
+   inputs, the last-token logits of a 4,096-token prefill against a
    prefill on the plain version and against prefills with planted
-   faults, the kernel on layer 0's inputs against its plain version and
-   the library's attention on the same inputs, decode against forward on
-   bf16 and int8 caches, ``greedy_generate``;
+   faults, decode against forward on bf16 and int8 caches,
+   ``greedy_generate``;
 10. StableLM-3B's prefill at full width (32 heads of 80, 2.8 B parameters
    from seed 0): a timed 32,768-token prefill (one launch a layer of the
    tensor-core kernel at hd=80), its profile, the kernel on layer 0's
@@ -164,9 +165,26 @@ Phases, each fatal on failure:
    kernel's share of the prefill).  Then the lowTh=3 split
    of phase 4's index and the paper's cost model (``core.costmodel``) on
    it.
+15. LM training (run after phase 14): SmolLM-135M at full width through
+   the ``Trainer`` (float32 master weights from seed 0 on the card,
+   adamw, remat on), train_4k's sequence of 4,096 with 32 rows in 4
+   microbatches of 8, a warm-up step and 4 timed ones, under
+   deterministic algorithms.  Checks: every step's loss and grad norm
+   finite; no flash launch in a train step (its attention is
+   ``_sdpa_chunked``'s gradient route) and 30 in each eval step (the
+   tensor-core kernel); step 0's train loss against the eval step's on
+   the same weights and batch within ``TRAIN_EVAL_TOL``, and the eval
+   with a kv tile skipped beyond it; the eval loss on step 0's batch
+   lower after the steps; a new ``Trainer`` restored from the checkpoint
+   after step 3 replays step 4 to the unbroken run's state bit for
+   bit; one ``reduced()`` step on the card against the same step on the
+   CPU.  Prints training tokens/s, peak device memory and, from a
+   ``torch.profiler`` trace of one step of one microbatch, its device
+   split (the chunked attention's forward runs and backward, the
+   optimizer, the other GEMMs, the elementwise chain).
 
 Each phase prints its seconds.  The last lines are the kernels JSON line
-(phases 8, 9, 10 and 14, with each kernel's bound computed from its
+(phases 8, 9, 10, 14 and 15, with each kernel's bound computed from its
 inputs; the mapper kernels' rows also hold their launches in phase 11's
 and phase 12's steps; the affine_wf_dist row also holds phase 7b's rescue, the flash
 row the timed cases of phase 9, the
@@ -410,6 +428,9 @@ SFU_EXPS_PER_S = 16 * 132 * 1.98e9
 # calls: one stall of the shared host inside a round of 0.2 ms calls
 # would double that round's mean
 TIMING_ROUNDS = 3
+# a round whose calls take longer than this (the plain versions) is not
+# repeated: a stall of the host is a small share of it
+LONG_CALL_MS = 100.0
 # words in the names of cuBLAS's and CUTLASS's matrix-product kernels, by
 # which the prefill profile sums the GEMMs' device time
 GEMM_KERNEL_WORDS = ("gemm", "nvjet", "cutlass", "xmma")
@@ -450,6 +471,42 @@ FAMILY_DECODE_TOL = 0.05
 FAMILY_GEN_BATCH, FAMILY_GEN_PROMPT, FAMILY_GEN_NEW = 8, 16, 16
 # the paper's lowTh (Sec. V-A)
 LOW_TH = 3
+# phase 15, LM training: SmolLM-135M at full width (remat on, as its config
+# has it) at train_4k's sequence; train_4k's global batch of 256 cut to 32
+# rows in 4 microbatches of 8 for the script's time (the (8, 4,096, 49,152)
+# float32 logits of a microbatch are 6.4 GB); a warm-up step, then
+# TRAIN_TIMED steps; adamw as the train launcher sets it up
+TRAIN_ARCH = LM_ARCH
+TRAIN_SEQ = 4096
+TRAIN_BATCH, TRAIN_MICRO = 32, 4
+TRAIN_TIMED = 4
+TRAIN_LR = 3e-4
+# the Trainer checkpoints after step 3 (four steps done); a new Trainer
+# restored from it replays step 4 (one replayed step shows the restored
+# step counter, batch and schedule; a second took 15 s of the script)
+TRAIN_CKPT_EVERY = 4
+# |train-step loss - eval-step loss| on step 0's batch and the initial
+# weights: the train step's attention is _sdpa_chunked's gradient route
+# (bf16 Q.K^T), the eval step's the tensor-core kernel (f32 scores).  The
+# loss is a mean over 131,072 tokens with random labels, and random
+# weights attend almost evenly over the keys, so both a rounding apart and
+# a planted fault move it little: the sound reading was 1.907e-05 and the
+# kernel with a kv tile skipped (each row past the first tile loses its
+# diagonal tile) 5.317e-05 on an H100 (PERF.md §6); both repeat, the
+# weights, batch and kernels being deterministic
+TRAIN_EVAL_TOL = 3e-5
+# one reduced() train step on the card against the same step through the
+# port on the CPU, at S past ATTN_CHUNK_THRESHOLD (the gradient route):
+# the loss and the grad norm, relative, and the largest leaf's ||card -
+# CPU|| / ||CPU|| of the gradient.  Each lies between its sound reading
+# (loss 1.1e-05, grad norm 4.2e-04, leaf 0.014 on an H100, PERF.md §6:
+# the card's bf16 products round apart from the CPU's) and the planted
+# faults' (labels shifted by one: loss 3.9e-03, grad norm 0.39, leaf 2.3;
+# layer 0's gradient zeroed: grad norm 0.074, leaf 0.97), 7 to 19 times
+# each side (every weight moved by a bf16 step reads, on the CPU, loss
+# 2.1e-04, grad norm 4.0e-03, leaf 0.051)
+TRAIN_CPU_SEQ = 3072
+TRAIN_CPU_TOL = {"loss": 2e-4, "grad_norm": 4e-3, "leaf": 0.1}
 
 
 def log(msg: str) -> None:
@@ -492,7 +549,8 @@ def edge_batch(rng, R, n, eth):
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     """ms per call of ``fn``: CUDA events around ``reps`` calls after
-    ``warmup``, the least mean of TIMING_ROUNDS such rounds."""
+    ``warmup``, the least mean of TIMING_ROUNDS such rounds (one where a
+    call takes more than LONG_CALL_MS)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -507,6 +565,8 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
         end.record()
         torch.cuda.synchronize()
         best = min(best, start.elapsed_time(end) / reps)
+        if best > LONG_CALL_MS:
+            break
     return best
 
 
@@ -2901,28 +2961,32 @@ def _flash_plain(q, k, v, causal, q_chunk, kv_chunk):
     return _sdpa_chunked(q, k, v, causal, q_chunk, kv_chunk, f32_scores=True)
 
 
-def _plain_masked(q, k, v, keep, chunk=1024):
+def _plain_masked(q, k, v, keep, chunk=1024, causal=False):
     """Attention with the kernel's arithmetic over the (query, key) pairs
     that ``keep(qpos, kpos)`` allows, one softmax over all keys per chunk
-    of query rows: the body of the planted faults."""
+    of query rows: the body of the planted faults.  ``causal``: ``keep``
+    drops every key past the query, so a chunk reads only the keys up to
+    its last row (those past it would add exact zeros)."""
     import torch
     from repro_torch.core.attention import NEG
     B, S, H, hd = q.shape
     KV = k.shape[2]
     kf, vf = k.float(), v.float()
-    kpos = torch.arange(S, device=q.device)[None, :]
     outs = []
     for i in range(0, S, chunk):
         qb = q[:, i : i + chunk].float() * (1.0 / math.sqrt(hd))
         n = qb.shape[1]
+        nk = i + n if causal else S
+        kpos = torch.arange(nk, device=q.device)[None, :]
         s = torch.einsum("bqgrd,bkgd->bgrqk",
-                         qb.reshape(B, n, KV, H // KV, hd), kf)
+                         qb.reshape(B, n, KV, H // KV, hd), kf[:, :nk])
         qpos = torch.arange(i, i + n, device=q.device)[:, None]
         kept = keep(qpos, kpos)
         s = s.masked_fill(~kept, NEG)
         # a row that keeps no key sums nothing: 0 / max(0, 1e-30) = 0
         p = torch.exp(s - s.amax(-1, keepdim=True)).masked_fill(~kept, 0)
-        o = torch.einsum("bgrqk,bkgd->bqgrd", p.to(v.dtype).float(), vf)
+        o = torch.einsum("bgrqk,bkgd->bqgrd", p.to(v.dtype).float(),
+                         vf[:, :nk])
         o = o / p.sum(-1).permute(0, 3, 1, 2).clamp_min(1e-30)[..., None]
         outs.append(o.to(q.dtype).reshape(B, n, H, hd))
     return torch.cat(outs, dim=1)
@@ -2941,14 +3005,14 @@ def _fault_tile(q, k, v, causal, q_chunk, kv_chunk):
     else:
         def keep(qp, kp):
             return kp < S - tile
-    return _plain_masked(q, k, v, keep)
+    return _plain_masked(q, k, v, keep, causal=causal)
 
 
 def _fault_head(q, k, v, causal, q_chunk, kv_chunk):
     """Query head h reads KV head h // rep + 1 (mod KV)."""
     def keep(qp, kp):
         return (kp <= qp) if causal else (kp >= 0)
-    return _plain_masked(q, k.roll(1, 2), v.roll(1, 2), keep)
+    return _plain_masked(q, k.roll(1, 2), v.roll(1, 2), keep, causal=causal)
 
 
 def _fault_rows(q, k, v, causal, q_chunk, kv_chunk):
@@ -3277,7 +3341,6 @@ def _profile_prefill(prefill, params, toks):
     {"flash_share", "device_ms", "wall_s"}, or None when the trace holds
     no device time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3286,9 +3349,12 @@ def _profile_prefill(prefill, params, toks):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     t0 = time.perf_counter()
-    dev = sorted(((e.self_device_time_total, e.count, e.key)
-                  for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA), reverse=True)
+    by_name = {}
+    for _, ns, name in _device_ops(prof):
+        us, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (us + ns / 1e3, n + 1)
+    dev = sorted(((us, n, name) for name, (us, n) in by_name.items()),
+                 reverse=True)
     log(f"prefill profile: the trace read in {time.perf_counter() - t0:.2f} "
         f"s")
     total = sum(us for us, _, _ in dev)
@@ -3526,6 +3592,7 @@ def phase_lm(timing):
     flash kernel, decode, generation.  ``timing``: phase_flash_parity's.
     -> the flash kernel's JSON row."""
     import torch
+    from repro_torch.kernels import ops
     from repro_torch.models import lm, transformer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3535,12 +3602,21 @@ def phase_lm(timing):
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
         LM_BATCH, LM_SEQ))).cuda()
     prefill = lm.make_prefill_step(cfg)
-    prefill(params, {"tokens": toks[:, :FLASH_LM_SEQ]})    # warm-up
-    logits, dt, _ = _timed_prefill(prefill, params, toks, cfg)
+    # warm-up at the full length, keeping the kernel's layer-0 inputs
+    kernel = ops.flash_attention
+    with FlashInputs(lambda q, k, v, c, qc, kc: kernel(
+            q, k, v, causal=c, q_chunk=qc, kv_chunk=kc)) as kept:
+        prefill(params, {"tokens": toks})
+    _, dt, _ = _timed_prefill(prefill, params, toks, cfg)
     profile = _profile_prefill(prefill, params, toks)
-    # the same prefill on the plain version keeps layer 0's inputs
-    first, _, _ = _logits_check(prefill, params, toks, logits, LOGITS_TOL)
-    row = _layer0(first, "the SmolLM-135M prefill")
+    row = _layer0(kept.first, "the SmolLM-135M prefill")
+    del kept
+    # the logits against the plain version's and the planted faults' at
+    # FLASH_LM_SEQ, as phase 10 checks them (at LM_SEQ the plain prefill
+    # and the two faulted ones took 39 s)
+    short = toks[:, :FLASH_LM_SEQ]
+    logits, _, _ = _timed_prefill(prefill, params, short, cfg)
+    _logits_check(prefill, params, short, logits, LOGITS_TOL)
 
     # decode against forward, step by step over DEC_CHECK_SEQ tokens
     serve = lm.make_serve_step(cfg)
@@ -3883,6 +3959,451 @@ def phase_families(idx):
     return hd128, nums[HYBRID_ARCH]["flash_launches"], nums
 
 
+class StepMarks:
+    """Inside it, the train step's attention route (``layers._sdpa_chunked``
+    with gradients on) and the optimizer's update are bracketed on the
+    stream by CUDA events: every forward run of the attention (the first
+    and the remat recomputes through the layer), every backward (from its
+    output's gradient to q, k and v's, the query chunks' recompute
+    inside), every update.  ``ms()`` sums each kind's windows once the
+    stream has run them."""
+
+    def __init__(self, optimizer):
+        self.optimizer = optimizer
+        self.windows = {"attention forward": [], "attention backward": [],
+                        "optimizer": []}
+        self._open = []
+
+    @staticmethod
+    def _event():
+        import torch
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def ms(self) -> dict:
+        return {kind: sum(a.elapsed_time(b) for a, b in pairs)
+                for kind, pairs in self.windows.items()}
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import layers
+        from repro_torch.train.optimizer import Optimizer
+        marks = self
+
+        class Closes(torch.autograd.Function):
+            """Identity on q, k, v; its backward runs after attention's."""
+            @staticmethod
+            def forward(ctx, q, k, v):
+                return q.clone(), k.clone(), v.clone()
+
+            @staticmethod
+            def backward(ctx, gq, gk, gv):
+                marks.windows["attention backward"].append(
+                    (marks._open.pop(), marks._event()))
+                return gq, gk, gv
+
+        class Opens(torch.autograd.Function):
+            """Identity on the output; its backward runs before attention's."""
+            @staticmethod
+            def forward(ctx, o):
+                return o.clone()
+
+            @staticmethod
+            def backward(ctx, g):
+                marks._open.append(marks._event())
+                return g
+
+        self._attn = saved = layers._sdpa_chunked
+
+        def wrapped(q, k, v, causal, q_chunk=1024, kv_chunk=1024, **kw):
+            if not (torch.is_grad_enabled() and q.requires_grad):
+                return saved(q, k, v, causal, q_chunk, kv_chunk, **kw)
+            q, k, v = Closes.apply(q, k, v)
+            start = marks._event()
+            try:
+                o = saved(q, k, v, causal, q_chunk, kv_chunk, **kw)
+            finally:
+                # a remat recompute may stop part way (early stop)
+                marks.windows["attention forward"].append(
+                    (start, marks._event()))
+            return Opens.apply(o)
+        layers._sdpa_chunked = wrapped
+        opt = self.optimizer
+
+        def update(*args):
+            start = marks._event()
+            out = opt.update(*args)
+            marks.windows["optimizer"].append((start, marks._event()))
+            return out
+        self.marked = Optimizer(init=opt.init, update=update,
+                                global_norm=opt.global_norm)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+        layers._sdpa_chunked = self._attn
+
+
+def _device_ops(prof):
+    """(start ns, duration ns, name) of every device activity (kernels,
+    copies, fills) of a finished ``torch.profiler`` trace, read from its
+    raw events: building ``key_averages`` from a trace of tens of
+    thousands of ops takes tens of seconds."""
+    from torch.autograd import DeviceType
+    return [(e.start_ns(), e.duration_ns(), e.name())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
+def _step_split(prof, marks):
+    """The device time of a profiled train step: the kernels' total and the
+    GEMMs' among them (``GEMM_KERNEL_WORDS``; the rest is the elementwise
+    chain: casts, norms, RoPE, SiLU, softmax and exponentials, the loss,
+    the residual adds, the gradients' widening and sums), read from the
+    trace's raw events, and the ``StepMarks`` windows (attention forward
+    runs and backward, the optimizer: GEMMs and elementwise both) from
+    their CUDA events.  -> {kind: ms}, "kernels" the count."""
+    ops_ = _device_ops(prof)
+    total = sum(ns for _, ns, _ in ops_) / 1e6
+    gemm = sum(ns for _, ns, name in ops_
+               if any(w in name.lower() for w in GEMM_KERNEL_WORDS)) / 1e6
+    split = {"device": total, "GEMMs": gemm, "elementwise chain":
+             total - gemm, "kernels": len(ops_)}
+    split.update(marks.ms())
+    split["outside the windows"] = total - sum(marks.ms().values())
+    return split
+
+
+def _eval_on(eval_step, params, batch):
+    """The eval loss of ``batch`` taken a microbatch at a time (rows m::M,
+    as the train step splits it; the mean of equal-sized microbatches' means
+    is the batch's), the launch counts set to 0 before each call and read
+    after it.  -> (loss, each call's flash_attention_wgmma launches)."""
+    from repro_torch.kernels import ops
+    total, launches = 0.0, []
+    for m in range(TRAIN_MICRO):
+        ops.reset_launch_counts()
+        out = eval_step(params, {k: v[m::TRAIN_MICRO]
+                                 for k, v in batch.items()})
+        total += float(out["loss"])
+        launches.append(ops.LAUNCHES["flash_attention_wgmma"])
+    return total / TRAIN_MICRO, launches
+
+
+def _eval_layer0(first):
+    """The flash kernel on the eval step's layer-0 q, k, v (its first
+    microbatch) against its plain version and the planted faults, as
+    ``_layer0`` holds a prefill's.  -> the readings."""
+    import torch
+    from repro_torch.kernels import ops
+    q, k, v, causal, qc, kc = first
+    got = ops.flash_attention(q, k, v, causal=causal, q_chunk=qc,
+                              kv_chunk=kc)
+    torch.cuda.synchronize()
+    want = _flash_plain(q, k, v, causal, qc, kc)
+    what = "layer 0 of the eval step"
+    err, share = _flash_close(f"flash_attention on {what}", got, want)
+    log(f"flash_attention, {what}: q {tuple(q.shape)} {q.dtype}, causal "
+        f"{causal}: max |diff| against the plain version {err:.3g}, "
+        f"{share:.3g} x the tolerance")
+    t0 = time.perf_counter()
+    _check_faults(what, q, k, v, causal, qc, kc, want)
+    log(f"planted faults, {what}: {time.perf_counter() - t0:.2f} s")
+    return dict(max_abs_err=err, tolerance_share=share, shape=list(q.shape))
+
+
+def _grad_diff(ref, got):
+    """``got``'s (loss, grads) against ``ref``'s: the relative |diff| of
+    the loss and of the global grad norm, and the largest ||got - ref|| /
+    ||ref|| over the gradient's leaves."""
+    from repro_torch.core.tree import leaves
+    from repro_torch.train.optimizer import global_norm
+    (l0, g0), (l1, g1) = ref, got
+    n0, n1 = float(global_norm(g0)), float(global_norm(g1))
+    leaf = max(float((b.cpu() - a.cpu()).norm() / a.cpu().norm().clamp_min(
+        1e-30)) for a, b in zip(leaves(g0), leaves(g1)))
+    return {"loss": abs(float(l1) - float(l0)) / abs(float(l0)),
+            "grad_norm": abs(n1 - n0) / n0, "leaf": leaf}
+
+
+def _beyond(diff):
+    """The readings of ``_grad_diff`` beyond their TRAIN_CPU_TOL."""
+    return [k for k, r in diff.items() if r > TRAIN_CPU_TOL[k]]
+
+
+def _reduced_step_cpu_vs_card():
+    """One reduced() train step (a row, S past the chunk threshold) on the
+    card and through the port on the CPU, on the same weights and batch:
+    the step's loss and grad norm, and its gradient leaf by leaf
+    (``lm.make_grads_fn``, the step's own gradient), within TRAIN_CPU_TOL;
+    then two planted faults on the card (labels shifted by one, layer 0's
+    gradient zeroed), each of which must fail them.  -> the sound readings
+    and the faults'."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data.tokens import batch_for_step
+    from repro_torch.models import lm, transformer
+    from repro_torch.train.optimizer import adamw
+    cfg = reduced(get_config(TRAIN_ARCH))
+    params = transformer.as_tree(transformer.init_params(
+        cfg, torch.Generator().manual_seed(0)))
+    toks, labels = batch_for_step(0, global_batch=1, seq_len=TRAIN_CPU_SEQ,
+                                  vocab_size=cfg.vocab_size)
+    batch = {"tokens": torch.from_numpy(toks),
+             "labels": torch.from_numpy(labels)}
+    opt = adamw(warmup=0, total_steps=10)
+    grads_of = lm.make_grads_fn(cfg)
+    step, grads = {}, {}
+    t0 = time.perf_counter()
+    # four threads: a CPU step of these small tensors takes minutes with
+    # every core's thread contending
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 4))
+    try:
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.to(dev), params)
+            on = {k: v.to(dev) for k, v in batch.items()}
+            state = (p, opt.init(p), torch.zeros((), dtype=torch.int32,
+                                                 device=dev))
+            _, m = lm.make_train_step(cfg, opt, device=dev)(state, on)
+            step[dev] = {k: float(v) for k, v in m.items()}
+            loss, _, g = grads_of(p, on)
+            grads[dev] = (loss, g)
+        # the planted faults, on the card
+        p = tree_map(lambda t: t.cuda(), params)
+        shifted = {"tokens": batch["tokens"].cuda(),
+                   "labels": batch["labels"].roll(1, dims=1).cuda()}
+        loss, _, g = grads_of(p, shifted)
+        faults = {"labels shifted by one": (loss, g)}
+        loss, g = grads["cuda"]
+        faults["layer 0's gradient zeroed"] = (loss, dict(g, blocks=tree_map(
+            lambda t: torch.cat([torch.zeros_like(t[:1]), t[1:]]),
+            g["blocks"])))
+    finally:
+        torch.set_num_threads(threads)
+    rel = {k: abs(step["cuda"][k] - step["cpu"][k]) / abs(step["cpu"][k])
+           for k in ("loss", "grad_norm")}
+    rel["leaf"] = _grad_diff(grads["cpu"], grads["cuda"])["leaf"]
+    read = {name: _grad_diff(grads["cpu"], f) for name, f in faults.items()}
+    log(f"reduced {cfg.arch} train step at S={TRAIN_CPU_SEQ:,}, card "
+        f"against CPU: loss {step['cuda']['loss']:.6f} / "
+        f"{step['cpu']['loss']:.6f}, grad norm {step['cuda']['grad_norm']:.6f}"
+        f" / {step['cpu']['grad_norm']:.6f}; relative {rel['loss']:.3g} and "
+        f"{rel['grad_norm']:.3g}, the largest leaf's relative gradient "
+        f"|diff| {rel['leaf']:.3g} (tolerances {TRAIN_CPU_TOL}); "
+        f"{time.perf_counter() - t0:.2f} s")
+    log("planted faults, the reduced train step on the card: " + "; ".join(
+        f"{name}: loss {r['loss']:.3g}, grad norm {r['grad_norm']:.3g}, "
+        f"leaf {r['leaf']:.3g}" for name, r in read.items()))
+    if _beyond(rel):
+        raise AssertionError(f"reduced train step: card and CPU disagree "
+                             f"({_beyond(rel)})")
+    passed = [name for name, r in read.items() if not _beyond(r)]
+    if passed:
+        raise AssertionError(f"planted faults pass the card-against-CPU "
+                             f"check: {passed}")
+    return dict(rel, faults=read)
+
+
+def phase_train(work):
+    """Phase 15, LM training: SmolLM-135M at full width through the
+    ``Trainer`` (see the module docstring).  -> the phase's numbers."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import leaves
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    log(f"device memory held before the training phase: {held / 1e9:.3f} "
+        f"GB")
+    cfg = get_config(TRAIN_ARCH)
+    steps = 1 + TRAIN_TIMED
+    opt = adamw(lr=TRAIN_LR, warmup=min(20, steps // 10), total_steps=steps)
+    ckpt = os.path.join(work, "train_ckpt")
+    tcfg = TrainerConfig(total_steps=steps, global_batch=TRAIN_BATCH,
+                         seq_len=TRAIN_SEQ, ckpt_dir=ckpt,
+                         ckpt_every=TRAIN_CKPT_EVERY, log_every=1, seed=0)
+    # the embedding's backward accumulates rows by atomics unless asked not
+    # to: deterministic algorithms make a replay bit for bit
+    # (the NaN fill of new tensors that comes with them is left off: it is
+    # a check for reads of uninitialised memory, and would add a write to
+    # every allocation of the timed steps)
+    was = torch.are_deterministic_algorithms_enabled()
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        step_fn = lm.make_train_step(cfg, opt, num_microbatches=TRAIN_MICRO)
+        trainer = Trainer(cfg, tcfg, optimizer=opt, train_step_fn=step_fn)
+        t0 = time.perf_counter()
+        state0 = trainer.init_state()
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in leaves(state0[0]))
+        log(f"train: {_describe(cfg)}, remat {cfg.remat}: {n_params:,} "
+            f"float32 parameters and adamw's m, v drawn on the card from "
+            f"seed 0 in {time.perf_counter() - t0:.2f} s; global batch "
+            f"{TRAIN_BATCH} x S={TRAIN_SEQ:,} in {TRAIN_MICRO} microbatches;"
+            f" deterministic algorithms on")
+        eval_step = lm.make_eval_step(cfg)
+        batch0 = trainer.batch_for(0)
+        # the eval step through the kernel, keeping its layer-0 inputs
+        kernel = ops.flash_attention
+        t0 = time.perf_counter()
+        with FlashInputs(lambda q, k, v, c, qc, kc: kernel(
+                q, k, v, causal=c, q_chunk=qc, kv_chunk=kc)) as kept:
+            before, per_call = _eval_on(eval_step, state0[0], batch0)
+        dt_eval = time.perf_counter() - t0
+        if per_call != [cfg.n_layers] * TRAIN_MICRO:
+            raise AssertionError(f"eval step: flash_attention_wgmma "
+                                 f"launches {per_call}, not {cfg.n_layers} "
+                                 f"a call")
+        eval_layer0 = _eval_layer0(kept.first)
+        del kept
+        t0 = time.perf_counter()
+        with FlashInputs(FLASH_FAULTS["a kv tile skipped"]):
+            faulted, _ = _eval_on(eval_step, state0[0], batch0)
+        log(f"eval with a kv tile skipped: {time.perf_counter() - t0:.2f} s")
+
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        final = trainer.run(state0)
+        dt_run = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        train_launches = ops.LAUNCHES["flash_attention_wgmma"]
+        log_ = trainer.metrics_log
+        for rec in log_:
+            log(f"train step {rec['step']}: loss {rec['loss']:.6f}, grad "
+                f"norm {rec['grad_norm']:.6f}, {rec['step_time_s']:.3f} s")
+        if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                   for r in log_) or len(log_) != steps:
+            raise AssertionError("train: a step's loss or grad norm is not "
+                                 "finite, or a step is missing")
+        if train_launches:
+            raise AssertionError(f"train steps launched the flash kernel "
+                                 f"{train_launches} times")
+        timed = [r["step_time_s"] for r in log_[1:]]
+        tok_s = TRAIN_BATCH * TRAIN_SEQ / (sum(timed) / len(timed))
+        log(f"train: {steps} steps in {dt_run:.2f} s (checkpoints "
+            f"included); the {TRAIN_TIMED} after the warm-up "
+            f"{min(timed):.3f}-{max(timed):.3f} s = {tok_s:,.0f} training "
+            f"tokens/s; peak device memory {(peak - held) / 1e9:.3f} GB "
+            f"above the {held / 1e9:.3f} GB held before; flash launches in "
+            f"the train steps: {train_launches}")
+
+        diff = abs(log_[0]["loss"] - before)
+        fault_diff = abs(faulted - before)
+        log(f"train step 0's loss {log_[0]['loss']:.6f} (the gradient "
+            f"route, _sdpa_chunked) against the eval step's {before:.6f} "
+            f"(flash_attention_wgmma, {per_call} launches a call; "
+            f"{dt_eval:.3f} s for the four): |diff| {diff:.4g} (tolerance "
+            f"{TRAIN_EVAL_TOL}); with a kv tile skipped {faulted:.6f}, "
+            f"|diff| {fault_diff:.4g}")
+        if diff > TRAIN_EVAL_TOL:
+            raise AssertionError("train and eval losses disagree")
+        if fault_diff <= TRAIN_EVAL_TOL:
+            raise AssertionError("a skipped kv tile passes the train/eval "
+                                 "loss check")
+        after, _ = _eval_on(eval_step, final[0], batch0)
+        log(f"eval loss on step 0's batch: {before:.6f} before the steps, "
+            f"{after:.6f} after")
+        if not after < before:
+            raise AssertionError("training did not lower the eval loss")
+
+        # restart: the unbroken run's last checkpoint removed, as if it had
+        # died after step 3's; a new Trainer on its directory restores that
+        # checkpoint and replays step 4 to the unbroken run's state
+        shutil.rmtree(os.path.join(ckpt, f"step_{steps:012d}"))
+        if ckpt_lib.all_steps(ckpt) != [TRAIN_CKPT_EVERY]:
+            raise AssertionError(f"checkpoints {ckpt_lib.all_steps(ckpt)}")
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        replay = Trainer(cfg, TrainerConfig(
+            total_steps=steps, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+            ckpt_dir=ckpt, ckpt_every=0, log_every=1, seed=0),
+            optimizer=opt, train_step_fn=step_fn)
+        restored = replay.run()
+        dt_replay = time.perf_counter() - t0
+        same = [bool(torch.equal(a, b)) for a, b in zip(leaves(final),
+                                                        leaves(restored))]
+        worst = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(leaves(final), leaves(restored)))
+        log(f"restart from the checkpoint after step "
+            f"{TRAIN_CKPT_EVERY - 1}: steps "
+            f"{[r['step'] for r in replay.metrics_log]} replayed in "
+            f"{dt_replay:.2f} s; {sum(same)} of {len(same)} state leaves "
+            f"bit for bit the unbroken run's (max |diff| {worst:.3g}); flash"
+            f" launches {ops.LAUNCHES['flash_attention_wgmma']}")
+        if [r["step"] for r in replay.metrics_log] != list(
+                range(TRAIN_CKPT_EVERY, steps)) or not all(same):
+            raise AssertionError("the restarted run did not replay the "
+                                 "unbroken run's last steps to its state")
+        del restored, replay
+        shutil.rmtree(ckpt)             # 1.6 GB a checkpoint
+
+        # the step's device split, over one step of one microbatch
+        t_prof = time.perf_counter()
+        with StepMarks(opt) as marks:
+            one = lm.make_train_step(cfg, marks.marked)
+            mb = {k: v[::TRAIN_MICRO] for k, v in batch0.items()}
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                one(final, mb)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            split = _step_split(prof, marks)
+            del prof
+        log(f"train step profile (one microbatch of {TRAIN_BATCH // TRAIN_MICRO}"
+            f" rows, the optimizer once; the trace read in "
+            f"{time.perf_counter() - t0:.2f} s): {wall:.3f} s wall under the"
+            f" profiler, device time {split['device']:.3f} ms "
+            f"({split['device'] / 1e3 / wall:.2%} of the wall) over "
+            f"{split['kernels']:,} device ops; by kernel: " + ", ".join(
+                f"{k} {split[k]:.3f} ms = {split[k] / split['device']:.2%}"
+                for k in ("GEMMs", "elementwise chain")) + "; by window "
+            f"({len(marks.windows['attention forward'])} attention forward "
+            f"runs, {len(marks.windows['attention backward'])} backward): "
+            + ", ".join(f"{k} {split[k]:.3f} ms = "
+                        f"{split[k] / split['device']:.2%}"
+                        for k in ("attention forward", "attention backward",
+                                  "optimizer", "outside the windows")))
+        log(f"train step profile: {time.perf_counter() - t_prof:.2f} s "
+            f"in all")
+        mb_ms = split["device"] - split["optimizer"]
+        full = TRAIN_MICRO * mb_ms + split["optimizer"]
+        log(f"train step profile, scaled to the step of {TRAIN_MICRO} "
+            f"microbatches: device {full:.3f} ms; attention backward "
+            f"{TRAIN_MICRO * split['attention backward'] / full:.2%}, "
+            f"attention forward "
+            f"{TRAIN_MICRO * split['attention forward'] / full:.2%}, "
+            f"optimizer {split['optimizer'] / full:.2%}")
+        rel = _reduced_step_cpu_vs_card()
+    finally:
+        torch.use_deterministic_algorithms(was)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+    del state0, final
+    torch.cuda.empty_cache()
+    return dict(arch=cfg.arch, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+                microbatches=TRAIN_MICRO, tokens_per_s=tok_s,
+                step_s=timed, warmup_step_s=log_[0]["step_time_s"],
+                peak_gb=(peak - held) / 1e9, eval_before=before,
+                eval_after=after, train_eval_diff=diff,
+                fault_diff=fault_diff, eval_launches=per_call,
+                eval_layer0=eval_layer0,
+                train_launches=train_launches, split=split,
+                cpu_rel=rel, losses=[r["loss"] for r in log_])
+
+
 def main() -> int:
     import torch
     t_all = time.perf_counter()
@@ -3935,6 +4456,8 @@ def main() -> int:
         rows["flash_attention_hd80"]["launches_zamba2_prefill"] = zamba_sites
         rows["flash_attention_hd128"]["families"] = families
         phase_done("14 LM families")
+        rows["flash_attention"]["train"] = phase_train(work)
+        phase_done("15 LM training")
         service = phase_service(idx, rs, pairs, mf, work)
         phase_done("12 serving, resilience, observability")
         mesh, mesh_parity = phase_mesh(idx, ref, rs, single, lead, pairs,

@@ -374,6 +374,21 @@ def check_tma(name: str, ptr: int, strides, itemsize: int) -> None:
                              f"of {TMA_ALIGN} bytes, as a TMA load needs")
 
 
+def check_no_grad(name: str, requires_grad: bool,
+                  grad_enabled: bool) -> None:
+    """Raises ``KernelLaunchError`` for a flash input that autograd would
+    record (it ``requires_grad`` and gradients are enabled): the kernels
+    have no backward, and a launch would cut the gradient off silently.
+    ``models.layers.attention`` sends such inputs to ``_sdpa_chunked``'s
+    gradient route; this rule holds for CUDA tensors, the plain version
+    on CPU tensors being differentiable."""
+    if requires_grad and grad_enabled:
+        raise KernelLaunchError(
+            f"flash_attention: {name} requires grad and the kernels have no "
+            f"backward; differentiate core.attention._sdpa_chunked instead "
+            f"(models.layers.attention's gradient route)")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_chunk: int = 512,
                     kv_chunk: int = 512):
@@ -396,7 +411,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     hd) tensors, each a contiguous projection of its own, always meet.
     ``LAUNCHES["flash_attention"]`` counts every launch,
     ``LAUNCHES["flash_attention_wgmma"]`` those of the tensor-core
-    kernel."""
+    kernel.  A CUDA input that requires grad is refused
+    (``check_no_grad``): the kernels have no backward."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q, k, v must be 4-D (B, S, heads, hd), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -426,6 +442,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not _is_cuda(q):
         return _sdpa_chunked(q, k, v, causal, q_chunk=q_chunk,
                              kv_chunk=kv_chunk)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check_no_grad(name, t.requires_grad, torch.is_grad_enabled())
     kernel = flash_kernel(q.dtype, hd)
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("head_dim must be the contiguous axis of q, k, v")

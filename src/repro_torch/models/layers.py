@@ -12,6 +12,7 @@ nothing.  Long-sequence attention (S > ``ATTN_CHUNK_THRESHOLD``) runs
 ``kernels.ops.flash_attention``: on CUDA tensors the Hopper kernel, on CPU
 tensors ``_sdpa_chunked`` (``core.attention``, re-exported here), which is
 the kernel's plain version and computes what the reference computes there.
+With gradients on, it takes the gradient route instead (``attention``).
 """
 from __future__ import annotations
 
@@ -167,7 +168,13 @@ def attention(x, p, cfg, positions=None, causal=True):
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
     q, k, v = _qkv(x, p, cfg, positions)
-    if S > ATTN_CHUNK_THRESHOLD:
+    if S > ATTN_CHUNK_THRESHOLD and torch.is_grad_enabled() and \
+            q.requires_grad:
+        # the gradient route: the kernels have no backward, so the layer
+        # differentiates the function the reference differentiates, its
+        # chunked attention, each query chunk recomputed in the backward
+        o = _sdpa_chunked(q, k, v, causal, 1024, 1024, remat=True)
+    elif S > ATTN_CHUNK_THRESHOLD:
         o = ops.flash_attention(q, k, v, causal=causal, q_chunk=1024,
                                 kv_chunk=1024)
     else:

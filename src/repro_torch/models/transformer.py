@@ -14,7 +14,10 @@ moe, ssm, hybrid), with its parameter layout:
 ``TransformerLM`` holds that tree as an ``nn.Module`` whose parameter names
 are the tree's paths joined by dots (``blocks.attn.wq`` is (L, D, H*hd)).
 Every function takes the module or the plain nested dict.  The layer scan
-is a Python loop over the stacked axis, under ``torch.inference_mode``.
+is a Python loop over the stacked axis.  ``forward`` takes gradients where
+its caller does (the train step) and then, with ``cfg.remat``, recomputes
+its layers in the backward pass as the reference's two-level remat does;
+decoding runs under ``torch.inference_mode``.
 """
 from __future__ import annotations
 
@@ -22,8 +25,10 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
+from ..core.tree import leaves
 from . import layers, ssm
 from .layers import compute_dtype
 
@@ -38,7 +43,8 @@ def _check_family(cfg) -> None:
 class TransformerLM(nn.Module):
     """The parameter tree as a module: a nested dict of tensors becomes
     nested modules, so ``state_dict`` keys are the tree's dotted paths.
-    Parameters do not require grad (serving only)."""
+    Parameters do not require grad: the train step differentiates a cast
+    copy of the tree (``lm.make_train_step``)."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -160,6 +166,23 @@ def _layer(blocks, i):
             for k, v in blocks.items()}
 
 
+def _unstack(blocks, n: int) -> list:
+    """The stacked (n, ...) block tensors as n per-layer trees of views
+    (one ``unbind`` a leaf, whose backward stacks the layers' gradients
+    once)."""
+    per = [{} for _ in range(n)]
+
+    def walk(src, dsts):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                walk(v, [d.setdefault(k, {}) for d in dsts])
+            else:
+                for d, t in zip(dsts, v.unbind(0)):
+                    d[k] = t
+    walk(blocks, per)
+    return per
+
+
 def _block_fwd(x, pl, cfg):
     """One layer. Returns (x, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -179,6 +202,48 @@ def _block_fwd(x, pl, cfg):
     return x, aux
 
 
+def _remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass
+    instead of kept (``jax.checkpoint`` with ``nothing_saveable``).  The
+    forward draws no random numbers, so the RNG state is not stashed."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _seq(x, aux, layer_trees, cfg, remat: bool):
+    """The layers one after the other, each recomputed in the backward pass
+    where ``remat``.  -> (x, aux + the layers' aux)."""
+    for pl in layer_trees:
+        x, a = _remat(_block_fwd, x, pl, cfg) if remat else _block_fwd(
+            x, pl, cfg)
+        aux = aux + a
+    return x, aux
+
+
+def _scan_blocks(x, layer_trees, cfg, grad: bool):
+    """The depth loop with the reference's sqrt(L) two-level remat
+    (``repro/models/transformer.py::_scan_blocks``), where ``cfg.remat``
+    and ``grad`` (autograd records the forward): every layer is
+    recomputed in the backward pass and, from 16 layers, segments of
+    round(sqrt(L)) layers (and the rest as one more) are too, so that only
+    the segments' inputs are kept for the backward pass and one segment's
+    layer inputs at a time.  Without gradients there is no backward pass,
+    and the layers simply run.  -> (x, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    L = len(layer_trees)
+    remat = cfg.remat and grad
+    if not remat or L < 16:
+        return _seq(x, aux, layer_trees, cfg, remat)
+    s = max(int(L ** 0.5 + 0.5), 1)
+    k = L // s
+    for j in range(k):
+        x, aux = _remat(_seq, x, aux, layer_trees[j * s:(j + 1) * s], cfg,
+                        True)
+    if L - k * s:
+        x, aux = _remat(_seq, x, aux, layer_trees[k * s:], cfg, True)
+    return x, aux
+
+
 def _shared_attn(x, p, cfg):
     h = layers.apply_norm(x, p["ln"], cfg.norm)
     return x + layers.attention(h, p["attn"], cfg, causal=cfg.causal)
@@ -192,10 +257,15 @@ def _sites(cfg) -> int:
     return 0
 
 
-@torch.inference_mode()
 def forward(params, batch, cfg, last_only: bool = False):
-    """Prefill forward pass -> (logits, aux); aux is the MoE layers'
-    load-balancing loss summed over layers (0 for the other families).
+    """Training / prefill forward pass -> (logits, aux); aux is the MoE
+    layers' load-balancing loss summed over layers (0 for the other
+    families).  Gradients flow where the caller enables them and the
+    parameters given require them (``lm.make_train_step``).
+
+    A hybrid runs its layers as the reference does: ``_scan_blocks`` over
+    each run of ``attn_every`` Mamba layers, the shared attention block
+    after it outside any remat.
 
     ``last_only``: unembed only the final position (prefill serving) — the
     (B, S, V) logits tensor is never materialized."""
@@ -205,11 +275,15 @@ def forward(params, batch, cfg, last_only: bool = False):
         x = compute_dtype(params["embed"])[batch["tokens"]]
     else:
         x = batch["embeds"].to(torch.bfloat16)
+    per_layer = _unstack(params["blocks"], cfg.n_layers)
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in leaves(params))
+    run = cfg.attn_every if _sites(cfg) else cfg.n_layers
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, a = _block_fwd(x, _layer(params["blocks"], i), cfg)
+    for s in range(0, cfg.n_layers, run):
+        x, a = _scan_blocks(x, per_layer[s:s + run], cfg, grad)
         aux = aux + a
-        if _sites(cfg) and (i + 1) % cfg.attn_every == 0:
+        if _sites(cfg) and s + run <= cfg.n_layers:
             x = _shared_attn(x, params["shared_attn"], cfg)
     x = layers.apply_norm(x, params["final_norm"], cfg.norm)
     if last_only:

@@ -47,6 +47,11 @@ print("LOADED", bad)
     # the cost model and the moe, ssm and hybrid families
     ("repro_torch.core.costmodel", "repro_torch.core.index",
      "repro_torch.models.ssm", "repro_torch.models.transformer"),
+    # the training half
+    ("repro_torch.train", "repro_torch.train.optimizer",
+     "repro_torch.train.checkpoint", "repro_torch.train.trainer",
+     "repro_torch.data.tokens", "repro_torch.core.tree",
+     "repro_torch.launch.train"),
     # the flash wrapper's plain version, first in a fresh process
     ("repro_torch.core.attention", "repro_torch.kernels.ops",
      "repro_torch.models.layers"),

@@ -112,3 +112,23 @@ def test_mamba2_long_chunk_stays_finite():
     np.testing.assert_allclose(got, want, atol=LOGIT_TOL, rtol=0)
 
 
+
+
+@pytest.mark.parametrize("arch,block", [
+    (SSM, "mamba1_block"), (HYBRID, "mamba2_block")])
+def test_prefill_past_a_chunk_and_not_a_multiple_is_refused(arch, block):
+    """A prefill longer than ``ssm_chunk`` (16) and not a multiple of it
+    (S = 37) is refused with ``ValueError`` naming ``ssm_chunk``; the
+    reference asserts the same (``repro/models/ssm.py``, an
+    ``AssertionError``).  Shorter prefills are one chunk of their own
+    length, and multiples of the chunk are taken."""
+    _, tc, _, tparams = _models(arch)
+    t0 = tt._layer(tparams.tree()["blocks"], 0)["mamba"]
+    rng = np.random.default_rng(7)
+    x = _t(rng.standard_normal((1, 37, tc.d_model)), torch.bfloat16)
+    assert 37 > tc.ssm_chunk == 16
+    with pytest.raises(ValueError, match="ssm_chunk"):
+        getattr(tssm, block)(x, t0, tc)
+    for S in (15, 32):
+        out = getattr(tssm, block)(x[:, :S], t0, tc)
+        assert out.shape == (1, S, tc.d_model)

@@ -182,9 +182,23 @@ Phases, each fatal on failure:
    ``torch.profiler`` trace of one step of one microbatch, its device
    split (the chunked attention's forward runs and backward, the
    optimizer, the other GEMMs, the elementwise chain).
+16. the production mesh (run after phase 15): the H100 roofline
+   (``launch.roofline``, one card) of every prefill and train step timed
+   above; on a one-rank NCCL group's 1x1 ("data", "model") DTensor mesh,
+   SmolLM-135M's sharded train step (parameters and adamw state placed by
+   ``param_specs``) against the plain step (loss and grad norm), and a
+   sharded prefill at S=4,096 whose flash calls run through
+   ``local_map`` (30 launches counted, logits against the plain
+   prefill's); Zamba2-2.7B's long_500k decode at full width and depth on
+   a 524,288-position cache filled from a seed: 8 tokens on 8 logical
+   sequence shards and unsharded (each site's attention output held
+   against the unsharded one on the same inputs, the logits printed
+   against the reference's bar), a shard left out of the combine (must
+   fail), and the group form on the one-rank group (equal to one shard
+   bit for bit); tokens/s against the bound, peak memory.
 
 Each phase prints its seconds.  The last lines are the kernels JSON line
-(phases 8, 9, 10, 14 and 15, with each kernel's bound computed from its
+(phases 8, 9, 10, 14, 15 and 16, with each kernel's bound computed from its
 inputs; the mapper kernels' rows also hold their launches in phase 11's
 and phase 12's steps; the affine_wf_dist row also holds phase 7b's rescue, the flash
 row the timed cases of phase 9, the
@@ -507,6 +521,40 @@ TRAIN_EVAL_TOL = 3e-5
 # 2.1e-04, grad norm 4.0e-03, leaf 0.051)
 TRAIN_CPU_SEQ = 3072
 TRAIN_CPU_TOL = {"loss": 2e-4, "grad_norm": 4e-3, "leaf": 0.1}
+# phase 16, the production mesh: Zamba2-2.7B's long_500k decode (batch
+# 1; its 9 shared-attention sites' KV cache at 524,288 positions, 48.3 GB
+# in bf16) over MESH_DEC_STEPS tokens at the cache's last positions, on
+# LONG_SHARDS logical sequence shards (the local form) and unsharded.  The
+# cache and the SSM states are filled in place from a seed on the card (a
+# 524,288-token prefill would take minutes); keys of std 2 make each
+# query's softmax peak on a few positions spread over the shards, so that
+# a shard left out of the combine moves the logits
+LONG_SEQ, LONG_SHARDS, MESH_DEC_STEPS = 524_288, 8, 8
+LONG_K_STD, LONG_V_STD, LONG_STATE_STD = 2.0, 1.0, 0.1
+# max |logit diff|, the reference's long-context bar (its
+# tests/test_distributed.py, sharded against unsharded decode on a
+# reduced config, which tests/test_torch_mesh.py holds), printed here: at
+# full width and depth the random model carries a one-ulp change of one
+# attention output to about 3% of the logits (the 8-shard and the 1-shard
+# flash-decode, the same arithmetic but for how 8 bf16 partial sums are
+# added, read 0.125-0.16 apart on the CPU at S=8,192; 0.1797 against the
+# unsharded decode on the card, PERF.md §6), so no logits bar separates a
+# sound combine from a faulty one.  The check is made where phase 14 made
+# it for this model's flash kernel: at every site of every step, the
+# sharded attention output against the unsharded one on the same q and
+# cache, within LONG_ATTN_TOL of the latter's largest |element| (bf16
+# partial sums: a few 2^-9 steps; a shard left out moves it by a share of
+# the mass)
+LONG_DECODE_TOL = 0.05
+LONG_ATTN_TOL = 2.0 ** -6
+# the sharded train step on a 1x1 DTensor mesh (a one-rank NCCL group):
+# SmolLM-135M at full width, 8 rows of 512; its loss and grad norm against
+# the plain step's, relative (on one rank the same products run: the
+# reading was 0 on the CPU); and a prefill at S=4,096 whose flash calls go
+# through local_map on head-sharded DTensors
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 8, 512
+MESH_TRAIN_TOL = 1e-5
+MESH_PREFILL_SEQ = 4096
 
 
 def log(msg: str) -> None:
@@ -3735,8 +3783,8 @@ class FullCapacity:
     def __enter__(self):
         from repro_torch.models import layers
         self._saved = layers.moe
-        layers.moe = lambda x, p, cfg, capacity_factor=1.25: self._saved(
-            x, p, cfg, cfg.n_experts / cfg.top_k)
+        layers.moe = lambda x, p, cfg, capacity_factor=1.25, **kw: \
+            self._saved(x, p, cfg, cfg.n_experts / cfg.top_k, **kw)
         return self
 
     def __exit__(self, *exc):
@@ -4404,6 +4452,426 @@ def phase_train(work):
                 cpu_rel=rel, losses=[r["loss"] for r in log_])
 
 
+def _roofline_lines(measured):
+    """The H100 roofline (``launch.roofline``, one card) of each timed
+    prefill and train step: ``measured`` holds (label, arch, kind, batch,
+    seq, microbatches, seconds).  -> {label: numbers}."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import roofline as rl
+    out = {}
+    for label, arch, kind, B, S, n_micro, secs in measured:
+        cfg = get_config(arch)
+        r = rl.cell_roofline(cfg, ShapeCell(label, S, B, kind),
+                             {"data": 1, "model": 1}, n_micro)
+        useful_s = r.useful_flops / rl.PEAK_FLOPS
+        out[label] = dict(arch=arch, kind=kind, batch=B, seq=S,
+                          microbatches=n_micro, measured_s=secs,
+                          bound_s=r.bound_s, dominant=r.dominant,
+                          compute_s=r.compute_s, memory_s=r.memory_s,
+                          roofline_fraction=r.roofline_fraction,
+                          bound_share=r.bound_s / secs,
+                          useful_share=useful_s / secs)
+        log(f"roofline {label} ({arch}, {kind}, B={B} S={S:,}"
+            f"{f', {n_micro} microbatches' if n_micro > 1 else ''}): bound "
+            f"{r.bound_s * 1e3:.3f} ms ({r.dominant}; compute "
+            f"{r.compute_s * 1e3:.3f} ms, memory {r.memory_s * 1e3:.3f} ms),"
+            f" roofline_fraction {r.roofline_fraction:.4f} (useful "
+            f"{useful_s * 1e3:.3f} ms); measured {secs:.4f} s: the bound is "
+            f"{r.bound_s / secs:.4%} of it, the useful FLOPs at peak "
+            f"{useful_s / secs:.4%}")
+    return out
+
+
+def _one_rank_mesh():
+    """A one-rank NCCL group on the card and its 1x1 ("data", "model")
+    device mesh."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    return make_mesh((1, 1), ("data", "model"), "cuda")
+
+
+def _mesh_train(mesh):
+    """SmolLM-135M at full width on the 1x1 mesh: one sharded train step
+    (parameters and adamw state DTensors placed by ``param_specs``)
+    against the plain step on the same weights and batch, then a sharded
+    prefill at MESH_PREFILL_SEQ whose flash calls run through
+    ``local_map`` on head-sharded q, k, v (counted) against the plain
+    prefill's logits.  -> numbers."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import distribute
+    from repro_torch.models import lm, transformer
+    from repro_torch.models.layers import Shardings
+    from repro_torch.train.optimizer import adamw
+
+    cfg, params = _draw_params(LM_ARCH)
+    params = transformer.as_tree(params)
+    sh = Shardings(batch=("data",), model=("model",), fsdp=("data",),
+                   model_size=1)
+    rng = np.random.default_rng(29)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        MESH_TRAIN_BATCH, MESH_TRAIN_SEQ + 1)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    opt = adamw(lr=TRAIN_LR, warmup=0, total_steps=2)
+    zero = torch.zeros((), dtype=torch.int32, device="cuda")
+    _, want = lm.make_train_step(cfg, opt)((params, opt.init(params), zero),
+                                           batch)
+    sharded = distribute(params, mesh, transformer.param_specs(cfg, sh))
+    step = lm.make_train_step(cfg, opt, sh=sh)
+    t0 = time.perf_counter()
+    (new, _, _), got = step((sharded, opt.init(sharded), zero), batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rel = {k: abs(float(got[k]) - float(want[k])) / abs(float(want[k]))
+           for k in ("loss", "grad_norm")}
+    placed = new["blocks"]["attn"]["wq"].placements
+    log(f"mesh 1x1 (NCCL, one rank): SmolLM-135M sharded train step, "
+        f"{MESH_TRAIN_BATCH} rows of {MESH_TRAIN_SEQ}: loss "
+        f"{float(got['loss']):.6f} against the plain step's "
+        f"{float(want['loss']):.6f} (relative {rel['loss']:.3g}), grad norm "
+        f"{float(got['grad_norm']):.6f} against {float(want['grad_norm']):.6f}"
+        f" (relative {rel['grad_norm']:.3g}); {dt:.3f} s with DTensor's first"
+        f" sharding propagation; the new wq placed {placed}")
+    for k, v in rel.items():
+        if not v <= MESH_TRAIN_TOL:
+            raise AssertionError(f"mesh train step: {k} {v} relative off the "
+                                 f"plain step's (tolerance {MESH_TRAIN_TOL})")
+    del new, got, want, step
+    pre = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        1, MESH_PREFILL_SEQ)))
+    plain = lm.make_prefill_step(cfg)(params, {"tokens": pre})
+    # one row: the batch is not split (the reference's dry run's rule)
+    prefill = lm.make_prefill_step(cfg, sh=dataclasses.replace(sh, batch=()))
+    prefill(sharded, {"tokens": pre})          # DTensor's propagation
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = prefill(sharded, {"tokens": pre})
+    torch.cuda.synchronize()
+    dt_p = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    if launches["flash_attention_wgmma"] != cfg.n_layers:
+        raise AssertionError(f"sharded prefill: flash launches {launches}, "
+                             f"not one a layer ({cfg.n_layers}) on the "
+                             f"tensor cores")
+    rel_p, same = _logits_diff("sharded prefill", logits.full_tensor(), plain)
+    log(f"mesh 1x1: SmolLM-135M sharded prefill at S={MESH_PREFILL_SEQ:,}: "
+        f"{dt_p:.3f} s; flash_attention launches {launches['flash_attention']}"
+        f" through local_map, all on the tensor cores; logits against the "
+        f"plain prefill's: max |diff| / max |logit| {rel_p:.3g}, same argmax"
+        f" {same}")
+    if not (rel_p <= LOGITS_TOL and same):
+        raise AssertionError(f"sharded prefill logits {rel_p} off the plain "
+                             f"prefill's")
+    del sharded, params, logits, plain
+    torch.cuda.empty_cache()
+    return dict(train_rel=rel, train_s=dt, prefill_s=dt_p,
+                prefill_launches=launches["flash_attention"])
+
+
+class DecodeSites:
+    """Inside it, each local-form flash-decode call over a whole cache
+    (``layers._flash_decode``) is also computed by the unsharded decode's
+    attention on the same q and cache (``layers._sdpa``); keeps the
+    largest max |diff| / max |unsharded| over the calls."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self._saved, self.worst, self.calls = layers._flash_decode, 0.0, 0
+
+        def wrapped(q, k, v, pos, shards, first):
+            o = self._saved(q, k, v, pos, shards, first)
+            want = layers._sdpa(q, k, v, causal=True, q_offset=pos).float()
+            self.worst = max(self.worst, float(
+                (o.float() - want).abs().max() / want.abs().max()))
+            self.calls += 1
+            return o
+        layers._flash_decode = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+        layers._flash_decode = self._saved
+
+
+def _drop_shard(n, j):
+    """A planted fault in the local form's combine: ``n`` shards with
+    shard ``j``'s num and den left out of the sums (its max still
+    taken)."""
+    import torch
+    from repro_torch.models.layers import LocalSeqShards
+
+    class DropShard(LocalSeqShards):
+        def sum(self, x):
+            keep = torch.ones(self.n, dtype=x.dtype, device=x.device)
+            keep[j] = 0
+            return (x * keep.view((1, -1) + (1,) * (x.dim() - 2))).sum(
+                1, keepdim=True)
+    return DropShard(n)
+
+
+def _profile_decode(step):
+    """One decode step (``step()``) under ``torch.profiler``: its wall
+    time, the device time of its kernels (one stream, so their sum is the
+    device's busy time) and the five largest device ops.  -> numbers, or
+    None when the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for _, ns, name in _device_ops(prof):
+        us, k = by_name.get(name, (0.0, 0))
+        by_name[name] = (us + ns / 1e3, k + 1)
+    total = sum(us for us, _ in by_name.values())
+    if not total:
+        return None
+    top = sorted(((us, k, name) for name, (us, k) in by_name.items()),
+                 reverse=True)[:5]
+    return dict(wall_ms=wall * 1e3, device_ms=total / 1e3,
+                device_share=total / 1e3 / (wall * 1e3),
+                ops=sum(k for _, k in by_name.values()),
+                top=[(us / 1e3, k, name[:90]) for us, k, name in top])
+
+
+def _long_decode(mesh):
+    """Zamba2-2.7B's long_500k decode at full width and depth (see the
+    constants): the local form on LONG_SHARDS sequence shards against the
+    unsharded decode on the same cache, a shard dropped from the combine
+    (must fail), and the group form on the one-rank mesh against the local
+    form of one shard (bit for bit).  Each form starts from the same SSM
+    states and cache rows; each one's first step must write row
+    LONG_SEQ - MESH_DEC_STEPS of k and v at every site and no row beside
+    it, and at site 0, whose inputs all forms share, the very row the
+    unsharded decode writes.  One step of the sharded and of the
+    unsharded form is profiled (device time against wall time).
+    -> numbers."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch.mesh import named
+    from repro_torch.models import lm, transformer
+    from repro_torch.models.layers import LocalSeqShards, Shardings
+
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    log(f"device memory held before the long_500k decode: {held / 1e9:.3f} "
+        f"GB")
+    cfg, params = _draw_params(HYBRID_ARCH, cast=True)
+    params = transformer.cast_params(params)
+    w_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    t0 = time.perf_counter()
+    cache = transformer.init_cache(cfg, 1, LONG_SEQ)
+    g = torch.Generator(device="cuda").manual_seed(31)
+    cache["attn"]["k"].normal_(0, LONG_K_STD, generator=g)
+    cache["attn"]["v"].normal_(0, LONG_V_STD, generator=g)
+    for t in cache["ssm"].values():
+        t.normal_(0, LONG_STATE_STD, generator=g)
+    state0 = {k: t.clone() for k, t in cache["ssm"].items()}
+    torch.cuda.synchronize()
+    kv_bytes = sum(t.numel() * t.element_size()
+                   for t in cache["attn"].values())
+    st_bytes = sum(t.numel() * t.element_size() for t in state0.values())
+    log(f"long_500k: {_describe(cfg)}; KV cache of {cfg.n_layers // cfg.attn_every}"
+        f" sites x {LONG_SEQ:,} positions x {cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}: {kv_bytes / 1e9:.3f} GB, SSM states "
+        f"{st_bytes / 1e6:.1f} MB, filled from seed 31 in "
+        f"{time.perf_counter() - t0:.2f} s")
+    toks = torch.from_numpy(np.random.default_rng(37).integers(
+        0, cfg.vocab_size, (1, MESH_DEC_STEPS)))
+    p0 = LONG_SEQ - MESH_DEC_STEPS
+    # rows p0 - 1 ... of every site as the seed filled them: each run
+    # starts from them, and its first step must write row p0 alone
+    fill = {n: t[:, :, p0 - 1:].clone() for n, t in cache["attn"].items()}
+    profiles = {}
+
+    def run(what, axes, c=cache, profile=False):
+        kv = {n: t.to_local() if isinstance(t, DTensor) else t
+              for n, t in c["attn"].items()}
+        for k, t in cache["ssm"].items():
+            t.copy_(state0[k])
+        for n, t in kv.items():
+            t[:, :, p0 - 1:].copy_(fill[n])
+        serve = lm.make_serve_step(cfg, seq_shard_axes=axes)
+        out, times = [], []
+        for i in range(MESH_DEC_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            lg, _ = serve(params, c, toks[:, i:i + 1], p0 + i)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            out.append(lg.float())
+            if i == 0:
+                rows = {n: t[:, :, p0 - 1:p0 + 2].clone()
+                        for n, t in kv.items()}
+        step = sum(times[1:]) / len(times[1:])
+        log(f"long_500k decode, {what}: {MESH_DEC_STEPS} tokens at positions "
+            f"{p0:,}-{LONG_SEQ - 1:,}; "
+            f"{step * 1e3:.2f} ms a step after the first "
+            f"({times[0] * 1e3:.2f} ms) = {1 / step:.2f} tokens/s")
+        if profile:
+            prof = _profile_decode(lambda: serve(params, c, toks[:, 1:2],
+                                                 p0 + 1))
+            profiles[what] = prof
+            if prof is None:
+                log(f"long_500k profile, {what}: the trace holds no device "
+                    f"time")
+            else:
+                log(f"long_500k profile, {what}: one step "
+                    f"{prof['wall_ms']:.2f} ms wall under the profiler, "
+                    f"device time {prof['device_ms']:.2f} ms "
+                    f"({prof['device_share']:.2%} of the wall, one stream) "
+                    f"over {prof['ops']:,} device ops; the five largest:")
+                for ms, k, name in prof["top"]:
+                    log(f"  {ms:10.3f} ms {k:6d} x  {name}")
+        return torch.stack(out), step, rows
+
+    def written(what, rows, want=None):
+        """The first step wrote row p0 of k and v at every site and no row
+        beside it; with ``want`` (another form's rows), site 0's row p0,
+        whose inputs the forms share, equal to it bit for bit."""
+        for n, r in rows.items():
+            f = fill[n][:, :, :3]
+            if not (torch.equal(r[:, :, 0], f[:, :, 0])
+                    and torch.equal(r[:, :, 2], f[:, :, 2])):
+                raise AssertionError(f"long_500k, {what}: the first step "
+                                     f"wrote {n} beside row {p0:,}")
+            if not bool((r[:, :, 1] != f[:, :, 1]).flatten(1).any(1).all()):
+                raise AssertionError(f"long_500k, {what}: row {p0:,} of {n} "
+                                     f"not written at every site")
+            if want is not None and not torch.equal(r[0, :, 1],
+                                                    want[n][0, :, 1]):
+                off = (r[0, :, 1].float() - want[n][0, :, 1].float()).abs()
+                raise AssertionError(
+                    f"long_500k, {what}: site 0's row {p0:,} of {n} is "
+                    f"{float(off.max())} off the unsharded decode's")
+
+    torch.cuda.reset_peak_memory_stats()
+    sharded, t_sh, rows_sh = run(f"local form, {LONG_SHARDS} sequence "
+                                 f"shards", LONG_SHARDS, profile=True)
+    plain, t_pl, rows_pl = run("unsharded", (), profile=True)
+    peak = torch.cuda.max_memory_allocated()
+    written("unsharded", rows_pl)
+    written(f"local form, {LONG_SHARDS} shards", rows_sh, rows_pl)
+    later = max(float((rows_sh[n][1:, :, 1].float()
+                       - rows_pl[n][1:, :, 1].float()).abs().max())
+                for n in rows_sh)
+    log(f"long_500k: the first step's k and v rows at {p0:,}: written at "
+        f"every site and nowhere beside; site 0's (the same inputs in both "
+        f"forms) equal to the unsharded decode's bit for bit; sites 1-"
+        f"{cfg.n_layers // cfg.attn_every - 1} (after site 0's attention) "
+        f"max |diff| {later:.4g}")
+    with DecodeSites() as sites:
+        run(f"local form, {LONG_SHARDS} shards, each site also unsharded",
+            LONG_SHARDS)
+    log(f"long_500k: at every site of every step ({sites.calls} calls) the "
+        f"{LONG_SHARDS}-shard attention output against the unsharded one on"
+        f" the same q and cache: max |diff| / max |unsharded| "
+        f"{sites.worst:.4g} (tolerance {LONG_ATTN_TOL:.4g})")
+    if not sites.worst <= LONG_ATTN_TOL or sites.calls != \
+            MESH_DEC_STEPS * (cfg.n_layers // cfg.attn_every):
+        raise AssertionError(f"long_500k: the sharded attention is "
+                             f"{sites.worst} off the unsharded one "
+                             f"({sites.calls} calls)")
+    d = float((sharded - plain).abs().max())
+    scale = float(plain.abs().max())
+    same = bool((sharded.argmax(-1) == plain.argmax(-1)).all())
+    bound_bytes = kv_bytes + w_bytes + 2 * st_bytes
+    bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"long_500k: {LONG_SHARDS}-shard local form against unsharded: max "
+        f"|logit diff| {d:.4g} over {MESH_DEC_STEPS} steps (the reference's "
+        f"reduced-config bar {LONG_DECODE_TOL}, printed; max |logit| "
+        f"{scale:.3f}), same argmax {same}; "
+        f"peak device memory {peak / 1e9:.3f} GB; a step reads the KV cache, "
+        f"the weights ({w_bytes / 1e9:.3f} GB) and the SSM states (read and "
+        f"written): bound {bound_ms:.2f} ms ({kv_bytes / HBM_BYTES_PER_S * 1e3:.2f}"
+        f" ms for the cache alone) at 3.35 TB/s; measured "
+        f"{t_sh * 1e3:.2f} ms sharded ({bound_ms / (t_sh * 1e3):.2%} of the "
+        f"bound's speed), {t_pl * 1e3:.2f} ms unsharded "
+        f"({bound_ms / (t_pl * 1e3):.2%})")
+    if not bool(torch.isfinite(sharded).all()):
+        raise AssertionError("long_500k: the sharded decode's logits are "
+                             "not finite")
+    with DecodeSites() as bad_sites:
+        bad, _, _ = run("planted fault: shard 0's num and den left out",
+                     _drop_shard(LONG_SHARDS, 0))
+    d_bad = float((bad - plain).abs().max())
+    log(f"long_500k: the planted fault reads {bad_sites.worst:.4g} at the "
+        f"sites ({bad_sites.worst / LONG_ATTN_TOL:.1f} x the tolerance) and "
+        f"{d_bad:.4g} in the logits")
+    if not bad_sites.worst > LONG_ATTN_TOL:
+        raise AssertionError(f"long_500k: a shard left out of the combine "
+                             f"passed ({bad_sites.worst})")
+    del bad
+    one, _, rows_one = run("local form, one shard", LocalSeqShards(1))
+    sh = Shardings(batch=(), model=("model",), fsdp=(), model_size=1)
+    where = named(mesh, transformer.cache_specs(cfg, sh,
+                                                seq_shard_axes=("data",)))
+    group_cache = {"ssm": cache["ssm"], "attn": {
+        k: DTensor.from_local(t, mesh, where["attn"][k].placements,
+                              run_check=False)
+        for k, t in cache["attn"].items()}}
+    grp, t_grp, rows_grp = run("group form, a one-rank NCCL group",
+                               ("data",), group_cache)
+    written("local form, one shard", rows_one, rows_pl)
+    written("group form", rows_grp, rows_pl)
+    if not torch.equal(grp, one):
+        raise AssertionError(f"long_500k: the group form is "
+                             f"{float((grp - one).abs().max())} off the local"
+                             f" form of one shard")
+    log("long_500k: the group form (all_reduce over the data axis's group) "
+        "equals the local form of one shard bit for bit; both wrote row "
+        f"{p0:,} alone, site 0's equal to the unsharded decode's")
+    del cache, group_cache, state0, params, sharded, plain, one, grp
+    torch.cuda.empty_cache()
+    return dict(seq=LONG_SEQ, shards=LONG_SHARDS, steps=MESH_DEC_STEPS,
+                kv_gb=kv_bytes / 1e9, weights_gb=w_bytes / 1e9,
+                max_abs_diff=d, fault_diff=d_bad, sites_rel=sites.worst,
+                fault_sites_rel=bad_sites.worst, peak_gb=peak / 1e9,
+                sharded_ms=t_sh * 1e3, unsharded_ms=t_pl * 1e3,
+                group_ms=t_grp * 1e3, bound_ms=bound_ms,
+                sharded_tokens_per_s=1 / t_sh,
+                unsharded_tokens_per_s=1 / t_pl, later_rows_diff=later,
+                profile={k: v and {m: v[m] for m in ("wall_ms", "device_ms",
+                                                     "device_share", "ops")}
+                         for k, v in profiles.items()})
+
+
+def phase_production_mesh(measured):
+    """Phase 16: the roofline of every timed prefill and train step
+    (``measured``, see ``_roofline_lines``), then on a one-rank NCCL group
+    and its 1x1 mesh the sharded train step and prefill
+    (``_mesh_train``) and Zamba2-2.7B's long_500k decode on the sequence-
+    sharded cache (``_long_decode``).  -> numbers."""
+    import torch.distributed as dist
+    out = {"roofline": _roofline_lines(measured)}
+    mesh = _one_rank_mesh()
+    try:
+        out["train"] = _mesh_train(mesh)
+        out["long_500k"] = _long_decode(mesh)
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 def main() -> int:
     import torch
     t_all = time.perf_counter()
@@ -4458,6 +4926,22 @@ def main() -> int:
         phase_done("14 LM families")
         rows["flash_attention"]["train"] = phase_train(work)
         phase_done("15 LM training")
+        train = rows["flash_attention"]["train"]
+        measured = [
+            ("SmolLM-135M prefill", LM_ARCH, "prefill", LM_BATCH, LM_SEQ, 1,
+             LM_BATCH * LM_SEQ / rows["flash_attention"][
+                 "prefill_tokens_per_s"]),
+            ("StableLM-3B prefill", STABLELM_ARCH, "prefill", LM_BATCH,
+             LM_SEQ, 1, LM_BATCH * LM_SEQ / rows["flash_attention_hd80"][
+                 "prefill_tokens_per_s"]),
+            *((f"{arch} prefill", arch, "prefill", LM_BATCH,
+               FAMILY_SEQ[arch], 1, families[arch]["prefill_s"])
+              for arch in (MOE_ARCH, HYBRID_ARCH, SSM_ARCH)),
+            ("SmolLM-135M train step", TRAIN_ARCH, "train", TRAIN_BATCH,
+             TRAIN_SEQ, TRAIN_MICRO, sum(train["step_s"]) / len(
+                 train["step_s"]))]
+        rows["flash_attention"]["mesh"] = phase_production_mesh(measured)
+        phase_done("16 production mesh")
         service = phase_service(idx, rs, pairs, mf, work)
         phase_done("12 serving, resilience, observability")
         mesh, mesh_parity = phase_mesh(idx, ref, rs, single, lead, pairs,

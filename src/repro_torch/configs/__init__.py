@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from .base import ModelConfig, ShapeCell, SHAPES, cell_applicable
+from .base import ModelConfig, ShapeCell, SHAPES, cell_applicable, input_specs
 
 from . import (falcon_mamba_7b, hubert_xlarge, moonshot_16b, olmo_1b,
                qwen2_vl_72b, qwen3_0p6b, qwen3_moe_235b, smollm_135m,
@@ -46,4 +46,4 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
 
 
 __all__ = ["ARCHS", "get_config", "reduced", "ModelConfig", "ShapeCell",
-           "SHAPES", "cell_applicable"]
+           "SHAPES", "cell_applicable", "input_specs"]

@@ -3,13 +3,16 @@
 Every assigned architecture is a ``ModelConfig``; the four assignment shapes
 are ``ShapeCell``s.  Modality frontends ([audio]/[vlm]) are stubs:
 ``input_kind='embeds'`` feeds precomputed frame/patch embeddings straight to
-the backbone.  ``input_specs`` (the dry-run's abstract inputs) is not here:
-it waits for the dry-run.
+the backbone.  ``input_specs`` builds ``meta``-device stand-ins for the
+dry run (never allocates).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,3 +133,28 @@ def cell_applicable(cfg: ModelConfig, shape: ShapeCell) -> tuple[bool, str]:
         return False, "full attention is O(L^2); 500k context needs " \
                       "sub-quadratic (SSM/hybrid) sequence mixing"
     return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeCell,
+                batch_override: Optional[int] = None) -> dict:
+    """``meta``-device stand-ins for every model input (no allocation),
+    with the reference's shapes and dtypes (int32 tokens and labels, bf16
+    embeddings, a 0-d int32 decode position)."""
+    B = batch_override or shape.global_batch
+    S = shape.seq_len
+
+    def f(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+    if shape.kind == "train":
+        if cfg.input_kind == "embeds":
+            return {"embeds": f((B, S, cfg.d_model), torch.bfloat16),
+                    "labels": f((B, S), torch.int32)}
+        return {"tokens": f((B, S), torch.int32),
+                "labels": f((B, S), torch.int32)}
+    if shape.kind == "prefill":
+        if cfg.input_kind == "embeds":
+            return {"embeds": f((B, S, cfg.d_model), torch.bfloat16)}
+        return {"tokens": f((B, S), torch.int32)}
+    # decode: one new token against a cache of length S
+    return {"token": f((B, 1), torch.int32),
+            "pos": f((), torch.int32)}

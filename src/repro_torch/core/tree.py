@@ -1,7 +1,7 @@
 """Nested containers of tensors (the LM's parameter and training-state
 trees) flattened in ``jax.tree``'s leaf order: dict items by sorted key,
 tuple and list items in order, ``None`` an empty subtree, anything else
-a leaf.  The optimizer, the train step and the checkpoints walk trees
+(a tuple type that sets ``tree_leaf``, the models' ``P``, too) a leaf.  The optimizer, the train step and the checkpoints walk trees
 with these, so a checkpoint's ``leaf_i`` is the same array in either
 package."""
 from __future__ import annotations
@@ -10,7 +10,8 @@ from __future__ import annotations
 def _children(node):
     if isinstance(node, dict):
         return [node[k] for k in sorted(node)]
-    if isinstance(node, (tuple, list)):
+    if isinstance(node, (tuple, list)) and not getattr(node, "tree_leaf",
+                                                       False):
         return list(node)
     return None
 
@@ -36,9 +37,9 @@ def unflatten(like, new_leaves) -> object:
         if isinstance(node, dict):
             built = {k: build(node[k]) for k in sorted(node)}
             return {k: built[k] for k in node}
-        if isinstance(node, (tuple, list)):
-            return type(node)(build(kid) for kid in node)
-        return next(it)
+        if _children(node) is None:
+            return next(it)
+        return type(node)(build(kid) for kid in node)
     out = build(like)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree holds")

@@ -10,6 +10,11 @@ runs for a group of chunks at once (``_SSM_GROUP_ELEMS`` bounds a group's
 largest tensor); only the state's hand-over runs chunk by chunk.
 
 The decode path carries (ssm_state, conv_state) per layer: O(1) per token.
+
+On DTensors (a ``Shardings`` mesh) the in- and out-projections keep the
+weights' sharding and the mixer between them (the convolution, the scans,
+the gating) runs whole on each rank (``layers.on_replicated``): DTensor
+has no rule for the scans' strided passes.
 """
 from __future__ import annotations
 
@@ -17,7 +22,8 @@ import math
 
 import torch
 
-from .layers import _mm, _normal, _silu, compute_dtype, rms_norm
+from .layers import (NO_SHARD, Shardings, _mm, _normal, _silu, compute_dtype,
+                     on_replicated, rms_norm)
 
 # elements of a chunk group's largest f32 tensor (1 GiB)
 _SSM_GROUP_ELEMS = 1 << 28
@@ -121,14 +127,39 @@ def _mamba1_scan_chunk(h_in, a, bx):
     return h_all, h_all[:, -1]
 
 
-def mamba1_block(x, p, cfg):
+_PROJ = ("in_proj", "out_proj")
+
+
+def _mixed(fn, xz, p, cfg, *state):
+    """``fn(xz, p, cfg, *state)``, the block between its projections, on
+    ``layers.on_replicated`` with the block's other weights."""
+    names = [k for k in p if k not in _PROJ]
+    return on_replicated(
+        lambda xz, *ws: fn(xz, dict(zip(names, ws[:len(names)])), cfg,
+                           *ws[len(names):]),
+        xz, *(p[k] for k in names), *state)
+
+
+def mamba1_block(x, p, cfg, *, sh: Shardings = NO_SHARD):
     """Prefill forward.  x (B, S, D) -> (B, S, D)."""
-    B, S, D = x.shape
+    C = min(cfg.ssm_chunk, x.shape[1])
+    if x.shape[1] % C:
+        raise ValueError(f"S={x.shape[1]} is not a multiple of "
+                         f"ssm_chunk={C}")
+    xz = _mm(x, compute_dtype(p["in_proj"]))
+    xz = sh.constrain(xz, sh.batch, None, sh.model)
+    y = _mixed(_mamba1_mix, xz, p, cfg)
+    y = sh.constrain(y, sh.batch, None, sh.model)
+    return sh.constrain(_mm(y, compute_dtype(p["out_proj"])), sh.batch,
+                        None, None)
+
+
+def _mamba1_mix(xz, p, cfg):
+    """Mamba-1 from the in-projection's output (B, S, 2*di) to the
+    out-projection's input (B, S, di)."""
+    B, S, _ = xz.shape
     di, N, dtr = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_dt_rank
     C = min(cfg.ssm_chunk, S)
-    if S % C:
-        raise ValueError(f"S={S} is not a multiple of ssm_chunk={C}")
-    xz = _mm(x, compute_dtype(p["in_proj"]))
     xin, z = torch.chunk(xz, 2, dim=-1)
     xin, _ = _causal_conv(xin, p["conv_w"], p["conv_b"])
     xin = _silu(xin)
@@ -140,7 +171,7 @@ def mamba1_block(x, p, cfg):
 
     nc = S // C
     G = _group(nc, B * C * di * N)
-    h = torch.zeros((B, di, N), dtype=torch.float32, device=x.device)
+    h = torch.zeros((B, di, N), dtype=torch.float32, device=xz.device)
     ys = []
     for g0 in range(0, nc, G):
         g1 = min(g0 + G, nc)
@@ -167,20 +198,25 @@ def mamba1_block(x, p, cfg):
         y = torch.einsum("gbcdn,gbcn->gbcd", h_all, cc)     # (n,B,C,di)
         ys.append(y.transpose(0, 1).reshape(B, n * C, di))
         del h_all
-    y = torch.cat(ys, dim=1).to(x.dtype)
+    y = torch.cat(ys, dim=1).to(xz.dtype)
     y = y + xin * compute_dtype(p["D"])
-    y = y * _silu(z)
-    return _mm(y, compute_dtype(p["out_proj"]))
+    return y * _silu(z)
 
 
-def mamba1_decode(x, p, cfg, state):
+def mamba1_decode(x, p, cfg, state, *, sh: Shardings = NO_SHARD):
     """x (B, 1, D); state {"h": (B,di,N) f32, "conv": (B,K-1,di)}.
     -> (out, new state)."""
-    di, N, dtr = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_dt_rank
     xz = _mm(x, compute_dtype(p["in_proj"]))
+    y, h, conv = _mixed(_mamba1_step, xz, p, cfg, state["h"], state["conv"])
+    out = _mm(y, compute_dtype(p["out_proj"]))
+    return sh.constrain(out, sh.batch, None, None), {"h": h, "conv": conv}
+
+
+def _mamba1_step(xz, p, cfg, h, conv):
+    """One Mamba-1 decode step between the projections -> (y, h, conv)."""
+    di, N, dtr = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_dt_rank
     xin, z = torch.chunk(xz, 2, dim=-1)
-    xin, conv_state = _causal_conv(xin, p["conv_w"], p["conv_b"],
-                                   state["conv"])
+    xin, conv_state = _causal_conv(xin, p["conv_w"], p["conv_b"], conv)
     xin = _silu(xin)
     dbc = _mm(xin, compute_dtype(p["x_proj"]))
     dt_in, Bm, Cm = torch.tensor_split(dbc, [dtr, dtr + N], dim=-1)
@@ -189,11 +225,10 @@ def mamba1_decode(x, p, cfg, state):
     A = -torch.exp(p["A_log"])
     a = torch.exp(dt[..., None] * A)                        # (B,di,N)
     bx = (dt * xin[:, 0].float())[..., None] * Bm[:, 0].float()[:, None, :]
-    h = a * state["h"] + bx
+    h = a * h + bx
     y = torch.einsum("bdn,bn->bd", h, Cm[:, 0].float())
-    y = y[:, None].to(x.dtype) + xin * compute_dtype(p["D"])
-    y = y * _silu(z)
-    return _mm(y, compute_dtype(p["out_proj"])), {"h": h, "conv": conv_state}
+    y = y[:, None].to(xz.dtype) + xin * compute_dtype(p["D"])
+    return y * _silu(z), h, conv_state
 
 
 def init_mamba1_state(cfg, batch: int, device=None):
@@ -223,8 +258,22 @@ def init_mamba2(generator, cfg, device=None):
     }
 
 
-def mamba2_block(x, p, cfg):
-    """SSD chunked forward.  x (B, S, D) -> (B, S, D).
+def mamba2_block(x, p, cfg, *, sh: Shardings = NO_SHARD):
+    """SSD chunked forward.  x (B, S, D) -> (B, S, D) (``_mamba2_mix``)."""
+    C = min(cfg.ssm_chunk, x.shape[1])
+    if x.shape[1] % C:
+        raise ValueError(f"S={x.shape[1]} is not a multiple of "
+                         f"ssm_chunk={C}")
+    proj = _mm(x, compute_dtype(p["in_proj"]))
+    y = _mixed(_mamba2_mix, proj, p, cfg)
+    y = sh.constrain(y, sh.batch, None, sh.model)
+    return sh.constrain(_mm(y, compute_dtype(p["out_proj"])), sh.batch,
+                        None, None)
+
+
+def _mamba2_mix(proj, p, cfg):
+    """Mamba-2 (SSD) from the in-projection's output to the
+    out-projection's input (B, S, di).
 
     Within a chunk, y_t = sum_{s<=t} (C_t . B_s) exp(cum_t - cum_s) dt_s
     x_s + C_t . exp(cum_t) h_in.  The decay is masked to s <= t before
@@ -232,13 +281,10 @@ def mamba2_block(x, p, cfg):
     the product after, which overflows to inf * 0 = NaN once a chunk's
     log-decay passes about 88 (at ssm_chunk=128 and dt near 0.7); where
     the reference is finite the two are equal."""
-    B, S, D = x.shape
+    B, S, _ = proj.shape
     di, N, H = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
     P = di // H
     C = min(cfg.ssm_chunk, S)
-    if S % C:
-        raise ValueError(f"S={S} is not a multiple of ssm_chunk={C}")
-    proj = _mm(x, compute_dtype(p["in_proj"]))
     xin, z, Bm, Cm, dt_in = torch.tensor_split(
         proj, [di, 2 * di, 2 * di + N, 2 * di + 2 * N], dim=-1)
     xbc = torch.cat([xin, Bm, Cm], dim=-1)
@@ -251,8 +297,8 @@ def mamba2_block(x, p, cfg):
 
     nc = S // C
     G = _group(nc, B * C * C * H)
-    tri = torch.ones((C, C), dtype=torch.bool, device=x.device).tril()
-    h = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    tri = torch.ones((C, C), dtype=torch.bool, device=proj.device).tril()
+    h = torch.zeros((B, H, P, N), dtype=torch.float32, device=proj.device)
     ys = []
     for g0 in range(0, nc, G):
         g1 = min(g0 + G, nc)
@@ -284,24 +330,30 @@ def mamba2_block(x, p, cfg):
         y = y + torch.einsum("bgtn,bghpn->bgthp", ck, torch.stack(
             h_in, dim=1)) * torch.exp(cum)[..., None]
         ys.append(y.reshape(B, n * C, di))
-    y = torch.cat(ys, dim=1).to(x.dtype)
+    y = torch.cat(ys, dim=1).to(proj.dtype)
     y = y + xin * torch.repeat_interleave(compute_dtype(p["D"]), P)
-    y = rms_norm(y * _silu(z), p["norm_scale"])
-    return _mm(y, compute_dtype(p["out_proj"]))
+    return rms_norm(y * _silu(z), p["norm_scale"])
 
 
-def mamba2_decode(x, p, cfg, state):
+def mamba2_decode(x, p, cfg, state, *, sh: Shardings = NO_SHARD):
     """x (B,1,D); state {"h": (B,H,P,N) f32, "conv": (B,K-1,di+2N)}.
     -> (out, new state)."""
-    B = x.shape[0]
+    proj = _mm(x, compute_dtype(p["in_proj"]))
+    y, h, conv = _mixed(_mamba2_step, proj, p, cfg, state["h"],
+                        state["conv"])
+    out = _mm(y, compute_dtype(p["out_proj"]))
+    return sh.constrain(out, sh.batch, None, None), {"h": h, "conv": conv}
+
+
+def _mamba2_step(proj, p, cfg, h, conv):
+    """One Mamba-2 decode step between the projections -> (y, h, conv)."""
+    B = proj.shape[0]
     di, N, H = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
     P = di // H
-    proj = _mm(x, compute_dtype(p["in_proj"]))
     xin, z, Bm, Cm, dt_in = torch.tensor_split(
         proj, [di, 2 * di, 2 * di + N, 2 * di + 2 * N], dim=-1)
     xbc = torch.cat([xin, Bm, Cm], dim=-1)
-    xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"],
-                                   state["conv"])
+    xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv)
     xbc = _silu(xbc)
     xin, Bm, Cm = torch.tensor_split(xbc, [di, di + N], dim=-1)
     dt = _softplus(dt_in[:, 0].float() + p["dt_bias"])
@@ -309,12 +361,11 @@ def mamba2_decode(x, p, cfg, state):
     a = torch.exp(dt * A)                                   # (B,H)
     xh = xin[:, 0].reshape(B, H, P).float()
     hb = torch.einsum("bh,bn,bhp->bhpn", dt, Bm[:, 0].float(), xh)
-    h = a[:, :, None, None] * state["h"] + hb
+    h = a[:, :, None, None] * h + hb
     y = torch.einsum("bn,bhpn->bhp", Cm[:, 0].float(), h)
-    y = y.reshape(B, 1, di).to(x.dtype)
+    y = y.reshape(B, 1, di).to(proj.dtype)
     y = y + xin * torch.repeat_interleave(compute_dtype(p["D"]), P)
-    y = rms_norm(y * _silu(z), p["norm_scale"])
-    return _mm(y, compute_dtype(p["out_proj"])), {"h": h, "conv": conv_state}
+    return rms_norm(y * _silu(z), p["norm_scale"]), h, conv_state
 
 
 def init_mamba2_state(cfg, batch: int, device=None):

@@ -113,11 +113,19 @@ def _per_param(fn, params, *trees, leaf=torch.Tensor):
 
 
 def adafactor_state_specs(pspecs):
-    """PartitionSpecs of Adafactor's state: the spec functions wait for the
-    production mesh's specs (ROADMAP Queue 1 item 11.3)."""
-    raise NotImplementedError(
-        "adafactor_state_specs needs the spec functions: ROADMAP Queue 1 "
-        "item 11.3 (the specs, the roofline and the dry run)")
+    """Partition specs of Adafactor's state given the param spec tree
+    (``transformer.param_specs``): a param's ``vr`` drops its spec's last
+    dim, ``vc`` its second last; a vector keeps its spec in ``vr`` and
+    its scalar ``vc`` is replicated."""
+    from ..models.layers import P
+
+    def per(s):
+        s = tuple(s)
+        vr = P(*s[:-1]) if len(s) >= 2 else P(*s)
+        vc = P(*(s[:-2] + s[-1:])) if len(s) >= 2 else P()
+        return {"vr": vr, "vc": vc}
+
+    return _per_param(per, pspecs, leaf=P)
 
 
 def adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,

@@ -92,8 +92,8 @@ def _flat(tree):
 def full_capacity(monkeypatch):
     """The MoE's prefill capacity raised to the decode's (E/K): no drops."""
     moe = tl.moe
-    monkeypatch.setattr(tl, "moe", lambda x, p, cfg, capacity_factor=1.25:
-                        moe(x, p, cfg, cfg.n_experts / cfg.top_k))
+    monkeypatch.setattr(tl, "moe", lambda x, p, cfg, capacity_factor=1.25,
+                        **kw: moe(x, p, cfg, cfg.n_experts / cfg.top_k, **kw))
 
 
 # ------------------------------------------------------------- the models

@@ -269,10 +269,10 @@ def test_moe_microbatches_take_rows_at_stride_m():
 def _skip_in_segments(monkeypatch):
     saved = tt._seq
 
-    def seq(x, aux, layer_trees, cfg, remat):
+    def seq(x, aux, layer_trees, cfg, remat, *rest):
         if remat and len(layer_trees) > 1:
             layer_trees = layer_trees[:-1]
-        return saved(x, aux, layer_trees, cfg, remat)
+        return saved(x, aux, layer_trees, cfg, remat, *rest)
     monkeypatch.setattr(tt, "_seq", seq)
 
 

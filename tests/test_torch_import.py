@@ -52,6 +52,9 @@ print("LOADED", bad)
      "repro_torch.train.checkpoint", "repro_torch.train.trainer",
      "repro_torch.data.tokens", "repro_torch.core.tree",
      "repro_torch.launch.train"),
+    # the production mesh, the roofline and the dry run
+    ("repro_torch.launch.mesh", "repro_torch.launch.roofline",
+     "repro_torch.launch.dryrun", "repro_torch.configs.base"),
     # the flash wrapper's plain version, first in a fresh process
     ("repro_torch.core.attention", "repro_torch.kernels.ops",
      "repro_torch.models.layers"),

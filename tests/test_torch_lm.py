@@ -571,14 +571,6 @@ def test_unported_families_raise(arch):
         assert str(got[name].dtype)[6:] == str(leaf.dtype), name
 
 
-def test_sequence_sharded_decode_raises():
-    _, tc, _, tparams = _models("smollm-135m")
-    cache = tt.init_cache(tc, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tt.decode_step(tparams, cache, torch.zeros((1, 1), dtype=torch.int64),
-                       0, tc, seq_shard_axes=("model",))
-
-
 def test_entry_points_need_a_device_without_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is the card")

@@ -197,11 +197,6 @@ def t_lr(kw, step):
                                 kw["total_steps"])(step)
 
 
-def test_adafactor_state_specs_waits_for_item_11_3():
-    with pytest.raises(NotImplementedError, match="11.3"):
-        topt.adafactor_state_specs({})
-
-
 @pytest.fixture(scope="module")
 def dense_models():
     jc = jconfigs.reduced(jconfigs.ARCHS[DENSE])
@@ -473,12 +468,6 @@ def test_train_launcher_lines_and_restart(tmp_path, capsys):
     assert out[1] == "restored checkpoint @ step 50"
     assert [ln.split()[1] for ln in out if ln.startswith("step")] == [
         "50", "51"]
-
-
-def test_train_launcher_mesh_waits_for_item_11_2():
-    with pytest.raises(NotImplementedError, match="11.2"):
-        tlaunch.main(["--arch", DENSE, "--reduced", "--device", "cpu",
-                      "--mesh", "2x2"])
 
 
 def test_train_lm_torch_example(tmp_path, monkeypatch, capsys):

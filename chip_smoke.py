@@ -8,22 +8,25 @@ Phases, each fatal on failure:
 1. environment: the card's name and power limit (``nvidia-smi``);
 2. build: compiles the Hopper kernels of ``src/repro_torch/kernels/csrc``
    and prints nvcc's ``-Xptxas -v`` report for each (``phase_sass``, which
-   the full run does not call, counts the linear and traceback kernels'
-   SASS loops);
+   the full run does not call, counts the linear, affine distance and
+   traceback kernels' SASS loops);
 3. kernel parity: each kernel against its plain torch version on the same
    CUDA tensors: the WF kernels on random and near-match pairs at n=150,
    eth=6, sat=32, max_ops=302 (65,536 linear, 16,384 affine distance and
    affine with direction planes, 8,192 traceback instances) and on 1,000
-   pairs at n=37 and n=150 at every compiled eth (0..12); the linear and
-   traceback kernels also on reads no longer than the band and just past
-   it (n in 1, eth, eth+1, 2*eth+1) at every eth, with SENTINEL bytes and
-   bytes 0..255 in reads and windows, and at their main-path batch (the
-   compacted engine's chunk of 1,048,576 instances, its 16,384 winners);
-   the traceback at max_ops 1, 3 and 2n+2 in each case and on 20 reads,
-   fewer than a block holds; the minimizer scan, hashes and k-mer codes,
-   on 65,536 random reads of 150 bases (k=12, w=30), a ragged 1,000
-   reads of 80 (k=8, w=16), bytes 0..255 and SENTINEL, k=16, w=1, rows
-   of exactly one window, 20 rows and one, and the index build's rows.
+   pairs at n=37 and n=150 at every compiled eth (0..12); the linear,
+   affine distance and traceback kernels also on reads no longer than the
+   band and just past it (n in 1, eth, eth+1, 2*eth+1) at every eth, with
+   SENTINEL bytes and bytes 0..255 in reads and windows, and at their
+   main-path batches (the compacted engine's chunk of 1,048,576
+   instances; 131,072 affine survivors and the rescue's 1,048,576 rows;
+   its 16,384 winners); the affine distance kernel at sat 0, 32 and 85
+   in each case and on 1, 2 and 3 pairs; the traceback at max_ops 1, 3
+   and 2n+2 in each case and on 20 reads, fewer than a block holds; the
+   minimizer scan, hashes and k-mer codes, on 65,536 random reads of
+   150 bases (k=12, w=30), a ragged 1,000 reads of 80 (k=8, w=16),
+   bytes 0..255 and SENTINEL, k=16, w=1, rows of exactly one window, 20
+   rows and one, and the index build's rows.
    Equality must be exact.  Times each kernel and its plain version with
    CUDA events (the minimizer scan at seeding's chunk of 32,768 rows and
    at 262,144);
@@ -231,6 +234,10 @@ R_LINEAR, R_AFFINE, R_TRACEBACK = 65_536, 16_384, 8_192
 # the compacted engine's first chunk: 16,384 reads x 2 strands x 32
 # candidates, the linear kernel's main-path batch
 R_LINEAR_CHUNK = 1_048_576
+# the affine distance kernel's: about 131,072 linear survivors of the
+# compacted engine's chunk (a Mapper.map launches it 8 times), and the
+# mate rescue's largest sweep of a paired run
+R_AFFINE_CHUNKS = (131_072, 1_048_576)
 R_MINI = 65_536
 # the minimizer scan's main-path batch (one chunk of 16,384 reads on both
 # strands) and phase 6's: every read of phase 4 on both strands
@@ -238,11 +245,13 @@ MINI_CHUNK, MINI_BIG = 32_768, 262_144
 # phase 3 holds each WF kernel to its plain version at every compiled eth
 # on PARITY_R pairs of each read length
 PARITY_R, PARITY_NS = 1000, (37, N)
-# and the linear and traceback kernels on short reads at every eth,
-# PARITY_EDGE_R pairs (odd: a multiple of no block or pair of instances);
-# the traceback also on PARITY_SMALL_R pairs, fewer than a block holds
+# and the linear, affine distance and traceback kernels on short reads at
+# every eth, PARITY_EDGE_R pairs (odd: a multiple of no block or pair of
+# instances); the traceback also on PARITY_SMALL_R pairs, fewer than a
+# block holds; the affine distance kernel at every sat of PARITY_SATS
 PARITY_EDGE_R = 333
 PARITY_SMALL_R = 20
+PARITY_SATS = (0, 32, 85)   # 0, SAT and ops.MAX_SAT
 # the card's peaks (H100 SXM): HBM rate from NVIDIA's data sheet.  The
 # int32 rate is not in the data sheet: its 67 TFLOP/s of float32 counts an
 # FMA as two ops on 128 float32 lanes per SM; Hopper has 64 int32 lanes
@@ -265,7 +274,8 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 #     Herk / Gil-Werman sliding minimum, three (value, position) min steps
 #     of a compare and two selects.
 # The masks of the first eth rows and the clamps the scan makes redundant
-# are left out: the kernels run them, the recurrence does not need them.
+# are left out.  These int32 bounds, of one instance a thread on int32
+# lanes, are logged beside the WF kernels' (``int32_ms``).
 LIN_OPS_PER_CELL = 7
 # The linear kernel's bound is on other lanes: it holds two instances in
 # the 16-bit halves of a register and runs Hopper's DPX instructions,
@@ -273,13 +283,40 @@ LIN_OPS_PER_CELL = 7
 # and clamps only its outputs.  A pair of cells then takes four
 # instructions: the mismatch xor, diag+sub as one add-min (min(xor + B,
 # B + 1)), the three-input min of diag, up+1 and left+1, and B + 1 (the
-# next row's up+1 and this row's next left+1).  The add can run on the
-# FMA pipe (IMAD); the other three are integer-pipe instructions at the
-# int32 rate (NVIDIA publishes no DPX rate; on an H100 the kernel with
-# its add-min split into an IMAD and a min took the same time), so the
-# least time is 1.5 integer-pipe instructions a cell at INT32_OPS_PER_S.
-# LIN_OPS_PER_CELL over the same rate, the int32 bound, is logged beside.
+# next row's up+1 and this row's next left+1).  The add issues off the
+# integer pipe (VIADD); the other three are integer-pipe instructions at
+# the int32 rate (NVIDIA publishes no DPX rate; phase_dpx_rates measures
+# VIADDMNMX, VIMNMX3 and LOP3 each at the 64 a clock an SM of int32 lanes,
+# on one pipe they share), so the least time is 1.5 integer-pipe
+# instructions a cell at INT32_OPS_PER_S.
 LIN_PIPE_PER_CELL = 1.5
+
+
+def aff_pipe_per_cell(eth):
+    """Integer-pipe instructions a band cell of the affine recurrence on
+    16x2 DPX lanes, counted exactly over a row of the band.  Per pair of
+    cells inside the band: the mismatch xor, the diagonal as one add-min
+    (min(xor + D, D + 1)), M1 and M2 one add-min each (min(D + 2, M +
+    1)) and the three-input min of the three: five, with three adds (D +
+    1, M1 + 1, M2 + 1) that issue off that pipe (VIADD), the values
+    unclamped, no column masks and min(diagonal, M1, M2) where the
+    reference takes the diagonal on a match (csrc/affine_wf.cu says why
+    that gives its bits).  At the band's edges an operand off the band
+    is always >= sat and drops out: d = 0 has no M2 and d = 2*eth no M1,
+    so their min takes two inputs (VIMNMX); at d = 1 and d = 2*eth - 1
+    the M2 and M1 are a plain D + 2 (VIADD, off the pipe).  A row of a
+    pair then takes 5 * (2*eth + 1) - 4 (at eth 0 the xor and the
+    diagonal, 2): 61 at eth 6, 2.35 a cell, as the kernel's steady loop
+    has (phase_sass: VIADDMNMX 141, LOP3 52, VIMNMX3 44, VIMNMX 8 over 4
+    rows, one VIADDMNMX of the loop's own).  The least time for the same
+    work does not depend on which kernel runs it, so all three affine
+    rows take it for their recurrence; their direction bytes and walks
+    stay int32 ops."""
+    band = 2 * eth + 1
+    per_row = 2 if eth == 0 else 5 * band - 4
+    return per_row / (2 * band)
+
+
 AFF_OPS_PER_CELL = 14
 DIR_OPS_PER_CELL = 8
 WALK_OPS_PER_STEP = 16
@@ -664,17 +701,25 @@ def phase_build():
 
 
 def phase_sass():
-    """The loops of the linear and traceback kernels' SASS at eth=ETH and
-    of the minimizer kernel's k-mer codes route, instructions by opcode
-    (``cuobjdump -sass`` on the built libraries), for work on those
-    kernels; not part of the full run."""
+    """The loops of the linear, affine distance and traceback kernels'
+    SASS at eth=ETH and of the minimizer kernel's k-mer codes route,
+    instructions by opcode (``cuobjdump -sass`` on the built libraries),
+    for work on those kernels; not part of the full run.  The two
+    distance kernels' loops also a cell: their steady loop runs
+    wf::UNROLL rows of the band for two instances."""
     from repro_torch.kernels import build
     info = build.build()
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     if not os.path.exists(tool):
         log(f"sass: no {tool}, loops not counted")
         return
+    with open(os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc",
+                           "wf_common.cuh")) as f:
+        unroll = int(re.search(r"constexpr int UNROLL = (\d+);",
+                               f.read()).group(1))
+    pair_cells = unroll * (2 * ETH + 1) * 2
     for lib, kernel in (("linear_wf", f"linear_wf_kernelILi{ETH}E"),
+                        ("affine_wf", f"affine_dist_kernelILi{ETH}E"),
                         ("traceback", f"affine_traceback_kernelILi{ETH}E"),
                         ("minimizer", "minimizer_kernelILb1E")):
         sass = subprocess.run([tool, "-sass", info[lib]["path"]],
@@ -683,8 +728,99 @@ def phase_sass():
         for lo, hi, ops in sass_loops(sass, kernel):
             top = ", ".join(f"{op} {c}" for op, c in
                             sorted(ops.items(), key=lambda x: -x[1]))
+            total = sum(ops.values())
+            per_cell = (f" ({total / pair_cells:.2f} a cell if it is the "
+                        f"steady loop)" if lib in ("linear_wf", "affine_wf")
+                        else "")
             log(f"sass {kernel}: loop {lo:#06x}-{hi:#06x}: "
-                f"{sum(ops.values())} instructions: {top}")
+                f"{total} instructions{per_cell}: {top}")
+
+
+# phase_dpx_rates' kernel: every thread runs 8 independent chains of one
+# instruction kind (or two, alternating) for RATE_STEPS steps; clock64
+# around the loop.  An add of a constant to its own chain would fold
+# across steps, so VIADD adds to a neighbouring chain of another kind.
+RATE_KINDS = ("VIADDMNMX", "VIMNMX3", "LOP3", "IMAD", "VIADDMNMX + LOP3",
+              "VIADDMNMX + VIADD", "LOP3 + VIADD")
+RATE_STEPS = 4096
+RATE_SRC = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+template <int OP>
+__global__ void rate_kernel(uint32_t* out, long long* cycles, uint32_t s) {
+  uint32_t a[8];
+  for (int k = 0; k < 8; ++k) a[k] = s * (threadIdx.x + 1) + k * 0x30005u;
+  __syncthreads();
+  const long long t0 = clock64();
+#pragma unroll 8
+  for (int it = 0; it < RATE_STEPS; ++it) {
+    uint32_t n[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const uint32_t x = a[k], y = a[(k + 1) % 8], z = a[(k + 3) % 8];
+      const uint32_t dpx = __viaddmin_s16x2(x, y, z), lop = (x & y) ^ z;
+      if (OP == 0) n[k] = dpx;
+      if (OP == 1) n[k] = __vimin3_s16x2(x, y, z);
+      if (OP == 2) n[k] = lop;
+      if (OP == 3) n[k] = x * y + z;
+      if (OP == 4) n[k] = k & 1 ? lop : dpx;
+      if (OP == 5) n[k] = k & 1 ? y + 0x10001u : dpx;
+      if (OP == 6) n[k] = k & 1 ? y + 0x10001u : lop;
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) a[k] = n[k];
+  }
+  __syncthreads();
+  const long long t1 = clock64();
+  out[blockIdx.x * blockDim.x + threadIdx.x] = a[0] ^ a[5];
+  if (threadIdx.x == 0) cycles[blockIdx.x] = t1 - t0;
+}
+extern "C" int rate_launch(int op, void* o, void* c, int blocks, int threads) {
+  void (*k[])(uint32_t*, long long*, uint32_t) = {
+      rate_kernel<0>, rate_kernel<1>, rate_kernel<2>, rate_kernel<3>,
+      rate_kernel<4>, rate_kernel<5>, rate_kernel<6>};
+  k[op]<<<blocks, threads>>>((uint32_t*)o, (long long*)c, 0x12345u);
+  return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+def phase_dpx_rates():
+    """Thread-instructions a clock an SM of the instruction kinds the WF
+    kernels' steady loops are made of (RATE_KINDS), on two blocks of
+    1,024 threads an SM, with their SASS loops: the rates behind
+    LIN_PIPE_PER_CELL and aff_pipe_per_cell.  Not part of the full run."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import build
+    out_dir = os.path.join(ROOT, "build", "dpx_rates")
+    os.makedirs(out_dir, exist_ok=True)
+    src, lib = (os.path.join(out_dir, f) for f in ("rates.cu", "rates.so"))
+    with open(src, "w") as f:
+        f.write(f"#define RATE_STEPS {RATE_STEPS}\n{RATE_SRC}")
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", lib, src],
+                   check=True, capture_output=True)
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"),
+         "-sass", lib], capture_output=True, text=True).stdout
+    fn = ctypes.CDLL(lib).rate_launch
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+    per_sm, threads = 2, 1024
+    blocks = torch.cuda.get_device_properties(0).multi_processor_count \
+        * per_sm
+    o = torch.empty(blocks * threads, dtype=torch.int32, device="cuda")
+    cy = torch.empty(blocks, dtype=torch.int64, device="cuda")
+    for op, kind in enumerate(RATE_KINDS):
+        for _ in range(2):                          # the second is timed
+            if fn(op, o.data_ptr(), cy.data_ptr(), blocks, threads):
+                raise AssertionError(f"rate kernel {kind} failed")
+        rate = per_sm * threads * RATE_STEPS * 8 / cy.max().item()
+        loop = max(sass_loops(sass, f"rate_kernelILi{op}E"),
+                   key=lambda x: sum(x[2].values()))[2]
+        top = ", ".join(f"{k} {c}" for k, c in
+                        sorted(loop.items(), key=lambda x: -x[1]))
+        log(f"rate {kind}: {rate:.1f} operations a clock an SM "
+            f"({per_sm} x {threads} threads an SM); its loop: {top}")
 
 
 def sass_loops(sass, kernel):
@@ -743,8 +879,8 @@ def _compare(name, got, want):
 def _kernels():
     """Each WF kernel's wrapper, plain version, provenance, the engine
     whose run gives its main-path row and, where phase 3 times it there
-    too, its main-path batch (``chunk``); every callable takes (s1,
-    s2_window, eth, max_ops)."""
+    too, its main-path batches (``chunks``); every callable takes (s1,
+    s2_window, eth, max_ops), the affine distance kernel's also ``sat``."""
     from repro_torch.core.affine_wf import (banded_affine, banded_affine_dist,
                                             traceback)
     from repro_torch.core.linear_wf import banded_wf
@@ -762,16 +898,16 @@ def _kernels():
             plain=lambda a, b, eth, mo: banded_wf(a, b, eth=eth),
             source="src/repro_torch/kernels/csrc/linear_wf.cu",
             replaces="src/repro/kernels/linear_wf.py:76",
-            engine="compacted", chunk=R_LINEAR_CHUNK),
+            engine="compacted", chunks=(R_LINEAR_CHUNK,)),
         "affine_wf_dist": dict(
             R=R_AFFINE, reps=50,
-            run=lambda a, b, eth, mo: ops.affine_wf_dist(a, b, eth=eth,
-                                                         sat=SAT),
-            plain=lambda a, b, eth, mo: banded_affine_dist(a, b, eth=eth,
-                                                           sat=SAT),
+            run=lambda a, b, eth, mo, sat=SAT: ops.affine_wf_dist(
+                a, b, eth=eth, sat=sat),
+            plain=lambda a, b, eth, mo, sat=SAT: banded_affine_dist(
+                a, b, eth=eth, sat=sat),
             source="src/repro_torch/kernels/csrc/affine_wf.cu",
             replaces="src/repro/kernels/affine_wf.py:179",
-            engine="compacted"),
+            engine="compacted", chunks=R_AFFINE_CHUNKS),
         "affine_wf": dict(
             R=R_AFFINE, reps=20,
             run=lambda a, b, eth, mo: ops.affine_wf(a, b, eth=eth, sat=SAT),
@@ -787,26 +923,28 @@ def _kernels():
             plain=plain_tb,
             source="src/repro_torch/kernels/csrc/traceback.cu",
             replaces="src/repro/kernels/traceback.py:108",
-            engine="compacted", chunk=CHUNK),
+            engine="compacted", chunks=(CHUNK,)),
     }
 
 
 def bound(name, R, n, eth, max_ops, steps=0):
-    """(bound_ms, bound_by): the larger of the recurrence's int32
-    operations (the linear kernel's: its integer-pipe instructions) over
-    the int32 rate and the bytes read and written once over the HBM rate.
+    """(bound_ms, bound_by): the larger of the recurrence's integer-pipe
+    instructions on 16x2 DPX lanes (LIN_PIPE_PER_CELL, aff_pipe_per_cell)
+    plus the direction bytes' and the walk's int32 operations, over the
+    int32 rate, and the bytes read and written once over the HBM rate.
     ``steps``: the traceback's walk lengths summed."""
     cells = R * n * (2 * eth + 1)
     n_bytes = R * (2 * n + 2 * eth + 8)
+    aff = aff_pipe_per_cell(eth)
     if name == "linear_wf":
         n_ops = LIN_PIPE_PER_CELL * cells
     elif name == "affine_wf_dist":
-        n_ops = AFF_OPS_PER_CELL * cells
+        n_ops = aff * cells
     elif name == "affine_wf":
-        n_ops = (AFF_OPS_PER_CELL + DIR_OPS_PER_CELL) * cells
+        n_ops = (aff + DIR_OPS_PER_CELL) * cells
         n_bytes += cells                  # one direction byte per cell
     else:
-        n_ops = ((AFF_OPS_PER_CELL + DIR_OPS_PER_CELL) * cells
+        n_ops = ((aff + DIR_OPS_PER_CELL) * cells
                  + WALK_OPS_PER_STEP * steps)
         n_bytes += R * (4 * max_ops + 4)
     t_ops = n_ops / INT32_OPS_PER_S * 1e3
@@ -815,10 +953,16 @@ def bound(name, R, n, eth, max_ops, steps=0):
                                  else "bytes")
 
 
-def lin_int32_ms(R, n, eth):
-    """The linear recurrence's 7 int32 operations a cell over the int32
-    rate: its bound on int32 lanes, one instance a thread."""
-    return LIN_OPS_PER_CELL * R * n * (2 * eth + 1) / INT32_OPS_PER_S * 1e3
+def int32_ms(name, R, n, eth, steps=0):
+    """The WF kernel ``name``'s recurrence counted in int32 operations a
+    cell (LIN_OPS_PER_CELL, AFF_OPS_PER_CELL, with DIR_OPS_PER_CELL and
+    the walk's WALK_OPS_PER_STEP where it has them) over the int32 rate:
+    the bound of one instance a thread on int32 lanes."""
+    per_cell = {"linear_wf": LIN_OPS_PER_CELL,
+                "affine_wf_dist": AFF_OPS_PER_CELL}.get(
+                    name, AFF_OPS_PER_CELL + DIR_OPS_PER_CELL)
+    n_ops = per_cell * R * n * (2 * eth + 1) + WALK_OPS_PER_STEP * steps
+    return n_ops / INT32_OPS_PER_S * 1e3
 
 
 def minimizer_bound(R, L, k, w):
@@ -918,9 +1062,13 @@ def _parity_cases(name, k, eths):
     mos = (lambda n: (1, 3, 2 * n + 2)) if name == "affine_traceback" \
         else (lambda n: (2 * n + 2,))
     cases = [(PARITY_R, n, eth, mos(n)) for eth in eths for n in PARITY_NS]
-    if name in ("linear_wf", "affine_traceback"):
+    if name != "affine_wf":
         cases += [(PARITY_EDGE_R, n, eth, mos(n)) for eth in eths
                   for n in _edge_ns(eth)]
+    if name == "affine_wf_dist":
+        # a thread's first pair's lone low half, that pair whole, and
+        # the second pair's lone low half
+        cases += [(R, N, ETH, mos(N)) for R in (1, 2, 3)]
     if name == "affine_traceback":
         cases += [(PARITY_SMALL_R, 2 * eth + 1, eth, mos(2 * eth + 1))
                   for eth in eths]
@@ -929,11 +1077,12 @@ def _parity_cases(name, k, eths):
     return cases
 
 
-def _plain_at(name, k, a, b, eth):
-    """The plain version of kernel ``name`` on (a, b) as a function of
-    max_ops; the traceback's forward pass runs once for all of them."""
+def _plain_at(name, k, a, b, eth, **kw):
+    """The plain version of kernel ``name`` on (a, b) (with ``kw``, the
+    affine distance kernel's ``sat``) as a function of max_ops; the
+    traceback's forward pass runs once for all of them."""
     if name != "affine_traceback":
-        return lambda mo: k["plain"](a, b, eth, mo)
+        return lambda mo: k["plain"](a, b, eth, mo, **kw)
     from repro_torch.core.affine_wf import banded_affine, traceback
     de, dm, dirs = banded_affine(a, b, eth=eth, sat=SAT)
     return lambda mo: (de, dm, *traceback(dirs, eth, mo))
@@ -943,12 +1092,13 @@ def phase_parity(names=None):
     """Each WF kernel (those in ``names``, by default all) against its
     plain version on generated pairs: at every compiled eth
     (``ops.SUPPORTED_ETH``) on PARITY_R pairs of each of PARITY_NS read
-    lengths, then on the main path's geometry (timed).  The linear and
-    traceback kernels take ``edge_batch``'s bytes, also on PARITY_EDGE_R
-    reads of 1, eth, eth+1 and 2*eth+1 bases at every eth, and are timed
-    at their main-path batch (``chunk``) too; the traceback at max_ops
-    1, 3 and 2n+2 in each case, and on PARITY_SMALL_R reads of 2*eth+1
-    bases."""
+    lengths, then on the main path's geometry (timed).  The linear,
+    affine distance and traceback kernels take ``edge_batch``'s bytes,
+    also on PARITY_EDGE_R reads of 1, eth, eth+1 and 2*eth+1 bases at
+    every eth, and are timed at their main-path batches (``chunks``) too;
+    the affine distance kernel at every sat of PARITY_SATS in each case
+    and on one pair; the traceback at max_ops 1, 3 and 2n+2 in each case,
+    and on PARITY_SMALL_R reads of 2*eth+1 bases."""
     import torch
     from repro_torch.kernels import ops
     rng = np.random.default_rng(11)
@@ -957,21 +1107,25 @@ def phase_parity(names=None):
     for name, k in _kernels().items():
         if names is not None and name not in names:
             continue
-        gen = edge_batch if name in ("linear_wf", "affine_traceback") \
-            else pair_batch
+        gen = pair_batch if name == "affine_wf" else edge_batch
+        kws = [dict(sat=sat) for sat in PARITY_SATS] \
+            if name == "affine_wf_dist" else [{}]
         for R, n, eth, mos in _parity_cases(name, k, eths):
             s1, s2 = gen(rng, R, n, eth)
             a, b = torch.from_numpy(s1).to(dev), torch.from_numpy(s2).to(dev)
-            plain = _plain_at(name, k, a, b, eth)
-            for mo in mos:
-                got = k["run"](a, b, eth, mo)
-                torch.cuda.synchronize()
-                _compare(f"{name} R={R} n={n} eth={eth} max_ops={mo}", got,
-                         plain(mo))
+            for kw in kws:
+                plain = _plain_at(name, k, a, b, eth, **kw)
+                for mo in mos:
+                    got = k["run"](a, b, eth, mo, **kw)
+                    torch.cuda.synchronize()
+                    _compare(f"{name} R={R} n={n} eth={eth} max_ops={mo} "
+                             f"{kw}", got, plain(mo))
         what = ""
-        if name == "linear_wf":
+        if name in ("linear_wf", "affine_wf_dist"):
             what = (f"; bytes 0..255 and SENTINEL; R={PARITY_EDGE_R}, n in "
                     f"(1, eth, eth+1, 2eth+1) at every eth")
+        if name == "affine_wf_dist":
+            what += f"; R in (1, 2, 3); sat in {PARITY_SATS} in each case"
         if name == "affine_traceback":
             what = (f", 1 and 3 (and 40 at n=37, eth=4); bytes 0..255 and "
                     f"SENTINEL; R={PARITY_EDGE_R}, n in (1, eth, eth+1, "
@@ -982,24 +1136,20 @@ def phase_parity(names=None):
             f"n={N}, eth={ETH}: bit-identical (tolerance 0: "
             f"integer outputs)")
         timed = [(k["R"], a, b)]
-        if "chunk" in k:
-            # the main-path batch's size: the generated pairs repeated
-            a, b = (t.repeat(k["chunk"] // k["R"], 1) for t in (a, b))
-            _compare(f"{name} R={k['chunk']}",
-                     k["run"](a, b, ETH, MAX_OPS),
-                     k["plain"](a, b, ETH, MAX_OPS))
-            timed.append((k["chunk"], a, b))
+        for chunk in k.get("chunks", ()):
+            # a main-path batch's size: the generated pairs repeated
+            ca, cb = (t.repeat(chunk // k["R"], 1) for t in (a, b))
+            _compare(f"{name} R={chunk}", k["run"](ca, cb, ETH, MAX_OPS),
+                     k["plain"](ca, cb, ETH, MAX_OPS))
+            timed.append((chunk, ca, cb))
         for R, a, b in timed:
             ms = cuda_ms(lambda: k["run"](a, b, ETH, MAX_OPS), k["reps"], 3)
             plain_ms = cuda_ms(lambda: k["plain"](a, b, ETH, MAX_OPS), 2, 1)
             steps = int(k["run"](a, b, ETH, MAX_OPS)[3].sum()) \
                 if name == "affine_traceback" else 0
             b_ms, b_by = bound(name, R, N, ETH, MAX_OPS, steps)
-            i32 = ""
-            if name == "linear_wf":
-                i32_ms = lin_int32_ms(R, N, ETH)
-                i32 = (f"; int32 bound {i32_ms:.4f} ms, "
-                       f"{i32_ms / ms:.1%}")
+            i32_ms = int32_ms(name, R, N, ETH, steps)
+            i32 = f"; int32 bound {i32_ms:.4f} ms, {i32_ms / ms:.1%}"
             log(f"timing {name} (generated pairs): R={R}: {ms:.4f} ms/call "
                 f"({R / ms * 1e3:,.0f} instances/s), plain {plain_ms:.2f} "
                 f"ms, bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of "
@@ -2940,9 +3090,8 @@ def phase_mainpath_kernels(runs, generated):
         if name == "affine_wf":
             extra = (f"; a contiguous copy of its direction planes "
                      f"{cuda_ms(lambda: got[2].contiguous(), 20, 2):.4f} ms")
-        if name == "linear_wf":
-            i32_ms = lin_int32_ms(R, n, ETH)
-            extra = f"; int32 bound {i32_ms:.4f} ms, {i32_ms / ms:.1%}"
+        i32_ms = int32_ms(name, R, n, ETH, steps)
+        extra += f"; int32 bound {i32_ms:.4f} ms, {i32_ms / ms:.1%}"
         log(f"main path {name}: first {k['engine']} batch, R={R}: "
             f"bit-identical to the plain version; {ms:.4f} ms/call "
             f"({R / ms * 1e3:,.0f} instances/s), plain {plain_ms:.2f} ms, "

@@ -1,15 +1,20 @@
 // Shared pieces of the banded Wagner-Fischer kernels for Hopper (sm_90a).
 //
-// One thread owns one WF instance (a read of n bases against a reference
-// window of n + 2*ETH bases; the linear kernel's threads own two).  The
-// 2*ETH+1 band cells of the current row live in registers: ETH is a
-// template parameter, every loop over the band is unrolled, so the arrays
-// below never touch local memory.
+// The padded affine kernel and the traceback run one WF instance a
+// thread (a read of n bases against a reference window of n + 2*ETH
+// bases); the two distance kernels (linear_wf.cu, affine_wf.cu's
+// affine_dist_kernel) run two, one in each 16-bit half of a register
+// (pair_distances below).  The 2*ETH+1 band cells of the current row
+// live in registers: ETH is a template parameter, every loop over the
+// band is unrolled, so the arrays below never touch local memory.
 //
-// The recurrences reproduce the int8 arithmetic of the reference
-// (repro.core.linear_wf.banded_wf, repro.core.affine_wf._banded_affine_impl)
-// in int32 registers.  No intermediate value exceeds sat + 42 <= 127
-// (the wrappers reject sat > 85), so int32 and int8 give the same bits.
+// The one-instance recurrences reproduce the int8 arithmetic of the
+// reference (repro.core.linear_wf.banded_wf,
+// repro.core.affine_wf._banded_affine_impl) in int32 registers.  No
+// intermediate value exceeds sat + 42 <= 127 (the wrappers reject sat >
+// 85), so int32 and int8 give the same bits.  The distance kernels run
+// their values unclamped and clamp only their outputs (each kernel's
+// header says why that gives the same bits).
 #pragma once
 
 #include <cstdint>
@@ -82,11 +87,119 @@ __device__ __forceinline__ void stage_cols(uint8_t* dst, int pitch,
   }
 }
 
-// Banded affine (Gotoh) forward pass for one instance.  a: the read (n
-// bytes), b: the window (n + 2*ETH bytes).  With EMIT, the packed
-// direction byte of cell (i-1, d) goes to dirs[((i-1)*BAND + d) * stride]
-// (64-bit: a padded batch's plane passes 2^31 bytes).
-template <int ETH, bool EMIT>
+// Two instances a thread, one in each 16-bit half of a register, on
+// Hopper's DPX instructions for 16x2 lanes.
+constexpr uint32_t ONE = 0x00010001u;  // 1 in both halves
+constexpr int TILE = 32;    // columns a block stages at a time
+constexpr int UNROLL = 4;   // rows of a tile unrolled
+
+// The bytes of a thread's two instances at column c of a staged tile of
+// PITCH bytes a column (two neighbouring bytes), one in the low byte of
+// each half.
+template <int PITCH>
+__device__ __forceinline__ uint32_t pair_at(const uint8_t* p, int c) {
+  return __byte_perm(*(const uint16_t*)(p + c * PITCH), 0, 0x4140);
+}
+
+template <int ETH>
+__device__ __forceinline__ void slide(uint32_t (&ch)[2 * ETH + 1],
+                                      uint32_t next) {
+#pragma unroll
+  for (int d = 0; d < 2 * ETH; ++d) ch[d] = ch[d + 1];
+  ch[2 * ETH] = next;
+}
+
+// Rows of a staged tile: column c of a and b holds the read's and the
+// window's bytes of the row that column ends.  Unrolled by UNROLL rows,
+// so that the window's slide is register renaming but at the loop's
+// back edge.
+template <int ETH, int PITCH, class Band>
+__device__ __forceinline__ void tile_rows(Band& band,
+                                          uint32_t (&ch)[2 * ETH + 1],
+                                          const uint8_t* a, const uint8_t* b,
+                                          int cols) {
+  int c = 0;
+  for (; c + UNROLL <= cols; c += UNROLL) {
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      slide<ETH>(ch, pair_at<PITCH>(b, c + u));
+      band.row(ch, pair_at<PITCH>(a, c + u));
+    }
+  }
+  for (; c < cols; ++c) {
+    slide<ETH>(ch, pair_at<PITCH>(b, c));
+    band.row(ch, pair_at<PITCH>(a, c));
+  }
+}
+
+// The distance kernels' body: a block of THREADS threads runs 2 * THREADS
+// instances, thread t the block's instances 2t and 2t+1, and writes
+// out[r] = min(V[ETH], sat) and out[R + r] = min over the band of
+// min(V[d], sat) of the last row.  Band holds the band's values V (and
+// whatever else its recurrence keeps) and provides row(ch, c1), which
+// takes the band from row i-1 to row i given ch[d] = b[i-1+d] and c1 =
+// a[i-1], each byte in the low byte of its half; it starts as row 0.
+//
+// The block stages its reads and windows TILE columns at a time into a
+// [column][instance] layout (stage_cols), where each thread reads its
+// two instances' bytes of a column in one 16-bit load.  Every instance
+// of a launch has the same n, so the block's threads advance together.
+template <int ETH, int THREADS, class Band>
+__device__ __forceinline__ void pair_distances(
+    const uint8_t* __restrict__ s1, const uint8_t* __restrict__ s2,
+    int32_t* __restrict__ out, int R, int n, int sat, Band& band) {
+  constexpr int BAND = 2 * ETH + 1;
+  constexpr int ROWS = 2 * THREADS;
+  constexpr int PITCH = ROWS + 4;  // PITCH / 4 odd: stores in 32 banks
+  __shared__ __align__(4) uint8_t a_t[TILE * PITCH];
+  __shared__ __align__(4) uint8_t b_t[TILE * PITCH];
+  const int W = n + 2 * ETH;
+  const long long r0 = (long long)blockIdx.x * ROWS;
+  const int rows = (int)min((long long)ROWS, (long long)R - r0);
+  const uint8_t* a_src = s1 + r0 * n;
+  const uint8_t* b_src = s2 + r0 * W;
+  const int t2 = 2 * threadIdx.x;  // the thread's first instance
+
+  // the window's first 2*ETH bytes, which row 1 finds in place
+  stage_cols<ROWS, THREADS>(b_t, PITCH, b_src, W, 0, 2 * ETH, rows);
+  __syncthreads();
+  uint32_t ch[BAND];
+#pragma unroll
+  for (int d = 0; d + 1 < BAND; ++d) ch[d + 1] = pair_at<PITCH>(b_t + t2, d);
+
+  // tile k holds the read's columns [32k, 32k + 32) and the window's
+  // columns 2*ETH further on: rows 32k + 1 .. 32k + 32
+  for (int c0 = 0; c0 < n; c0 += TILE) {
+    const int cols = min(TILE, n - c0);
+    __syncthreads();  // the previous tile is read
+    stage_cols<ROWS, THREADS>(a_t, PITCH, a_src, n, c0, cols, rows);
+    stage_cols<ROWS, THREADS>(b_t, PITCH, b_src, W, c0 + 2 * ETH, cols,
+                              rows);
+    __syncthreads();
+    tile_rows<ETH, PITCH>(band, ch, a_t + t2, b_t + t2, cols);
+  }
+  const uint32_t s = (uint32_t)sat * ONE;
+  uint32_t mn = band.V[0];
+#pragma unroll
+  for (int d = 1; d < BAND; ++d) mn = __vmins2(mn, band.V[d]);
+  const uint32_t end = __vmins2(band.V[ETH], s);
+  mn = __vmins2(mn, s);
+  const long long r = r0 + t2;
+  if (t2 < rows) {
+    out[r] = (int)(end & 0xffff);
+    out[R + r] = (int)(mn & 0xffff);
+  }
+  if (t2 + 1 < rows) {
+    out[r + 1] = (int)(end >> 16);
+    out[R + r + 1] = (int)(mn >> 16);
+  }
+}
+
+// Banded affine (Gotoh) forward pass for one instance, the padded
+// kernel's.  a: the read (n bytes), b: the window (n + 2*ETH bytes).  The
+// packed direction byte of cell (i-1, d) goes to dirs[((i-1)*BAND + d) *
+// stride] (64-bit: a padded batch's plane passes 2^31 bytes).
+template <int ETH>
 __device__ __forceinline__ void affine_band(const uint8_t* a, const uint8_t* b,
                                             int n, int sat, uint8_t* dirs,
                                             long long stride, int& dist_end,
@@ -133,13 +246,11 @@ __device__ __forceinline__ void affine_band(const uint8_t* a, const uint8_t* b,
       int dval = mt ? dg : min(dmin, sat);
       if (jj == 0) dval = m1n[d];
       if (jj < 0) dval = sat;
-      if (EMIT) {
-        int dd = mt ? 0 : (dmin == sub ? 1 : (dmin == m1n[d] ? 2 : 3));
-        if (jj == 0) dd = 2;
-        int byte = dd | (dm1[d] << 2) | ((m2o < m2e) << 3);
-        if (jj < 0) byte = 0;
-        dirs[((long long)(i - 1) * BAND + d) * stride] = (uint8_t)byte;
-      }
+      int dd = mt ? 0 : (dmin == sub ? 1 : (dmin == m1n[d] ? 2 : 3));
+      if (jj == 0) dd = 2;
+      int byte = dd | (dm1[d] << 2) | ((m2o < m2e) << 3);
+      if (jj < 0) byte = 0;
+      dirs[((long long)(i - 1) * BAND + d) * stride] = (uint8_t)byte;
       D[d] = dval;
       dl = dval;
       ml = m2;

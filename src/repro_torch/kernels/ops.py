@@ -34,7 +34,7 @@ LAUNCHES = {"linear_wf": 0, "affine_wf_dist": 0, "affine_wf": 0,
 SUPPORTED_ETH = tuple(range(13))  # instances 0..wf::MAX_ETH (wf_common.cuh)
 MAX_SAT = 85                # above it the reference's int8 values wrap
 SMEM_LIMIT = 232_448        # dynamic shared memory a Hopper block may use
-THREADS = 128               # affine block size
+THREADS = 128               # padded affine block size
 SMEM_DEFAULT = 48 * 1024    # shared memory a block gets without opting in
 MINI_THREADS = 128          # minimizer block size
 TB_THREADS = (128, 64, 32)  # fused traceback block sizes, largest first
@@ -106,12 +106,12 @@ def _check_eth_sat(eth: int, sat: int | None) -> None:
 
 
 def _staged_smem(n: int, eth: int) -> int:
-    """Shared memory of an affine block, which stages its THREADS reads
-    and windows whole; raises when it exceeds a block's.  The linear
-    kernel stages 32 columns at a time but refuses the same reads, and
-    needs this refusal: it holds band values in 16-bit lanes, exact only
-    while n stays well below 32,767 - 255 - eth, and the limit here caps
-    n below 908."""
+    """Shared memory of a padded affine block, which stages its THREADS
+    reads and windows whole; raises when it exceeds a block's.  The two
+    distance kernels stage 32 columns at a time but refuse the same
+    reads, and need this refusal: they hold band values in 16-bit lanes,
+    exact only while n stays well below 32,767 - 255 - MAX_SAT, and the
+    limit here caps n at 908."""
     smem = THREADS * (2 * n + 2 * eth)
     if smem > SMEM_LIMIT:
         raise ValueError(f"read_len={n}, eth={eth}: {THREADS} reads and "
@@ -176,18 +176,19 @@ def linear_wf(s1: torch.Tensor, s2_window: torch.Tensor, *, eth: int = 6):
 
 def affine_wf_dist(s1: torch.Tensor, s2_window: torch.Tensor, *,
                    eth: int = 6, sat: int = 32):
-    """Distance-only banded affine WF.  -> (dist_end, dist_min) int32."""
+    """Distance-only banded affine WF.  -> (dist_end, dist_min) int32.
+    The kernel runs two instances a thread in blocks of its own size."""
     _check(s1, s2_window, eth)
     if not _on_card(s1, eth, sat):
         return banded_affine_dist(s1, s2_window, eth=eth, sat=sat)
     R, n = s1.shape
-    smem = _staged_smem(n, eth)
+    _staged_smem(n, eth)
     out = torch.empty((2, R), dtype=torch.int32, device=s1.device)
     if R:
         with torch.cuda.device(s1.device):
             rc = build.entry("affine_wf_dist_launch")(
                 s1.data_ptr(), s2_window.data_ptr(), out.data_ptr(), R, n,
-                eth, sat, THREADS, smem, _stream(s1))
+                eth, sat, _stream(s1))
         _raise_on(rc, "affine_wf_dist")
         LAUNCHES["affine_wf_dist"] += 1
     return out[0], out[1]

@@ -8,20 +8,19 @@ Phases, each fatal on failure:
 1. environment: the card's name and power limit (``nvidia-smi``);
 2. build: compiles the Hopper kernels of ``src/repro_torch/kernels/csrc``
    and prints nvcc's ``-Xptxas -v`` report for each (``phase_sass``, which
-   the full run does not call, counts the linear, affine distance and
-   traceback kernels' SASS loops);
+   the full run does not call, counts the WF kernels' SASS loops);
 3. kernel parity: each kernel against its plain torch version on the same
    CUDA tensors: the WF kernels on random and near-match pairs at n=150,
    eth=6, sat=32, max_ops=302 (65,536 linear, 16,384 affine distance and
-   affine with direction planes, 8,192 traceback instances) and on 1,000
-   pairs at n=37 and n=150 at every compiled eth (0..12); the linear,
-   affine distance and traceback kernels also on reads no longer than the
-   band and just past it (n in 1, eth, eth+1, 2*eth+1) at every eth, with
-   SENTINEL bytes and bytes 0..255 in reads and windows, and at their
-   main-path batches (the compacted engine's chunk of 1,048,576
-   instances; 131,072 affine survivors and the rescue's 1,048,576 rows;
-   its 16,384 winners); the affine distance kernel at sat 0, 32 and 85
-   in each case and on 1, 2 and 3 pairs; the traceback at max_ops 1, 3
+   affine with direction planes, 8,192 traceback instances), on 1,000
+   pairs at n=37 and n=150 at every compiled eth (0..12) and on reads no
+   longer than the band and just past it (n in 1, eth, eth+1, 2*eth+1)
+   at every eth, with SENTINEL bytes and bytes 0..255 in reads and
+   windows, and at their main-path batches (the compacted engine's chunk
+   of 1,048,576 instances; 131,072 affine survivors and the rescue's
+   1,048,576 rows; the padded engine's batch of 524,288; 16,384
+   winners); both affine kernels without the traceback at sat 0, 32 and
+   85 in each case and on 1, 2 and 3 pairs; the traceback at max_ops 1, 3
    and 2n+2 in each case and on 20 reads, fewer than a block holds; the
    minimizer scan, hashes and k-mer codes, on 65,536 random reads of
    150 bases (k=12, w=30), a ragged 1,000 reads of 80 (k=8, w=16),
@@ -238,6 +237,9 @@ R_LINEAR_CHUNK = 1_048_576
 # compacted engine's chunk (a Mapper.map launches it 8 times), and the
 # mate rescue's largest sweep of a paired run
 R_AFFINE_CHUNKS = (131_072, 1_048_576)
+# the padded affine kernel's: the padded engine's batch of 16,384 reads,
+# both strands, 16 minimizers each
+R_PADDED_BATCH = 524_288
 R_MINI = 65_536
 # the minimizer scan's main-path batch (one chunk of 16,384 reads on both
 # strands) and phase 6's: every read of phase 4 on both strands
@@ -245,10 +247,10 @@ MINI_CHUNK, MINI_BIG = 32_768, 262_144
 # phase 3 holds each WF kernel to its plain version at every compiled eth
 # on PARITY_R pairs of each read length
 PARITY_R, PARITY_NS = 1000, (37, N)
-# and the linear, affine distance and traceback kernels on short reads at
-# every eth, PARITY_EDGE_R pairs (odd: a multiple of no block or pair of
-# instances); the traceback also on PARITY_SMALL_R pairs, fewer than a
-# block holds; the affine distance kernel at every sat of PARITY_SATS
+# and on short reads at every eth, PARITY_EDGE_R pairs (odd: a multiple
+# of no block or pair of instances); the traceback also on PARITY_SMALL_R
+# pairs, fewer than a block holds; both affine kernels without the
+# traceback at every sat of PARITY_SATS
 PARITY_EDGE_R = 333
 PARITY_SMALL_R = 20
 PARITY_SATS = (0, 32, 85)   # 0, SAT and ops.MAX_SAT
@@ -310,10 +312,41 @@ def aff_pipe_per_cell(eth):
     has (phase_sass: VIADDMNMX 141, LOP3 52, VIMNMX3 44, VIMNMX 8 over 4
     rows, one VIADDMNMX of the loop's own).  The least time for the same
     work does not depend on which kernel runs it, so all three affine
-    rows take it for their recurrence; their direction bytes and walks
-    stay int32 ops."""
+    rows take it for their recurrence, the two with direction bytes also
+    dir_pipe_per_cell; the walk stays int32 ops."""
     band = 2 * eth + 1
     per_row = 2 if eth == 0 else 5 * band - 4
+    return per_row / (2 * band)
+
+
+def dir_pipe_per_cell(eth):
+    """Integer-pipe instructions a band cell that the direction nibble dD |
+    dM1 << 2 | dM2 << 3 adds to the affine recurrence (aff_pipe_per_cell)
+    on 16x2 DPX lanes, counted exactly over a row of the band, the fewest
+    this derivation finds (csrc/affine_wf.cu's DirBand runs these, and
+    one LOP3 a cell of two instances to assemble the nibble):
+      - the clamps, which the bits need (they compare values that the
+        clamps make equal): M1 and M2 are three-input mins with sat, the
+        same one instruction a cell as the unclamped add-mins, but at d =
+        1 and d = 2*eth - 1 a min where the unclamped M2 and M1 are a
+        plain add (VIADD, off the pipe): 2 a row of a pair;
+      - dD rides the min that gives D (D + 1, M1 and M2 enter it scaled
+        by 4 with their codes 1, 2, 3 in the two low bits, a match takes
+        the diagonal with code 0 in the add-min): no compare, but one and
+        a cell to strip the code from D for the next row;
+      - dM1 and dM2: one add-min with a relu each, max(min(4 M1_up - 4
+        D_up - 4, 4), 0), which is 4 dM1 in place; none off the band (dM1
+        at d = 2*eth, dM2 at d = 0 are 0): 2 (2*eth + 1) - 2 a row of a
+        pair;
+      - the two instances' nibbles, one in the low byte of each half, go
+        to one 16-bit store through one byte permute (PRMT) a cell.
+    The nibble's assembly (dD plus 4 dM1 plus 8 dM2, no carries) and the
+    relu add-mins' negated operands are adds, which can issue off the
+    pipe.  A row of a pair then takes 4 (2*eth + 1) (at eth 0, no flags
+    and no edge adds: the strip, the permute and the clamped min, 3): 2 a
+    cell at every eth from 1, 1.5 at eth 0."""
+    band = 2 * eth + 1
+    per_row = 3 if eth == 0 else 4 * band
     return per_row / (2 * band)
 
 
@@ -701,12 +734,13 @@ def phase_build():
 
 
 def phase_sass():
-    """The loops of the linear, affine distance and traceback kernels'
-    SASS at eth=ETH and of the minimizer kernel's k-mer codes route,
-    instructions by opcode (``cuobjdump -sass`` on the built libraries),
-    for work on those kernels; not part of the full run.  The two
-    distance kernels' loops also a cell: their steady loop runs
-    wf::UNROLL rows of the band for two instances."""
+    """The loops of the WF kernels' SASS at eth=ETH and of the minimizer
+    kernel's k-mer codes route, instructions by opcode (``cuobjdump
+    -sass`` on the built libraries), for work on those kernels; not part
+    of the full run.  The loops of the kernels on the shared body
+    (wf::pair_distances: the two distance kernels and the padded affine
+    kernel) also a cell: their steady loop runs wf::UNROLL rows of the
+    band for two instances."""
     from repro_torch.kernels import build
     info = build.build()
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
@@ -718,8 +752,10 @@ def phase_sass():
         unroll = int(re.search(r"constexpr int UNROLL = (\d+);",
                                f.read()).group(1))
     pair_cells = unroll * (2 * ETH + 1) * 2
+    paired = ("linear_wf_kernel", "affine_dist_kernel", "affine_wf_kernel")
     for lib, kernel in (("linear_wf", f"linear_wf_kernelILi{ETH}E"),
                         ("affine_wf", f"affine_dist_kernelILi{ETH}E"),
+                        ("affine_wf", f"affine_wf_kernelILi{ETH}E"),
                         ("traceback", f"affine_traceback_kernelILi{ETH}E"),
                         ("minimizer", "minimizer_kernelILb1E")):
         sass = subprocess.run([tool, "-sass", info[lib]["path"]],
@@ -730,7 +766,7 @@ def phase_sass():
                             sorted(ops.items(), key=lambda x: -x[1]))
             total = sum(ops.values())
             per_cell = (f" ({total / pair_cells:.2f} a cell if it is the "
-                        f"steady loop)" if lib in ("linear_wf", "affine_wf")
+                        f"steady loop)" if kernel.startswith(paired)
                         else "")
             log(f"sass {kernel}: loop {lo:#06x}-{hi:#06x}: "
                 f"{total} instructions{per_cell}: {top}")
@@ -910,12 +946,13 @@ def _kernels():
             engine="compacted", chunks=R_AFFINE_CHUNKS),
         "affine_wf": dict(
             R=R_AFFINE, reps=20,
-            run=lambda a, b, eth, mo: ops.affine_wf(a, b, eth=eth, sat=SAT),
-            plain=lambda a, b, eth, mo: banded_affine(a, b, eth=eth,
-                                                      sat=SAT),
+            run=lambda a, b, eth, mo, sat=SAT: ops.affine_wf(
+                a, b, eth=eth, sat=sat),
+            plain=lambda a, b, eth, mo, sat=SAT: banded_affine(
+                a, b, eth=eth, sat=sat),
             source="src/repro_torch/kernels/csrc/affine_wf.cu",
             replaces="src/repro/kernels/affine_wf.py:149",
-            engine="padded"),
+            engine="padded", chunks=(R_PADDED_BATCH,)),
         "affine_traceback": dict(
             R=R_TRACEBACK, reps=20,
             run=lambda a, b, eth, mo: ops.affine_traceback(
@@ -930,22 +967,23 @@ def _kernels():
 def bound(name, R, n, eth, max_ops, steps=0):
     """(bound_ms, bound_by): the larger of the recurrence's integer-pipe
     instructions on 16x2 DPX lanes (LIN_PIPE_PER_CELL, aff_pipe_per_cell)
-    plus the direction bytes' and the walk's int32 operations, over the
-    int32 rate, and the bytes read and written once over the HBM rate.
+    plus the direction nibble's (dir_pipe_per_cell) and the walk's int32
+    operations, over the int32 rate, and the bytes read and written once
+    over the HBM rate.
     ``steps``: the traceback's walk lengths summed."""
     cells = R * n * (2 * eth + 1)
     n_bytes = R * (2 * n + 2 * eth + 8)
     aff = aff_pipe_per_cell(eth)
+    dirs = dir_pipe_per_cell(eth)
     if name == "linear_wf":
         n_ops = LIN_PIPE_PER_CELL * cells
     elif name == "affine_wf_dist":
         n_ops = aff * cells
     elif name == "affine_wf":
-        n_ops = (aff + DIR_OPS_PER_CELL) * cells
+        n_ops = (aff + dirs) * cells
         n_bytes += cells                  # one direction byte per cell
     else:
-        n_ops = ((aff + DIR_OPS_PER_CELL) * cells
-                 + WALK_OPS_PER_STEP * steps)
+        n_ops = (aff + dirs) * cells + WALK_OPS_PER_STEP * steps
         n_bytes += R * (4 * max_ops + 4)
     t_ops = n_ops / INT32_OPS_PER_S * 1e3
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -1062,10 +1100,9 @@ def _parity_cases(name, k, eths):
     mos = (lambda n: (1, 3, 2 * n + 2)) if name == "affine_traceback" \
         else (lambda n: (2 * n + 2,))
     cases = [(PARITY_R, n, eth, mos(n)) for eth in eths for n in PARITY_NS]
-    if name != "affine_wf":
-        cases += [(PARITY_EDGE_R, n, eth, mos(n)) for eth in eths
-                  for n in _edge_ns(eth)]
-    if name == "affine_wf_dist":
+    cases += [(PARITY_EDGE_R, n, eth, mos(n)) for eth in eths
+              for n in _edge_ns(eth)]
+    if name in ("affine_wf_dist", "affine_wf"):
         # a thread's first pair's lone low half, that pair whole, and
         # the second pair's lone low half
         cases += [(R, N, ETH, mos(N)) for R in (1, 2, 3)]
@@ -1090,15 +1127,14 @@ def _plain_at(name, k, a, b, eth, **kw):
 
 def phase_parity(names=None):
     """Each WF kernel (those in ``names``, by default all) against its
-    plain version on generated pairs: at every compiled eth
+    plain version on ``edge_batch``'s pairs: at every compiled eth
     (``ops.SUPPORTED_ETH``) on PARITY_R pairs of each of PARITY_NS read
-    lengths, then on the main path's geometry (timed).  The linear,
-    affine distance and traceback kernels take ``edge_batch``'s bytes,
-    also on PARITY_EDGE_R reads of 1, eth, eth+1 and 2*eth+1 bases at
-    every eth, and are timed at their main-path batches (``chunks``) too;
-    the affine distance kernel at every sat of PARITY_SATS in each case
-    and on one pair; the traceback at max_ops 1, 3 and 2n+2 in each case,
-    and on PARITY_SMALL_R reads of 2*eth+1 bases."""
+    lengths and on PARITY_EDGE_R reads of 1, eth, eth+1 and 2*eth+1 bases,
+    then on the main path's geometry (timed), and timed at their
+    main-path batches (``chunks``) too; both affine kernels without the
+    traceback at every sat of PARITY_SATS in each case and on R of 1, 2
+    and 3; the traceback at max_ops 1, 3 and 2n+2 in each case, and on
+    PARITY_SMALL_R reads of 2*eth+1 bases."""
     import torch
     from repro_torch.kernels import ops
     rng = np.random.default_rng(11)
@@ -1107,11 +1143,10 @@ def phase_parity(names=None):
     for name, k in _kernels().items():
         if names is not None and name not in names:
             continue
-        gen = pair_batch if name == "affine_wf" else edge_batch
         kws = [dict(sat=sat) for sat in PARITY_SATS] \
-            if name == "affine_wf_dist" else [{}]
+            if name in ("affine_wf_dist", "affine_wf") else [{}]
         for R, n, eth, mos in _parity_cases(name, k, eths):
-            s1, s2 = gen(rng, R, n, eth)
+            s1, s2 = edge_batch(rng, R, n, eth)
             a, b = torch.from_numpy(s1).to(dev), torch.from_numpy(s2).to(dev)
             for kw in kws:
                 plain = _plain_at(name, k, a, b, eth, **kw)
@@ -1121,10 +1156,10 @@ def phase_parity(names=None):
                     _compare(f"{name} R={R} n={n} eth={eth} max_ops={mo} "
                              f"{kw}", got, plain(mo))
         what = ""
-        if name in ("linear_wf", "affine_wf_dist"):
+        if name != "affine_traceback":
             what = (f"; bytes 0..255 and SENTINEL; R={PARITY_EDGE_R}, n in "
                     f"(1, eth, eth+1, 2eth+1) at every eth")
-        if name == "affine_wf_dist":
+        if name in ("affine_wf_dist", "affine_wf"):
             what += f"; R in (1, 2, 3); sat in {PARITY_SATS} in each case"
         if name == "affine_traceback":
             what = (f", 1 and 3 (and 40 at n=37, eth=4); bytes 0..255 and "
@@ -1158,6 +1193,11 @@ def phase_parity(names=None):
             log(f"timing affine_wf: a contiguous (R, n, band) copy of the "
                 f"direction planes, which the wrapper does not make: "
                 f"{cuda_ms(lambda: got[2].contiguous(), 20, 2):.4f} ms")
+            planes = ops.dir_planes(R_PADDED_BATCH, N, ETH, dev)[0]
+            log(f"timing affine_wf: a fill_ of the planes of "
+                f"{R_PADDED_BATCH:,} instances (the bytes the kernel "
+                f"writes, in order): "
+                f"{cuda_ms(lambda: planes.fill_(0), 20, 2):.4f} ms")
 
 
 class KernelInputs:

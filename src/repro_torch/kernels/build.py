@@ -35,7 +35,7 @@ _L = ctypes.c_int64
 ENTRIES = {
     "linear_wf_launch": ("linear_wf", [_P, _P, _P] + [_I] * 3 + [_P]),
     "affine_wf_dist_launch": ("affine_wf", [_P, _P, _P] + [_I] * 4 + [_P]),
-    "affine_wf_launch": ("affine_wf", [_P] * 4 + [_I] * 6 + [_P]),
+    "affine_wf_launch": ("affine_wf", [_P] * 4 + [_I] * 5 + [_P]),
     "affine_traceback_launch": ("traceback",
                                 [_P] * 5 + [_I] * 7 + [_P]),
     "minimizer_launch": ("minimizer", [_P] * 3 + [_I] * 8 + [_P]),

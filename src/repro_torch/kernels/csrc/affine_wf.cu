@@ -73,14 +73,61 @@
 // phase_dpx_rates), and 60% of the bound; the 1.9 others a cell (VIADD,
 // IMAD, LDS) go elsewhere.
 //
-// affine_wf_kernel, the padded engine's: one thread per instance, the
-// bands in registers, rows staged whole through shared memory with
-// coalesced loads (wf::affine_band).  Its direction bits compare values
-// that the clamps make equal, so it keeps the reference's clamps and
-// masks.  The direction plane keeps the Pallas kernel's (cell, instance)
-// layout: thread r writes byte (cell, r) at cell * R + r, so a warp's 32
-// stores of one cell land in 32 neighbouring bytes.  The wrapper hands
-// the plane out as an (R, n, band) view of it, with no transpose.
+// affine_wf_kernel, the padded engine's: the same distances and one
+// direction byte a band cell, bit for bit the reference's.  What bounds
+// it on the H100: its bytes.  At n=150, ETH=6 it writes 1,950 bytes of
+// direction planes an instance against 320 read: 1.19 GB at 524,288
+// instances, 0.355 ms at 3.35 TB/s, against 0.266 ms for its integer
+// instructions (the recurrence and the direction nibble, chip_smoke.py's
+// aff_pipe_per_cell and dir_pipe_per_cell).  It runs the distance
+// kernels' body (wf::pair_distances: two instances a thread in the
+// 16-bit halves of its registers, 32-column tiles, rows unrolled by 4)
+// with DirBand's recurrence, which keeps the reference's clamps (its
+// direction bits compare values that the clamps make equal) and its
+// column masks in rows 1..ETH only, and hands each cell's two direction
+// bytes to the sink, which stores them in one 16-bit store: a warp
+// writes 64 neighbouring bytes of a cell.  The plane keeps the Pallas
+// kernel's (cell, instance) layout, byte (cell, r) at cell * Rp + r,
+// where the wrapper pads R to a multiple of a block's instances (Rp) so
+// that no store needs a branch; it hands the plane out as an (R, n,
+// band) view, with no transpose.
+//
+// Design, step by step, each step's tree timed by chip_smoke.py phase 3
+// at 524,288 instances of n=150, ETH=6, sat=32 (the padded engine's
+// batch) and at 16,384, in order and then in reverse, on an H100 80GB
+// HBM3 at 700 W (PERF.md).  The first port (one instance a thread, whole
+// rows staged in 39,936 B of shared memory a block, every row masked and
+// clamped, one byte store a cell) took 1.975-1.981 and 0.222-0.230 ms:
+//   1. rows staged 32 columns at a time into a [column][instance] layout
+//      (wf::stage_cols), 8,448 B a block, still one instance a thread and
+//      the first port's row: 1.769-1.771 and 0.172-0.175 ms;
+//   2. column masks only in rows 1..ETH and dD in bit arithmetic
+//      (wf::affine_row, the traceback's row): 1.377-1.379 and 0.065 ms;
+//   3. two instances a thread on 16x2 DPX lanes (DirBand), clamps kept,
+//      dD riding D's min, each thread's two bytes of a cell in one 16-bit
+//      store (behind a branch for a block's last instances, at a 64-bit
+//      address a cell), rows not unrolled: 0.782-0.784 and 0.118 ms;
+//   4. the plane padded to a multiple of a block's instances, so that the
+//      stores need no branch, and each store's address one 32 x 32 ->
+//      64-bit multiply-add: 0.615-0.618 and 0.063 ms;
+//   5. rows unrolled by 4 (the shared tile loop): 0.612-0.617 and
+//      0.067-0.075 ms.  Blocks of 64 threads read 0.634-0.636 and
+//      0.066-0.068 ms, of 256 0.631-0.633 and 0.087-0.088, so blocks of
+//      128 stay; __launch_bounds__(128, 1) (no spills at any ETH, 96
+//      registers at ETH=6) reads 0.618-0.624 and 0.049-0.051.
+// What holds it is the stores: a fill_ of the same planes, written in
+// order, takes 0.313-0.314 ms; with the recurrence left out the same
+// stores take about the kernel's time, and with the stores left out the
+// recurrence takes well under it.  Staging a block's bytes of 4 rows in
+// shared memory and writing them in 16-byte stores, barriers every 4
+// rows, streaming stores, blocks of 512 instances and a negated copy of
+// V were no faster (a harness outside the repository, no figure kept).
+// 64 registers at ETH=6, 40 at ETH=0, 128 at ETH=12, 16 B of spills at
+// ETH=11 only; 16,640 B of shared memory a block.  Its steady loop at
+// ETH=6 runs 10.9 SASS instructions a cell, 4.9 of them DPX, LOP3 and
+// PRMT (the bound's 4.35 plus one LOP3 to assemble the nibble a cell of
+// two instances) and 1.5 IADD3 (the negated operands of the two relu
+// add-mins, addresses).
 #include "wf_common.cuh"
 
 namespace {
@@ -121,7 +168,7 @@ constexpr int THREADS = 128;  // affine_dist_kernel: 2 * THREADS instances
 //     + n: 1,248 at the longest read the wrappers take (n = 908 at eth 0,
 //     ops.check_wf_geometry) with sat <= 85, far below 2^15.
 template <int ETH>
-struct AffineBand {
+struct AffineBand : wf::DistBand {
   static constexpr int BAND = 2 * ETH + 1;
   uint32_t V[BAND], F[BAND];
 
@@ -134,8 +181,9 @@ struct AffineBand {
     }
   }
 
+  template <bool MASK, class Sink>
   __device__ __forceinline__ void row(const uint32_t (&ch)[BAND],
-                                      uint32_t c1) {
+                                      uint32_t c1, int, Sink&) {
     uint32_t left = 0, g = 0;  // this row: D and M2 + 1 of the cell left
 #pragma unroll
     for (int d = 0; d < BAND; ++d) {
@@ -163,6 +211,125 @@ struct AffineBand {
   }
 };
 
+constexpr int DIR_THREADS = 128;  // affine_wf_kernel: 2 * DIR_THREADS
+constexpr uint32_t FOUR = 4 * ONE;
+constexpr uint32_t CODES = 3 * ONE;  // dD's code bits in both halves
+// dD's codes: 1 substitution, 2 enter M1, 3 enter M2 (0 the match)
+constexpr uint32_t SUB = FOUR + ONE, M1C = 2 * ONE, M2C = 3 * ONE;
+// v in both halves, a negative v as its 16-bit two's complement
+constexpr uint32_t lanes(int v) { return (uint32_t)(uint16_t)v * ONE; }
+constexpr uint32_t NEG6 = lanes(-6), NEG7 = lanes(-7);
+
+// affine_wf_kernel's band, both instances, every value scaled by 4: V =
+// 4 D and M = 4 M1 + 2, the reference's clamped values (M with dD's
+// code for M1).  row() takes it from row i-1 to row i, in place, 4 M2 +
+// 3 running along the row, and hands each cell's nibble dD | dM1 << 2 |
+// dM2 << 3 to the sink, one in the low byte of each half.  The bytes
+// come scaled by 8 (chr), so that their xor is 0 on a match and at
+// least 8 on a mismatch.
+//
+// Why it gives the reference's bits (repro.core.affine_wf._row_step):
+//   - Clamps kept: M1 = min(D_up + 2, M1_up + 1, sat) and M2 likewise are
+//     one three-input min each (VIMNMX3; 4 x that + 2 is the min of 4 D
+//     + 10, M + 4 and 4 sat + 2), and D is their min with D + 1, so D <=
+//     sat too.  The raw candidates that the direction bits compare stay
+//     below sat + 42 <= 127, so 4 x 127 and the xor's 8 x 255 stay far
+//     below 2^15.
+//   - dM1 = (D_up + 2 < M1_up + 1) = (4 M1_up - 4 D_up - 4 >= 4): one
+//     add-min with a relu, max(min(M - V - 6, 4), 0), is 4 dM1 in place;
+//     its add takes -V - 6 in both halves, NEG6 - V, which borrows from
+//     neither half since V <= 4 x 127.  dM2 likewise from
+//     the cell to the left.  Off the band (d = BAND-1 up, d = 0 left)
+//     both are 0, the raw candidates being big + 2 and big + 1, and M1
+//     and M2 are sat.
+//   - dD rides the min that gives D: D + 1, M1 and M2 enter it as 4 v +
+//     1, 4 v + 2 and 4 v + 3, so the min's value is the reference's dmin
+//     and its two low bits the first of sub, M1, M2 that reaches it, the
+//     reference's order on ties.  A match takes the diagonal with code 0:
+//     the add-min min(xor + 4 D, that min) gives 4 D on a match, where M1
+//     and M2 are never below D (AffineBand's argument: the clamp to sat
+//     keeps the order), and the min on a mismatch (xor + 4 D >= 4 D + 8).
+//     M1 and M2 carry their codes from their own mins, so no add stands
+//     between those mins and D's.  One and (v & ~CODES) strips the code
+//     for the next row; another (v & CODES | 4 dM1) starts the nibble.
+//   - Column masks only in rows 1..ETH (MASK), where a cell left of
+//     column 0 takes sat and byte 0, and the cell on column 0 takes M1
+//     with dD = 2, as the reference does; past row ETH no cell is left of
+//     column 0.
+template <int ETH>
+struct DirBand {
+  static constexpr int BAND = 2 * ETH + 1;
+  static constexpr bool MASKED = ETH > 0;  // rows 1..ETH reach left of 0
+  static constexpr int SHIFT = 2;          // V = 4 D
+  uint32_t V[BAND], M[BAND];
+  const uint32_t sat4;
+
+  __device__ __forceinline__ explicit DirBand(int sat)
+      : sat4((uint32_t)(4 * sat) * ONE) {
+#pragma unroll
+    for (int d = 0; d < BAND; ++d) {
+      const int j0 = d - ETH;
+      V[d] = (uint32_t)(4 * (j0 < 0 ? sat : min(j0 == 0 ? 0 : 1 + j0, sat)))
+             * ONE;
+      M[d] = sat4 + M1C;
+    }
+  }
+
+  __device__ __forceinline__ static uint32_t chr(uint32_t pair) {
+    return pair << 3;  // bytes 0..255: 8 x 255 stays in its half
+  }
+
+  template <bool MASK, class Sink>
+  __device__ __forceinline__ void row(const uint32_t (&ch)[BAND],
+                                      uint32_t c1, int i, Sink& sink) {
+    uint32_t left = 0, ml = 0;  // the cell left: 4 D and 4 M2 + 3
+#pragma unroll
+    for (int d = 0; d < BAND; ++d) {
+      const int jj = i + d - ETH;  // the cell's column
+      uint32_t m1 = sat4 + M1C, f1 = 0;  // 4 M1 + 2 and 4 dM1
+      if (d + 1 < BAND) {
+        m1 = __vimin3_s16x2(V[d + 1] + 8 * ONE + M1C, M[d + 1] + FOUR,
+                            sat4 + M1C);
+        f1 = __viaddmin_s16x2_relu(M[d + 1], NEG6 - V[d + 1], FOUR);
+        if (MASK && jj < 0) m1 = sat4 + M1C;
+      }
+      uint32_t m2 = sat4 + M2C, f2 = 0;  // 4 M2 + 3 and 4 dM2
+      if (d > 0) {
+        m2 = __vimin3_s16x2(left + 8 * ONE + M2C, ml + FOUR, sat4 + M2C);
+        f2 = __viaddmin_s16x2_relu(ml, NEG7 - left, FOUR);
+        if (MASK && jj <= 0) m2 = sat4 + M2C;
+      }
+      const uint32_t dmin = __vimin3_s16x2(V[d] + SUB, m1, m2);
+      uint32_t v = __viaddmin_s16x2(ch[d] ^ c1, V[d], dmin);
+      if (MASK) v = jj == 0 ? m1 : (jj < 0 ? sat4 : v);
+      const uint32_t dn = v & ~CODES;
+      uint32_t nib = ((v & CODES) | f1) + 2 * f2;
+      if (MASK && jj < 0) nib = 0;
+      sink(i, d, nib);
+      V[d] = left = dn;
+      M[d] = m1;
+      ml = m2;
+    }
+  }
+};
+
+// Where DirBand's nibbles go: the plane's byte (cell, r) at cell * Rp +
+// r, the thread's two instances' bytes of a cell in one 16-bit store.
+// Rp pads R to a multiple of a block's instances, so that every thread
+// of a launch stores (those past R into the padding) without a branch,
+// and the per-cell address is one 32 x 32 -> 64-bit multiply-add.
+struct DirSink {
+  uint8_t* p;                // byte (0, r) of the thread's first instance
+  uint32_t Rp;               // bytes a cell of the plane
+  unsigned long long row;    // bytes a row of the band's cells
+  __device__ __forceinline__ void operator()(int i, int d,
+                                             uint32_t nib) const {
+    uint8_t* q = p + (unsigned long long)(uint32_t)(i - 1) * row +
+                 (unsigned long long)(uint32_t)d * Rp;
+    *(uint16_t*)q = (uint16_t)__byte_perm(nib, 0, 0x20);
+  }
+};
+
 }  // namespace
 
 template <int ETH>
@@ -175,28 +342,16 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <int ETH>
-__global__ void affine_wf_kernel(const uint8_t* __restrict__ s1,
-                                 const uint8_t* __restrict__ s2,
-                                 int32_t* __restrict__ out,
-                                 uint8_t* __restrict__ dirs, int R, int n,
-                                 int sat) {
-  extern __shared__ uint8_t smem[];
-  const int W = n + 2 * ETH;
-  const long long r0 = (long long)blockIdx.x * blockDim.x;
-  const int rows = (int)min((long long)blockDim.x, (long long)R - r0);
-  uint8_t* a_sm = smem;
-  uint8_t* b_sm = smem + (long long)blockDim.x * n;
-  wf::stage_rows(a_sm, s1 + r0 * n, (long long)rows * n);
-  wf::stage_rows(b_sm, s2 + r0 * W, (long long)rows * W);
-  __syncthreads();
-  const int t = threadIdx.x;
-  if (t >= rows) return;
-  const long long r = r0 + t;
-  int de, dm;
-  wf::affine_band<ETH>(a_sm + (long long)t * n, b_sm + (long long)t * W, n,
-                       sat, dirs + r, R, de, dm);
-  out[r] = de;
-  out[R + r] = dm;
+__global__ void __launch_bounds__(DIR_THREADS)
+    affine_wf_kernel(const uint8_t* __restrict__ s1,
+                     const uint8_t* __restrict__ s2,
+                     int32_t* __restrict__ out, uint8_t* __restrict__ dirs,
+                     int R, uint32_t Rp, int n, int sat) {
+  const long long r =
+      (long long)blockIdx.x * (2 * DIR_THREADS) + 2 * threadIdx.x;
+  DirBand<ETH> band(sat);
+  const DirSink sink{dirs + r, Rp, (unsigned long long)(2 * ETH + 1) * Rp};
+  wf::pair_distances<ETH, DIR_THREADS>(s1, s2, out, R, n, sat, band, sink);
 }
 
 extern "C" int affine_wf_dist_launch(const void* s1, const void* s2, void* out,
@@ -212,15 +367,20 @@ extern "C" int affine_wf_dist_launch(const void* s1, const void* s2, void* out,
   });
 }
 
+// Rp: the plane's R padded to a multiple of 2 * DIR_THREADS (ops.py's
+// DIR_ROWS), which every store of the launch stays below.
 extern "C" int affine_wf_launch(const void* s1, const void* s2, void* out,
-                                void* dirs, int R, int n, int eth, int sat,
-                                int threads, int smem, void* stream) {
+                                void* dirs, int R, int Rp, int n, int eth,
+                                int sat, void* stream) {
+  if (Rp < R || Rp % (2 * DIR_THREADS)) return (int)cudaErrorInvalidValue;
   auto* a = (const uint8_t*)s1;
   auto* b = (const uint8_t*)s2;
   auto* o = (int32_t*)out;
   auto* d = (uint8_t*)dirs;
+  // one thread a pair of instances
   return wf::by_eth(eth, [&](auto e) {
     return wf::launch<affine_wf_kernel<decltype(e)::value>>(
-        R, threads, smem, stream, a, b, o, d, R, n, sat);
+        (R + 1) / 2, DIR_THREADS, 0, stream, a, b, o, d, R, (uint32_t)Rp,
+        n, sat);
   });
 }

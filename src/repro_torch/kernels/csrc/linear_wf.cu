@@ -55,7 +55,7 @@ constexpr int THREADS = 128;  // a block: 2 * THREADS instances
 // of operands that are all >= SAT, and the diagonal of a cell on column
 // 0 comes from one of them, so every row runs the same code.
 template <int ETH>
-struct LinearBand {
+struct LinearBand : wf::DistBand {
   static constexpr int BAND = 2 * ETH + 1;
   uint32_t V[BAND], E[BAND];  // B and B + 1
 
@@ -67,8 +67,9 @@ struct LinearBand {
     }
   }
 
+  template <bool MASK, class Sink>
   __device__ __forceinline__ void row(const uint32_t (&ch)[BAND],
-                                      uint32_t c1) {
+                                      uint32_t c1, int, Sink&) {
     uint32_t left = 0;  // E of the cell to the left, this row
 #pragma unroll
     for (int d = 0; d < BAND; ++d) {

@@ -1,19 +1,22 @@
 // Shared pieces of the banded Wagner-Fischer kernels for Hopper (sm_90a).
 //
-// The padded affine kernel and the traceback run one WF instance a
-// thread (a read of n bases against a reference window of n + 2*ETH
-// bases); the two distance kernels (linear_wf.cu, affine_wf.cu's
-// affine_dist_kernel) run two, one in each 16-bit half of a register
-// (pair_distances below).  The 2*ETH+1 band cells of the current row
-// live in registers: ETH is a template parameter, every loop over the
-// band is unrolled, so the arrays below never touch local memory.
+// The two distance kernels (linear_wf.cu, affine_wf.cu's
+// affine_dist_kernel) and the padded affine kernel (affine_wf.cu's
+// affine_wf_kernel, which also writes the direction planes) run two WF
+// instances a thread, one in each 16-bit half of a register, on one body
+// (pair_distances below); the traceback runs one instance a thread on
+// int32 lanes (affine_row).  An instance is a read of n bases against a
+// reference window of n + 2*ETH bases.  The 2*ETH+1 band cells of the
+// current row live in registers: ETH is a template parameter, every
+// loop over the band is unrolled, so the arrays below never touch local
+// memory.
 //
-// The one-instance recurrences reproduce the int8 arithmetic of the
-// reference (repro.core.linear_wf.banded_wf,
-// repro.core.affine_wf._banded_affine_impl) in int32 registers.  No
+// affine_row reproduces the int8 arithmetic of the reference
+// (repro.core.affine_wf._banded_affine_impl) in int32 registers.  No
 // intermediate value exceeds sat + 42 <= 127 (the wrappers reject sat >
 // 85), so int32 and int8 give the same bits.  The distance kernels run
-// their values unclamped and clamp only their outputs (each kernel's
+// their values unclamped and clamp only their outputs; the padded
+// kernel keeps the clamps and scales its values by 4 (each kernel's
 // header says why that gives the same bits).
 #pragma once
 
@@ -45,15 +48,6 @@ int by_eth(int eth, F&& f, std::integer_sequence<int, E...>) {
 template <typename F>
 int by_eth(int eth, F&& f) {
   return by_eth(eth, f, std::make_integer_sequence<int, MAX_ETH + 1>{});
-}
-
-// Copy a block's input rows, which are contiguous in device memory, into
-// shared memory with all threads: neighbouring threads read neighbouring
-// bytes, where a thread reading its own 150-byte row would stride.
-__device__ __forceinline__ void stage_rows(uint8_t* dst,
-                                           const uint8_t* __restrict__ src,
-                                           long long nbytes) {
-  for (long long x = threadIdx.x; x < nbytes; x += blockDim.x) dst[x] = src[x];
 }
 
 // Copy columns [col0, col0 + ncols) of a block's first `rows` rows (row t
@@ -109,45 +103,76 @@ __device__ __forceinline__ void slide(uint32_t (&ch)[2 * ETH + 1],
   ch[2 * ETH] = next;
 }
 
-// Rows of a staged tile: column c of a and b holds the read's and the
-// window's bytes of the row that column ends.  Unrolled by UNROLL rows,
-// so that the window's slide is register renaming but at the loop's
-// back edge.
-template <int ETH, int PITCH, class Band>
+// What a band of the distance kernels shares: no masked rows, values
+// unscaled, bytes as they are, no direction bytes.
+struct DistBand {
+  static constexpr bool MASKED = false;  // rows 1..ETH need no masks
+  static constexpr int SHIFT = 0;        // values scaled by 2^SHIFT
+  __device__ __forceinline__ static uint32_t chr(uint32_t pair) {
+    return pair;
+  }
+};
+
+// A sink for direction bytes that keeps none (the distance kernels).
+struct NoSink {
+  __device__ __forceinline__ void operator()(int, int, uint32_t) const {}
+};
+
+// Row i of a staged tile (column c of a and b holds the read's and the
+// window's bytes of the row that column ends): the window slides and the
+// band takes the row; MASK: the row reaches left of column 0.
+template <int ETH, int PITCH, bool MASK, class Band, class Sink>
+__device__ __forceinline__ void tile_row(Band& band,
+                                         uint32_t (&ch)[2 * ETH + 1],
+                                         const uint8_t* a, const uint8_t* b,
+                                         int c, int i, Sink& sink) {
+  slide<ETH>(ch, Band::chr(pair_at<PITCH>(b, c)));
+  band.template row<MASK>(ch, Band::chr(pair_at<PITCH>(a, c)), i, sink);
+}
+
+// The rows of a staged tile whose first column is row i0 + 1.  A band
+// with MASKED runs rows 1..ETH (which reach left of column 0) masked;
+// every other row runs unmasked, unrolled by UNROLL rows, so that the
+// window's slide is register renaming but at the loop's back edge.
+template <int ETH, int PITCH, class Band, class Sink>
 __device__ __forceinline__ void tile_rows(Band& band,
                                           uint32_t (&ch)[2 * ETH + 1],
                                           const uint8_t* a, const uint8_t* b,
-                                          int cols) {
+                                          int cols, int i0, Sink& sink) {
   int c = 0;
+  if (Band::MASKED)
+    for (; c < cols && i0 + c < ETH; ++c)
+      tile_row<ETH, PITCH, true>(band, ch, a, b, c, i0 + c + 1, sink);
   for (; c + UNROLL <= cols; c += UNROLL) {
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      slide<ETH>(ch, pair_at<PITCH>(b, c + u));
-      band.row(ch, pair_at<PITCH>(a, c + u));
-    }
+    for (int u = 0; u < UNROLL; ++u)
+      tile_row<ETH, PITCH, false>(band, ch, a, b, c + u, i0 + c + u + 1,
+                                  sink);
   }
-  for (; c < cols; ++c) {
-    slide<ETH>(ch, pair_at<PITCH>(b, c));
-    band.row(ch, pair_at<PITCH>(a, c));
-  }
+  for (; c < cols; ++c)
+    tile_row<ETH, PITCH, false>(band, ch, a, b, c, i0 + c + 1, sink);
 }
 
-// The distance kernels' body: a block of THREADS threads runs 2 * THREADS
-// instances, thread t the block's instances 2t and 2t+1, and writes
-// out[r] = min(V[ETH], sat) and out[R + r] = min over the band of
-// min(V[d], sat) of the last row.  Band holds the band's values V (and
-// whatever else its recurrence keeps) and provides row(ch, c1), which
-// takes the band from row i-1 to row i given ch[d] = b[i-1+d] and c1 =
-// a[i-1], each byte in the low byte of its half; it starts as row 0.
+// The body of the two distance kernels and of the padded affine kernel:
+// a block of THREADS threads runs 2 * THREADS instances, thread t the
+// block's instances 2t and 2t+1, and writes out[r] = min(V[ETH], sat)
+// and out[R + r] = min over the band of min(V[d], sat) of the last row,
+// V scaled by 2^Band::SHIFT.  Band holds the band's values V (and
+// whatever else its recurrence keeps) and provides row<MASK>(ch, c1, i,
+// sink), which takes the band from row i-1 to row i given ch[d] =
+// b[i-1+d] and c1 = a[i-1], each byte in the low byte of its half as
+// Band::chr gives it, and hands the row's direction bytes, if any, to
+// sink; it starts as row 0.
 //
 // The block stages its reads and windows TILE columns at a time into a
 // [column][instance] layout (stage_cols), where each thread reads its
 // two instances' bytes of a column in one 16-bit load.  Every instance
 // of a launch has the same n, so the block's threads advance together.
-template <int ETH, int THREADS, class Band>
+template <int ETH, int THREADS, class Band, class Sink = NoSink>
 __device__ __forceinline__ void pair_distances(
     const uint8_t* __restrict__ s1, const uint8_t* __restrict__ s2,
-    int32_t* __restrict__ out, int R, int n, int sat, Band& band) {
+    int32_t* __restrict__ out, int R, int n, int sat, Band& band,
+    Sink sink = Sink()) {
   constexpr int BAND = 2 * ETH + 1;
   constexpr int ROWS = 2 * THREADS;
   constexpr int PITCH = ROWS + 4;  // PITCH / 4 odd: stores in 32 banks
@@ -165,7 +190,8 @@ __device__ __forceinline__ void pair_distances(
   __syncthreads();
   uint32_t ch[BAND];
 #pragma unroll
-  for (int d = 0; d + 1 < BAND; ++d) ch[d + 1] = pair_at<PITCH>(b_t + t2, d);
+  for (int d = 0; d + 1 < BAND; ++d)
+    ch[d + 1] = Band::chr(pair_at<PITCH>(b_t + t2, d));
 
   // tile k holds the read's columns [32k, 32k + 32) and the window's
   // columns 2*ETH further on: rows 32k + 1 .. 32k + 32
@@ -176,9 +202,10 @@ __device__ __forceinline__ void pair_distances(
     stage_cols<ROWS, THREADS>(b_t, PITCH, b_src, W, c0 + 2 * ETH, cols,
                               rows);
     __syncthreads();
-    tile_rows<ETH, PITCH>(band, ch, a_t + t2, b_t + t2, cols);
+    tile_rows<ETH, PITCH>(band, ch, a_t + t2, b_t + t2, cols, c0, sink);
   }
-  const uint32_t s = (uint32_t)sat * ONE;
+  constexpr int SH = Band::SHIFT;
+  const uint32_t s = (uint32_t)(sat << SH) * ONE;
   uint32_t mn = band.V[0];
 #pragma unroll
   for (int d = 1; d < BAND; ++d) mn = __vmins2(mn, band.V[d]);
@@ -186,94 +213,25 @@ __device__ __forceinline__ void pair_distances(
   mn = __vmins2(mn, s);
   const long long r = r0 + t2;
   if (t2 < rows) {
-    out[r] = (int)(end & 0xffff);
-    out[R + r] = (int)(mn & 0xffff);
+    out[r] = (int)(end & 0xffff) >> SH;
+    out[R + r] = (int)(mn & 0xffff) >> SH;
   }
   if (t2 + 1 < rows) {
-    out[r + 1] = (int)(end >> 16);
-    out[R + r + 1] = (int)(mn >> 16);
+    out[r + 1] = (int)(end >> 16) >> SH;
+    out[R + r + 1] = (int)(mn >> 16) >> SH;
   }
 }
 
-// Banded affine (Gotoh) forward pass for one instance, the padded
-// kernel's.  a: the read (n bytes), b: the window (n + 2*ETH bytes).  The
-// packed direction byte of cell (i-1, d) goes to dirs[((i-1)*BAND + d) *
-// stride] (64-bit: a padded batch's plane passes 2^31 bytes).
-template <int ETH>
-__device__ __forceinline__ void affine_band(const uint8_t* a, const uint8_t* b,
-                                            int n, int sat, uint8_t* dirs,
-                                            long long stride, int& dist_end,
-                                            int& dist_min) {
-  constexpr int BAND = 2 * ETH + 1;
-  const int big = sat + 40;  // off-band neighbour, as in the reference
-  int D[BAND], M1[BAND], ch[BAND];
-#pragma unroll
-  for (int d = 0; d < BAND; ++d) {
-    const int j0 = d - ETH;
-    D[d] = j0 < 0 ? sat : min(j0 == 0 ? 0 : 1 + j0, sat);
-    M1[d] = sat;
-  }
-#pragma unroll
-  for (int d = 0; d + 1 < BAND; ++d) ch[d + 1] = b[d];
-
-  for (int i = 1; i <= n; ++i) {
-    // window chars of row i are b[i-1 .. i-1+BAND): slide by one
-#pragma unroll
-    for (int d = 0; d + 1 < BAND; ++d) ch[d] = ch[d + 1];
-    ch[BAND - 1] = b[i - 1 + BAND - 1];
-    const int c1 = a[i - 1];
-
-    // vertical gaps read the previous row only
-    int m1n[BAND], dm1[BAND];
-#pragma unroll
-    for (int d = 0; d < BAND; ++d) {
-      const int e = (d + 1 < BAND ? M1[d + 1] : big) + 1;  // raw
-      const int o = (d + 1 < BAND ? D[d + 1] : big) + 2;   // raw
-      m1n[d] = (i + d - ETH >= 0) ? min(min(e, o), sat) : sat;
-      dm1[d] = o < e;
-    }
-    // the in-row M2/D scan, left to right across the band
-    int dl = big, ml = big;
-#pragma unroll
-    for (int d = 0; d < BAND; ++d) {
-      const int jj = i + d - ETH;
-      const int m2e = ml + 1, m2o = dl + 2;  // raw
-      const int m2 = jj <= 0 ? sat : min(min(m2e, m2o), sat);
-      const int dg = D[d];
-      const int sub = dg + 1;
-      const int dmin = min(min(sub, m1n[d]), m2);
-      const bool mt = c1 == ch[d];
-      int dval = mt ? dg : min(dmin, sat);
-      if (jj == 0) dval = m1n[d];
-      if (jj < 0) dval = sat;
-      int dd = mt ? 0 : (dmin == sub ? 1 : (dmin == m1n[d] ? 2 : 3));
-      if (jj == 0) dd = 2;
-      int byte = dd | (dm1[d] << 2) | ((m2o < m2e) << 3);
-      if (jj < 0) byte = 0;
-      dirs[((long long)(i - 1) * BAND + d) * stride] = (uint8_t)byte;
-      D[d] = dval;
-      dl = dval;
-      ml = m2;
-    }
-#pragma unroll
-    for (int d = 0; d < BAND; ++d) M1[d] = m1n[d];
-  }
-  int mn = D[0];
-#pragma unroll
-  for (int d = 1; d < BAND; ++d) mn = min(mn, D[d]);
-  dist_end = D[ETH];
-  dist_min = mn;
-}
-
-// The traceback kernel's band pass: affine_band's recurrence a row at a
-// time, with the direction bytes (4 meaningful bits each) packed 8 to a
-// 32-bit word.
+// The traceback kernel's band pass: the reference's affine recurrence
+// (repro.core.affine_wf._row_step) a row at a time on int32 lanes, one
+// instance a thread, with the direction bytes (4 meaningful bits each)
+// packed 8 to a 32-bit word.
 template <int ETH>
 __host__ __device__ constexpr int dir_words() {
   return (2 * ETH + 8) / 8;  // words a row: ceil((2*ETH+1) / 8)
 }
 
-// affine_band's row 0.
+// Row 0 of the band.
 template <int ETH>
 __device__ __forceinline__ void affine_init(int (&D)[2 * ETH + 1],
                                             int (&M1)[2 * ETH + 1],
@@ -286,12 +244,13 @@ __device__ __forceinline__ void affine_init(int (&D)[2 * ETH + 1],
   }
 }
 
-// Row i of affine_band, in place: D and M1 hold row i-1 on entry and row
-// i on exit; ch[d] = b[i-1+d], c1 = a[i-1].  Cell d's direction byte goes
-// to bits [4*(d%8), 4*(d%8)+4) of words[d/8].  MASK: the row reaches left
-// of column 0 (i <= ETH) and needs affine_band's column masks; a row past
-// ETH computes the same bits without them.  D's clamp to sat is left
-// out: m1n and m2 are clamped, so their min with sub is too.
+// Row i of the reference's recurrence, in place: D and M1 hold row i-1
+// on entry and row i on exit; ch[d] = b[i-1+d], c1 = a[i-1].  Cell d's
+// direction byte goes to bits [4*(d%8), 4*(d%8)+4) of words[d/8].  MASK:
+// the row reaches left of column 0 (i <= ETH) and needs the reference's
+// column masks; a row past ETH computes the same bits without them.
+// D's clamp to sat is left out: m1n and m2 are clamped, so their min
+// with sub is too.
 template <int ETH, bool MASK>
 __device__ __forceinline__ void affine_row(int (&D)[2 * ETH + 1],
                                            int (&M1)[2 * ETH + 1],

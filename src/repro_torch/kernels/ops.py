@@ -34,7 +34,8 @@ LAUNCHES = {"linear_wf": 0, "affine_wf_dist": 0, "affine_wf": 0,
 SUPPORTED_ETH = tuple(range(13))  # instances 0..wf::MAX_ETH (wf_common.cuh)
 MAX_SAT = 85                # above it the reference's int8 values wrap
 SMEM_LIMIT = 232_448        # dynamic shared memory a Hopper block may use
-THREADS = 128               # padded affine block size
+CAP_ROWS = 128              # rows of the read-length rule (_check_read_len)
+DIR_ROWS = 256              # instances a block of the padded affine kernel
 SMEM_DEFAULT = 48 * 1024    # shared memory a block gets without opting in
 MINI_THREADS = 128          # minimizer block size
 TB_THREADS = (128, 64, 32)  # fused traceback block sizes, largest first
@@ -105,19 +106,21 @@ def _check_eth_sat(eth: int, sat: int | None) -> None:
                          f"reference's int8 band values would wrap")
 
 
-def _staged_smem(n: int, eth: int) -> int:
-    """Shared memory of a padded affine block, which stages its THREADS
-    reads and windows whole; raises when it exceeds a block's.  The two
-    distance kernels stage 32 columns at a time but refuse the same
-    reads, and need this refusal: they hold band values in 16-bit lanes,
-    exact only while n stays well below 32,767 - 255 - MAX_SAT, and the
-    limit here caps n at 908."""
-    smem = THREADS * (2 * n + 2 * eth)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"read_len={n}, eth={eth}: {THREADS} reads and "
-                         f"windows ({smem} B) do not fit in {SMEM_LIMIT} B "
-                         f"of shared memory")
-    return smem
+def _check_read_len(n: int, eth: int) -> None:
+    """Raises ValueError, naming ``read_len``, for a read longer than the WF
+    kernels take at ``eth``: CAP_ROWS reads and windows (2n + 2*eth bytes
+    each) must fit a block's shared memory, which caps n at 908 - eth.
+    The rule is the first padded affine kernel's, which staged its rows
+    whole; no kernel stages whole rows now (the padded kernel and the two
+    distance kernels stage 32 columns at a time), but the rule stays so
+    that the card takes the geometries it took, and the distance kernels
+    need a cap: they hold band values in 16-bit lanes, exact only while n
+    stays well below 32,767 - 255 - MAX_SAT."""
+    need = CAP_ROWS * (2 * n + 2 * eth)
+    if need > SMEM_LIMIT:
+        longest = (SMEM_LIMIT // CAP_ROWS - 2 * eth) // 2
+        raise ValueError(f"read_len={n}, eth={eth}: longer than the WF "
+                         f"kernels take ({longest} bases at eth={eth})")
 
 
 def check_wf_geometry(eth: int, read_len: int, sat: int, *,
@@ -125,14 +128,14 @@ def check_wf_geometry(eth: int, read_len: int, sat: int, *,
     """Raises ValueError, naming the field, unless the WF kernels take
     reads of ``read_len`` at band half-width ``eth`` and affine saturation
     ``sat`` on the card: ``eth`` in ``SUPPORTED_ETH``, ``sat`` in [0,
-    ``MAX_SAT``], a block's staged rows within its shared memory and, with
+    ``MAX_SAT``], ``read_len`` within ``_check_read_len``'s cap and, with
     ``traceback``, the fused traceback's directions (a 32-bit word per 8
     band cells of a row) for a block of at least 32 instances too
     (``traceback_threads``).  Sessions call it before any work, so that a
     configuration the kernels refuse fails before the index build rather
     than at the first launch; the plain versions take any of them."""
     _check_eth_sat(eth, sat)
-    _staged_smem(read_len, eth)
+    _check_read_len(read_len, eth)
     if traceback:
         traceback_threads(read_len, eth)
 
@@ -162,7 +165,7 @@ def linear_wf(s1: torch.Tensor, s2_window: torch.Tensor, *, eth: int = 6):
     if not _on_card(s1, eth):
         return banded_wf(s1, s2_window, eth=eth)
     R, n = s1.shape
-    _staged_smem(n, eth)
+    _check_read_len(n, eth)
     out = torch.empty((2, R), dtype=torch.int32, device=s1.device)
     if R:
         with torch.cuda.device(s1.device):
@@ -182,7 +185,7 @@ def affine_wf_dist(s1: torch.Tensor, s2_window: torch.Tensor, *,
     if not _on_card(s1, eth, sat):
         return banded_affine_dist(s1, s2_window, eth=eth, sat=sat)
     R, n = s1.shape
-    _staged_smem(n, eth)
+    _check_read_len(n, eth)
     out = torch.empty((2, R), dtype=torch.int32, device=s1.device)
     if R:
         with torch.cuda.device(s1.device):
@@ -194,34 +197,51 @@ def affine_wf_dist(s1: torch.Tensor, s2_window: torch.Tensor, *,
     return out[0], out[1]
 
 
+def dir_planes(R: int, n: int, eth: int, device) -> tuple:
+    """The buffer ``affine_wf``'s kernel writes its direction planes into,
+    and the (R, n, band) view of it that the wrapper returns.  The buffer
+    keeps the Pallas kernel's (n * band, R) layout, byte (cell, r) at cell
+    * Rp + r, with R padded to Rp, a multiple of DIR_ROWS (the instances
+    of a kernel block, ``2 * DIR_THREADS`` in csrc/affine_wf.cu): every
+    thread of a launch stores its two instances' bytes of a cell in one
+    aligned 16-bit store, those past R into the padding, with no branch.
+    The view leaves the padding out and is not a copy: strides (1, band *
+    Rp, Rp)."""
+    band = 2 * eth + 1
+    planes = torch.empty((n * band, -(-R // DIR_ROWS) * DIR_ROWS),
+                         dtype=torch.uint8, device=device)
+    return planes, planes[:, :R].t().reshape(R, n, band)
+
+
 def affine_wf(s1: torch.Tensor, s2_window: torch.Tensor, *, eth: int = 6,
               sat: int = 32):
     """Banded affine WF with its packed direction planes.  -> (dist_end
     (R,), dist_min (R,)) int32 and dirs (R, n, 2*eth+1) uint8.
 
-    The kernel writes the planes in the Pallas kernel's (n * band, R)
-    layout, where a warp's stores coalesce; ``dirs`` is an (R, n, band)
-    view of that buffer (strides (1, band*R, R)), not a transposed copy.
+    The kernel runs two instances a thread and writes the planes in the
+    Pallas kernel's (n * band, R) layout, R padded (``dir_planes``), where
+    a warp's stores coalesce; ``dirs`` is an (R, n, band) view of that
+    buffer, not a transposed copy.
     """
     _check(s1, s2_window, eth)
     if not _on_card(s1, eth, sat):
         return banded_affine(s1, s2_window, eth=eth, sat=sat)
     R, n = s1.shape
-    smem = _staged_smem(n, eth)
-    band = 2 * eth + 1
+    _check_read_len(n, eth)
     dev = s1.device
     dists = torch.empty((2, R), dtype=torch.int32, device=dev)
-    # every byte is written by the kernel (0 left of column 0): no fill
-    planes = torch.empty((n * band, R), dtype=torch.uint8, device=dev)
+    # every byte of the view is written by the kernel (0 left of column
+    # 0): no fill
+    planes, dirs = dir_planes(R, n, eth, dev)
     if R:
         with torch.cuda.device(dev):
             rc = build.entry("affine_wf_launch")(
                 s1.data_ptr(), s2_window.data_ptr(), dists.data_ptr(),
-                planes.data_ptr(), R, n, eth, sat, THREADS, smem,
+                planes.data_ptr(), R, planes.shape[1], n, eth, sat,
                 _stream(s1))
         _raise_on(rc, "affine_wf")
         LAUNCHES["affine_wf"] += 1
-    return dists[0], dists[1], planes.t().reshape(R, n, band)
+    return dists[0], dists[1], dirs
 
 
 def minimizer_layout(L: int, k: int, w: int):

@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-import time
 from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
 
@@ -52,7 +51,8 @@ from .distributed import (ShardedIndex, make_distributed_mapper,
 from .encoding import revcomp
 from .index import GenomeIndex
 from .pipeline import (LazyTraceback, MapperConfig, MappingResult,
-                       _ChunkPipeline, _merge_stats, map_reads_padded)
+                       _ChunkPipeline, _copy_args, _merge_stats,
+                       map_reads_padded)
 
 TOPOLOGIES = ("single", "mesh")
 
@@ -661,71 +661,87 @@ class Mapper:
         reverse-complement encodings and folds them on the device; the
         padded engine and the mesh map one stacked fwd-then-rc batch and
         reduce it on the host (``_reduce_strands``), with the same result.
+
+        Where spans record, the call is one ``mapper.run`` span whose id
+        is the ``call`` of every span recorded under it.
         """
         reads = np.asarray(reads)
-        if plan.topology == "mesh" or plan.engine == "padded":
-            one = (self._run_mesh if plan.topology == "mesh"
-                   else self._run_padded)
-            if not plan.both_strands:
-                return one(plan, reads)
-            n_real = len(reads)
-            res = one(plan, np.concatenate([reads, revcomp(reads)]))
-            return _reduce_strands(res, n_real)
+        with _tracing.span("mapper.run") as sp:
+            if sp is not None:
+                sp.scope(call=sp.sid)
+                sp.set(reads=len(reads), engine=self.cfg.engine,
+                       topology=plan.topology)
+            if plan.topology == "mesh" or plan.engine == "padded":
+                one = (self._run_mesh if plan.topology == "mesh"
+                       else self._run_padded)
+                if not plan.both_strands:
+                    return one(plan, reads)
+                n_real = len(reads)
+                res = one(plan, np.concatenate([reads, revcomp(reads)]))
+                return _reduce_strands(res, n_real)
+            return self._run_chunks(plan, reads)
+
+    def _run_chunks(self, plan: MappingPlan,
+                    reads: np.ndarray) -> MappingResult:
+        """The compacted and fused engines: the plan's chunks through the
+        chunk pipeline, streamed or synchronous, then the results and
+        stats assembled on the host (the ``assemble`` span)."""
         n = len(reads)
         cfg = self.cfg
         pipe = self._executable(plan)
         items = [(reads[c0 : c0 + plan.chunk], plan.chunk)
                  for c0 in range(0, n, plan.chunk)]
-        pipe.begin_run(items)
+        times = {} if (cfg.profile or not cfg.stream) else None
+        pipe.begin_run(items, times)
         if cfg.stream:
-            times = {} if cfg.profile else None
             fetched = streaming.stream_map(items, pipe.phase1, pipe.phase2,
                                            pipe.fetch, times=times,
                                            injector=self.injector,
                                            watchdog_s=self.watchdog_s)
         else:
-            times = {}
             fetched = streaming.sync_map(items, pipe.phase1, pipe.phase2,
                                          pipe.fetch, times=times)
-        parts = [out for out, _ in fetched]
-        raw = _merge_stats([st for _, st in fetched])
-        raw["stream"] = cfg.stream
-        if cfg.both_strands:
-            raw["both_strands"] = True
-        if times is not None:
-            raw["stage_times_s"] = dict(times)
-        if self.router is not None:
-            raw["partitions"] = self.router.drain_stats()
+        with _tracing.span("assemble"):
+            parts = [out for out, _ in fetched]
+            raw = _merge_stats([st for _, st in fetched])
+            raw["stream"] = cfg.stream
+            if cfg.both_strands:
+                raw["both_strands"] = True
+            if times is not None:
+                raw["stage_times_s"] = dict(times)
+            if self.router is not None:
+                raw["partitions"] = self.router.drain_stats()
 
-        def cat(k):
-            if k not in parts[0]:
-                return None
-            if len(parts) > 1:
-                return np.concatenate([p[k] for p in parts])
-            return parts[0][k].copy()   # caller-owned, like a concatenation
+            def cat(k):
+                if k not in parts[0]:
+                    return None
+                if len(parts) > 1:
+                    return np.concatenate([p[k] for p in parts])
+                return parts[0][k].copy()   # caller-owned, like a concat
 
-        mapped = cat("mapped")
-        lazy = None
-        if cfg.cigar_mode == "lazy":
-            lazy = LazyTraceback(self._dev[3], cfg, cat("_tb_reads"),
-                                 cat("_tb_occ"), cat("_tb_mpos"), mapped)
-        stats = MapperStats(
-            topology="single", engine=cfg.engine, reads=n,
-            candidates=raw["candidates_valid"], survivors=raw["survivors"],
-            affine_instances=raw["affine_dist_instances"],
-            padded_affine_instances=raw["padded_affine_instances"],
-            reverse_best=raw.get("reverse_best", 0),
-            plan_cache_hits=self.plan_cache_hits,
-            plan_cache_misses=self.plan_cache_misses, extra=raw)
-        _record_run_metrics(stats)
-        return MappingResult(position=_host_positions(cat("position")),
-                             distance=cat("distance"),
-                             distance2=cat("distance2"),
-                             mapped=mapped, strand=cat("strand"),
-                             ops=cat("ops"), op_count=cat("op_count"),
-                             linear_dist=cat("linear_dist"),
-                             n_candidates=cat("n_candidates"), stats=stats,
-                             lazy_tb=lazy)
+            mapped = cat("mapped")
+            lazy = None
+            if cfg.cigar_mode == "lazy":
+                lazy = LazyTraceback(self._dev[3], cfg, cat("_tb_reads"),
+                                     cat("_tb_occ"), cat("_tb_mpos"), mapped)
+            stats = MapperStats(
+                topology="single", engine=cfg.engine, reads=n,
+                candidates=raw["candidates_valid"],
+                survivors=raw["survivors"],
+                affine_instances=raw["affine_dist_instances"],
+                padded_affine_instances=raw["padded_affine_instances"],
+                reverse_best=raw.get("reverse_best", 0),
+                plan_cache_hits=self.plan_cache_hits,
+                plan_cache_misses=self.plan_cache_misses, extra=raw)
+            _record_run_metrics(stats)
+            return MappingResult(position=_host_positions(cat("position")),
+                                 distance=cat("distance"),
+                                 distance2=cat("distance2"),
+                                 mapped=mapped, strand=cat("strand"),
+                                 ops=cat("ops"), op_count=cat("op_count"),
+                                 linear_dist=cat("linear_dist"),
+                                 n_candidates=cat("n_candidates"),
+                                 stats=stats, lazy_tb=lazy)
 
     def _run_padded(self, plan: MappingPlan,
                     reads: np.ndarray) -> MappingResult:
@@ -749,8 +765,8 @@ class Mapper:
         """One batch through the mesh program: padded to the plan's batch,
         each local shard's rows to the mesh's device, results trimmed.
         ``stage_times_s`` holds the two host-visible boundaries, the
-        dispatch and the device-to-host copy (``streaming.timed``, so
-        armed tracing sees the same spans)."""
+        ``dispatch`` and ``d2h`` stage spans (where ``profile`` is set or
+        a tracer armed)."""
         n = len(reads)
         fn, aff_cap = self._executable(plan)
         if n > plan.padded_reads:
@@ -768,20 +784,17 @@ class Mapper:
                                     for s in local])
         times = ({} if (self.cfg.profile or _tracing.ACTIVE is not None)
                  else None)
-        t0 = time.perf_counter()
-        with _tracing.annotate("mesh_dispatch"):
+        with _tracing.span("dispatch", times):
             dev_reads = torch.from_numpy(np.ascontiguousarray(
                 reads, dtype=np.uint8)).to(self.device)
-            pos, dist, dist2, dropped, n_surv, aff_drop = fn(
-                *self._dev, dev_reads)
-        t0 = streaming.timed(times, "dispatch", t0)
-        pos = pos.cpu().numpy()[:n]
-        dist = dist.cpu().numpy()[:n]
-        dist2 = dist2.cpu().numpy()[:n]
-        dropped = dropped.cpu().numpy()
-        n_surv = n_surv.cpu().numpy()
-        aff_drop = aff_drop.cpu().numpy()
-        streaming.timed(times, "d2h", t0)
+            outs = fn(*self._dev, dev_reads)
+        with _tracing.span("d2h", times) as sp:
+            host = [t.cpu() for t in outs]
+            if sp is not None:
+                _copy_args(sp, host)
+            pos, dist, dist2, dropped, n_surv, aff_drop = (
+                t.numpy() for t in host)
+            pos, dist, dist2 = pos[:n], dist[:n], dist2[:n]
         surv = int(n_surv.sum())
         n_aff_drop = int(aff_drop.sum())
         entries = S * S * plan.send_cap

@@ -38,6 +38,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..obs.tracing import span as _span
 from . import wf_backend as wfb
 from .compaction import bucket_capacity
 from .device import resolve_device
@@ -349,8 +350,21 @@ def resolve_pairs(res1: MappingResult, res2: MappingResult, *,
     CUDA card, as for the ``Mapper``) through
     ``wf_backend.affine_wf_dist(..., backend=cfg.wf_backend)``.  ``ref``
     may already be a tensor there (``map_fastq`` uploads it once a run);
-    a numpy ``ref`` is copied to the device each call.
+    a numpy ``ref`` is copied to the device each call.  Where spans
+    record, the call is one ``resolve_pairs`` span and the rescue its
+    ``rescue`` child.
     """
+    with _span("resolve_pairs", pairs=len(res1.position)):
+        return _resolve_pairs(
+            res1, res2, cfg=cfg, tracker=tracker, ref=ref, reads1=reads1,
+            reads2=reads2, contig_starts=contig_starts,
+            rescue_max_dist=rescue_max_dist,
+            rescue_max_windows=rescue_max_windows, device=device)
+
+
+def _resolve_pairs(res1, res2, *, cfg, tracker, ref, reads1, reads2,
+                   contig_starts, rescue_max_dist, rescue_max_windows,
+                   device) -> PairResolution:
     n = len(res1.position)
     if len(res2.position) != n:
         raise ValueError(f"mate result batches must align pairwise: "
@@ -386,13 +400,16 @@ def resolve_pairs(res1: MappingResult, res2: MappingResult, *,
         f2 = res2.failed if res2.failed is not None else np.zeros(n, bool)
         only1 = np.flatnonzero(m1 & ~m2 & ~f1 & ~f2)
         only2 = np.flatnonzero(m2 & ~m1 & ~f1 & ~f2)
-        windows = _window_rows(ref, cfg, resolve_device(device))
-        n_rescued += _rescue(res2, res1, only1, np.asarray(reads2),
-                             windows, cfg, win, max_dist,
-                             rescue_max_windows, rescued2)
-        n_rescued += _rescue(res1, res2, only2, np.asarray(reads1),
-                             windows, cfg, win, max_dist,
-                             rescue_max_windows, rescued1)
+        with _span("rescue") as sp:
+            windows = _window_rows(ref, cfg, resolve_device(device))
+            n_rescued += _rescue(res2, res1, only1, np.asarray(reads2),
+                                 windows, cfg, win, max_dist,
+                                 rescue_max_windows, rescued2)
+            n_rescued += _rescue(res1, res2, only2, np.asarray(reads1),
+                                 windows, cfg, win, max_dist,
+                                 rescue_max_windows, rescued1)
+            if sp is not None:
+                sp.set(mates=len(only1) + len(only2), rescued=n_rescued)
         if n_rescued:  # rescued placements can complete proper pairs
             m1 = np.asarray(res1.mapped, bool)
             m2 = np.asarray(res2.mapped, bool)

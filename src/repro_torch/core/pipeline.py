@@ -27,14 +27,12 @@ unmapped reads carry -1.
 from __future__ import annotations
 
 import dataclasses
-import time
 import warnings
 
 import numpy as np
 import torch
 
-from ..obs.tracing import annotate as _annotate
-from . import streaming
+from ..obs.tracing import span as _span
 from . import wf_backend as wfb
 from .affine_wf import traceback
 from .compaction import bucket_capacity, compact_indices, scatter_to
@@ -75,9 +73,11 @@ class MapperConfig:
     #                               synchronous path with per-stage wall
     #                               times in stats
     stage_b_survivor_frac: float = 0.5  # mesh stage B survivor capacity
-    profile: bool = False         # streamed path: record per-stage
-    #                               completion-time offsets into
-    #                               stats["stage_times_s"]
+    profile: bool = False         # streamed path: stats["stage_times_s"]
+    #                               holds each stage span's summed wall
+    #                               seconds on its thread (the host's
+    #                               dispatch, h2d, d2h on the fetch
+    #                               thread; stream=False fills it always)
     stage_b_adaptive: bool = False  # mesh stage B: size the capacity
     #                               from the survivor history
     stage_b_quantile: float = 0.9
@@ -499,20 +499,21 @@ class LazyTraceback:
         return ops.cpu().numpy(), cnt.cpu().numpy()
 
 
-def _sync(t: torch.Tensor) -> None:
-    """Wait for the device work that produces ``t`` (no-op on the CPU)."""
-    if t.is_cuda:
-        torch.cuda.synchronize(t.device)
+def _host_int(v, site: str) -> int:
+    """``int(v)``; where ``v`` is a tensor, that blocks the host until the
+    device has made it, and is recorded as a ``sync`` span at ``site``."""
+    if not isinstance(v, torch.Tensor):
+        return int(v)
+    with _span("sync", site=site):
+        return int(v)
 
 
-def _mark(t: torch.Tensor):
-    """A CUDA event recorded after the work queued so far on ``t``'s
-    device, or None on the CPU, where that work is already done."""
-    if not t.is_cuda:
-        return None
-    ev = torch.cuda.Event()
-    ev.record(torch.cuda.current_stream(t.device))
-    return ev
+def _copy_args(sp, host: list) -> None:
+    """A copy span's arguments from the host side of its copies (the
+    sources of an upload, the results of a fetch): ``bytes``, ``copies``
+    and ``pageable``, that not all of them are in pinned memory."""
+    sp.set(bytes=sum(t.nbytes for t in host), copies=len(host),
+           pageable=not all(t.is_pinned() for t in host))
 
 
 class _ChunkPipeline:
@@ -522,10 +523,11 @@ class _ChunkPipeline:
       phase2: capacity-count syncs -> linear/affine/traceback
       fetch:  device -> host copies + padding trim (fetch thread)
 
-    With a ``times`` dict (the ``stream=False`` path) every phase waits
-    for the device at its stage boundaries and records per-stage wall
-    seconds.  Candidate/survivor accounting excludes the zero-padding
-    reads of a partial last chunk.
+    Each stage is a span of ``obs.tracing`` (``stage_times_s``'s names);
+    given a ``times`` dict, the stages add their wall seconds there.  On
+    the synchronous schedule (``cfg.stream`` False) every stage also waits
+    for the device at its end.  Candidate/survivor accounting excludes the
+    zero-padding reads of a partial last chunk.
     """
 
     def __init__(self, dev, cfg: MapperConfig, device: torch.device):
@@ -533,10 +535,11 @@ class _ChunkPipeline:
         self.cfg = cfg
         self.device = device
 
-    def begin_run(self, items) -> None:
-        """Hook called once with the full chunk list before streaming
-        begins.  The flat pipeline has nothing to stage; the routed
-        pipeline (``index.residency``) starts its prefetch here."""
+    def begin_run(self, items, times=None) -> None:
+        """Hook called once with the full chunk list (and the run's
+        ``times``) before streaming begins.  The flat pipeline has nothing
+        to stage; the routed pipeline (``index.residency``) starts its
+        prefetch here."""
 
     def chunk_index(self, seeds):
         """Device ``(positions, segments)`` that this chunk's ``occ_idx``
@@ -544,34 +547,45 @@ class _ChunkPipeline:
         pipeline returns the arena with this chunk's writes applied."""
         return self.dev[2], self.dev[3]
 
-    def phase1(self, item, times=None):
+    def _wait(self, t: torch.Tensor) -> None:
+        """The synchronous schedule's stage boundary: wait for the device
+        work that produces ``t`` (no-op on the CPU)."""
+        if not self.cfg.stream and t.is_cuda:
+            torch.cuda.synchronize(t.device)
+
+    def host_prep(self, item, times=None):
+        """The chunk's rows as the device takes them, and its real read
+        count: zero-padded to the chunk's fixed shape (trimmed in fetch),
+        with ``both_strands`` the reverse complements stacked under it."""
         sub, chunk = item
         n_real = len(sub)
-        t0 = time.perf_counter()
-        if n_real < chunk:  # keep the chunk shape fixed; trimmed in fetch
-            sub = np.concatenate(
-                [sub, np.zeros((chunk - n_real, sub.shape[1]), sub.dtype)])
-        if self.cfg.both_strands:
-            # rows [0:chunk) forward, [chunk:2*chunk) reverse complement
-            sub = np.concatenate([sub, revcomp(sub)])
-        sub = np.ascontiguousarray(sub, dtype=np.uint8)
-        t0 = streaming.timed(times, "host_prep", t0)
-        reads = torch.from_numpy(sub).to(self.device)
-        if times is not None:
-            _sync(reads)
-        t0 = streaming.timed(times, "h2d", t0)
-        with _annotate("seed_dispatch"):
+        with _span("host_prep", times):
+            if n_real < chunk:
+                sub = np.concatenate(
+                    [sub, np.zeros((chunk - n_real, sub.shape[1]),
+                                   sub.dtype)])
+            if self.cfg.both_strands:
+                # rows [0:chunk) forward, [chunk:2*chunk) reverse complement
+                sub = np.concatenate([sub, revcomp(sub)])
+            return np.ascontiguousarray(sub, dtype=np.uint8), n_real
+
+    def phase1(self, item, times=None):
+        sub, n_real = self.host_prep(item, times)
+        with _span("h2d", times) as sp:
+            host = torch.from_numpy(sub)
+            reads = host.to(self.device)
+            self._wait(reads)
+            if sp is not None:
+                _copy_args(sp, [host])
+        with _span("seed", times):
             seeds = seed_reads(self.dev[0], self.dev[1], reads,
                                self.cfg.seed_params,
                                backend=self.cfg.wf_backend)
-        if times is not None:
-            _sync(reads)
-        streaming.timed(times, "seed", t0)
-        seed_mark = (_mark(reads) if self.cfg.profile and times is None
-                     else None)
-        return reads, seeds, n_real, seed_mark
+            self._wait(reads)
+        return reads, seeds, n_real
 
-    def _real_count(self, arr, total: int, n_real: int, R: int) -> int:
+    def _real_count(self, arr, total: int, n_real: int, R: int,
+                    site: str) -> int:
         """Host count of True entries in ``arr``'s non-padding rows."""
         half = R // 2 if self.cfg.both_strands else R
         if (2 * n_real if self.cfg.both_strands else n_real) == R:
@@ -579,10 +593,10 @@ class _ChunkPipeline:
         c = arr[:n_real].sum()
         if self.cfg.both_strands:
             c = c + arr[half : half + n_real].sum()
-        return int(c)
+        return _host_int(c, site)
 
     def phase2(self, state, times=None):
-        reads, seeds, n_real, seed_mark = state
+        reads, seeds, n_real = state
         cfg = self.cfg
         positions, segments = self.chunk_index(seeds)
         R = reads.shape[0]          # rows: 2*chunk when both_strands
@@ -590,23 +604,20 @@ class _ChunkPipeline:
         occ_idx, occ_valid = seeds["occ_idx"], seeds["occ_valid"]
         mini_pos = seeds["mini_pos"]
         rows_real = 2 * n_real if cfg.both_strands else n_real
-        profile = cfg.profile and times is None  # streamed profiling
 
-        t0 = time.perf_counter()
-        n_valid = int(seeds["n_valid"])
+        n_valid = _host_int(seeds["n_valid"], "n_valid")
         lin_cap = bucket_capacity(n_valid, align=cfg.lin_block_r,
                                   cap_max=R * M * P)
-        n_valid_real = self._real_count(occ_valid, n_valid, n_real, R)
+        n_valid_real = self._real_count(occ_valid, n_valid, n_real, R,
+                                        "n_valid_real")
 
         if cfg.engine == "fused":
             aff_cap = fused_affine_capacity(n_valid, R, cfg)
-            with _annotate("fused_dispatch"):
+            with _span("fused", times):
                 out = _fused_stage(segments, positions, reads, occ_idx,
                                    occ_valid, mini_pos, n_real, cfg, lin_cap,
                                    aff_cap)
-            if times is not None:
-                _sync(reads)
-            streaming.timed(times, "fused", t0)
+                self._wait(reads)
             stats = dict(candidates_valid=n_valid_real,
                          linear_instances=lin_cap,
                          padded_linear_instances=rows_real * M * P,
@@ -617,59 +628,50 @@ class _ChunkPipeline:
                              n_real if cfg.cigar_mode == "eager" else 0))
             if cfg.both_strands:
                 stats["reverse_best"] = out.pop("reverse_best")
-            if profile:
-                out["_milestones"] = (("seed", seed_mark),
-                                      ("fused", _mark(reads)))
             return out, stats, n_real
 
-        with _annotate("linear_dispatch"):
+        with _span("linear", times):
             lin_end, best_pl, pass_filter, n_cand = _linear_stage(
                 segments, reads, occ_idx, occ_valid, mini_pos, cfg, lin_cap)
-        lin_mark = _mark(reads) if profile else None
-        if times is not None:
-            _sync(reads)
-        t0 = streaming.timed(times, "linear", t0)
+            self._wait(reads)
 
-        n_surv = int(pass_filter.sum())
-        n_surv_real = self._real_count(pass_filter, n_surv, n_real, R)
+        n_surv = _host_int(pass_filter.sum(), "survivors")
+        n_surv_real = self._real_count(pass_filter, n_surv, n_real, R,
+                                       "survivors_real")
         aff_cap = bucket_capacity(n_surv, align=cfg.aff_block_r,
                                   cap_max=R * M)
-        with _annotate("affine_dispatch"):
+        with _span("affine", times):
             (best_aff, mapped, position, best_m, distance2, occ_w,
              mpos_w) = _affine_stage(segments, positions, reads, occ_idx,
                                      mini_pos, best_pl, pass_filter,
                                      lin_end, cfg, aff_cap)
-        reads_w, strand, reverse_best = reads, None, None
-        if cfg.both_strands:
-            fold = _strand_stage(best_aff, mapped, position, distance2,
-                                 n_cand, occ_w, mpos_w, reads, lin_end,
-                                 n_real)
-            best_aff, mapped, position = (fold["distance"], fold["mapped"],
-                                          fold["position"])
-            distance2, n_cand = fold["distance2"], fold["n_candidates"]
-            occ_w, mpos_w, reads_w = (fold["occ_w"], fold["mpos_w"],
-                                      fold["reads_w"])
-            lin_end, strand = fold["linear_dist"], fold["strand"]
-            reverse_best = fold["reverse_best"]
-        aff_mark = _mark(reads) if profile else None
-        if times is not None:
-            _sync(reads)
-        t0 = streaming.timed(times, "affine", t0)
+            reads_w, strand, reverse_best = reads, None, None
+            if cfg.both_strands:
+                fold = _strand_stage(best_aff, mapped, position, distance2,
+                                     n_cand, occ_w, mpos_w, reads, lin_end,
+                                     n_real)
+                best_aff, mapped, position = (fold["distance"],
+                                              fold["mapped"],
+                                              fold["position"])
+                distance2, n_cand = fold["distance2"], fold["n_candidates"]
+                occ_w, mpos_w, reads_w = (fold["occ_w"], fold["mpos_w"],
+                                          fold["reads_w"])
+                lin_end, strand = fold["linear_dist"], fold["strand"]
+                reverse_best = fold["reverse_best"]
+            self._wait(reads)
 
         out = dict(position=position, distance=best_aff,
                    distance2=distance2, mapped=mapped, linear_dist=lin_end,
                    n_candidates=n_cand)
         if strand is not None:
             out["strand"] = strand
-        if cfg.cigar_mode == "eager":
-            with _annotate("traceback_dispatch"):
+        with _span("traceback", times):
+            if cfg.cigar_mode == "eager":
                 out["ops"], out["op_count"] = _winner_traceback(
                     segments, reads_w, occ_w, mpos_w, mapped, cfg)
-            if times is not None:
-                _sync(reads)
-        elif cfg.cigar_mode == "lazy":
-            out.update(_tb_reads=reads_w, _tb_occ=occ_w, _tb_mpos=mpos_w)
-        streaming.timed(times, "traceback", t0)
+                self._wait(reads)
+            elif cfg.cigar_mode == "lazy":
+                out.update(_tb_reads=reads_w, _tb_occ=occ_w, _tb_mpos=mpos_w)
 
         stats = dict(candidates_valid=n_valid_real,
                      linear_instances=lin_cap,
@@ -681,26 +683,23 @@ class _ChunkPipeline:
                          n_real if cfg.cigar_mode == "eager" else 0))
         if reverse_best is not None:
             stats["reverse_best"] = reverse_best
-        if profile:
-            out["_milestones"] = (("seed", seed_mark), ("linear", lin_mark),
-                                  ("affine", aff_mark),
-                                  ("traceback", _mark(reads)))
         return out, stats, n_real
 
     def fetch(self, state, times=None):
+        """The chunk's outputs and its count tensors (the fused engine's
+        survivors, the strand fold's ``reverse_best``) to the host, in one
+        ``d2h`` span on the fetch thread."""
         out, stats, n_real = state
-        mil = out.pop("_milestones", None)
-        t0 = time.perf_counter()
-        if mil is not None:  # streamed profiling: completion-time offsets
-            for name, ev in mil:
-                if ev is not None:
-                    ev.synchronize()
-                t0 = streaming.timed(times, name, t0)
-        host = {k: v.cpu().numpy()[:n_real] for k, v in out.items()}
-        out.clear()     # the chunk's device outputs go with its fetch
-        streaming.timed(times, "d2h", t0)
-        stats = {k: (int(v) if isinstance(v, torch.Tensor) else v)
-                 for k, v in stats.items()}
+        with _span("d2h", times) as sp:
+            full = {k: v.cpu() for k, v in out.items()}
+            out.clear()     # the chunk's device outputs go with its fetch
+            counts = {k: v.cpu() for k, v in stats.items()
+                      if isinstance(v, torch.Tensor)}
+            if sp is not None:
+                copies = [*full.values(), *counts.values()]
+                _copy_args(sp, copies)
+            host = {k: v.numpy()[:n_real] for k, v in full.items()}
+            stats = {**stats, **{k: int(v) for k, v in counts.items()}}
         return host, stats
 
 

@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..obs.tracing import span as _span
 from .minimizers import unique_read_minimizers
 
 
@@ -69,8 +70,9 @@ def _read_minimizers(reads: np.ndarray, params: SeedParams, backend: str,
     kmers, pos, valid = unique_read_minimizers(t, k=params.k, w=params.w,
                                                max_uniq=params.max_minis,
                                                backend=backend)
-    return (kmers.cpu().numpy().astype(np.uint32),
-            pos.cpu().numpy().astype(np.int32), valid.cpu().numpy())
+    with _span("sync", site="route_minimizers"):
+        return (kmers.cpu().numpy().astype(np.uint32),
+                pos.cpu().numpy().astype(np.int32), valid.cpu().numpy())
 
 
 def seed_reads_routed(index, reads: np.ndarray, params: SeedParams, ensure,

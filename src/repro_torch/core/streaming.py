@@ -24,14 +24,13 @@ outputs once the fetch has copied them to the host.
 """
 from __future__ import annotations
 
-import time
 from concurrent.futures import ThreadPoolExecutor
 from concurrent.futures import TimeoutError as FutureTimeoutError
 
 from ..obs import registry as _metrics
 from ..obs import tracing as _tracing
 
-__all__ = ["stream_map", "sync_map", "timed", "FetchStallError"]
+__all__ = ["stream_map", "sync_map", "FetchStallError"]
 
 
 class FetchStallError(RuntimeError):
@@ -44,42 +43,23 @@ class FetchStallError(RuntimeError):
     """
 
 
-def timed(times: dict | None, key: str, t0: float) -> float:
-    """Accumulate ``now - t0`` into ``times[key]``; returns a fresh t0.
-
-    No-op (beyond the clock read) when ``times`` is None.  This is also
-    the observability layer's stage hook: when the ``repro_torch.obs``
-    tracer or registry is armed, the *same two clock reads* emit a span
-    (with the calling thread's chunk context) and accrue the per-stage
-    seconds counter, so the trace, the metrics and ``stage_times_s`` agree
-    on every duration.
-    """
-    t1 = time.perf_counter()
-    if times is not None:
-        times[key] = times.get(key, 0.0) + (t1 - t0)
-        tr = _tracing.ACTIVE
-        if tr is not None:
-            tr.add(key, t0, t1)
-        reg = _metrics.ACTIVE
-        if reg is not None:
-            reg.counter("repro_stage_seconds_total", stage=key).inc(t1 - t0)
-    return t1
-
-
 def stream_map(items: list, phase1, phase2, fetch,
                times: dict | None = None, *, injector=None,
                watchdog_s: float | None = None) -> list:
     """Overlapped execution over ``items`` (one per chunk).
 
-    phase1(item)   -> state   : host prep + H2D + seeding
-    phase2(state)  -> outs    : count syncs + remaining stages
-    fetch(outs)    -> result  : blocking device->host copy (fetch thread)
+    phase1(item, times)   -> state  : host prep + H2D + seeding
+    phase2(state, times)  -> outs   : count syncs + remaining stages
+    fetch(outs, times)    -> result : blocking device->host copy (fetch
+                                      thread)
 
     phase1 of chunk i+1 is issued before phase2 of chunk i waits on its
     counts; fetches run on a worker thread.  Results come back in
-    submission order.  ``times`` (``MapperConfig.profile``) goes to the
-    fetch calls only, which run on the one fetch worker.  A failed fetch
-    is raised before more chunks are dispatched.
+    submission order.  ``times`` (``MapperConfig.profile``) is the
+    ``stage_times_s`` dict the phases' stage spans fill: the caller's
+    stages on this thread, ``d2h`` on the one fetch worker.  A failed
+    fetch is raised before more chunks are dispatched; the time this
+    thread waits on the fetches at the end is the ``fetch_wait`` span.
 
     ``watchdog_s`` bounds each fetch's wall time: a fetch past it raises
     ``FetchStallError``, and the pool is abandoned, not joined, so the
@@ -100,12 +80,11 @@ def stream_map(items: list, phase1, phase2, fetch,
             return fetch(outs, times_)
 
     # chunk attribution for span tracing: each phase stamps the in-flight
-    # chunk index on whichever thread runs it
-    tracing_on = _tracing.ACTIVE is not None
+    # chunk index, beside the call's context, on the thread that runs it
+    stamp = _chunk_stamp()
 
     def fetch_job(i, outs):
-        if tracing_on:
-            _tracing.set_ctx(chunk=i)
+        stamp(i)
         return run_fetch(outs, times)
 
     reg = _metrics.ACTIVE
@@ -116,26 +95,25 @@ def stream_map(items: list, phase1, phase2, fetch,
     pool = ThreadPoolExecutor(max_workers=1,
                               thread_name_prefix="stream-fetch")
     try:
-        if tracing_on:
-            _tracing.set_ctx(chunk=0)
-        state = phase1(items[0])
+        stamp(0)
+        state = phase1(items[0], times)
         for i in range(n):
             for f in futs:
                 if f.done():
                     f.result()
-            if tracing_on:
-                _tracing.set_ctx(chunk=i + 1)
-            nxt = phase1(items[i + 1]) if i + 1 < n else None
-            if tracing_on:
-                _tracing.set_ctx(chunk=i)
-            outs = phase2(state)
+            stamp(i + 1)
+            nxt = phase1(items[i + 1], times) if i + 1 < n else None
+            stamp(i)
+            outs = phase2(state, times)
             state = nxt
             futs.append(pool.submit(fetch_job, i, outs))
             del outs
         out = []
         for i, f in enumerate(futs):
+            stamp(i)
             try:
-                out.append(f.result(timeout=watchdog_s))
+                with _tracing.span("fetch_wait"):
+                    out.append(f.result(timeout=watchdog_s))
             except FutureTimeoutError:
                 # abandon the wedged worker instead of joining it
                 pool.shutdown(wait=False, cancel_futures=True)
@@ -146,6 +124,7 @@ def stream_map(items: list, phase1, phase2, fetch,
                     f"thread is stalled") from None
         return out
     finally:
+        stamp(None)
         if pool is not None:
             pool.shutdown(wait=True)
 
@@ -156,11 +135,26 @@ def sync_map(items: list, phase1, phase2, fetch,
     reg = _metrics.ACTIVE
     if reg is not None:
         reg.counter("repro_chunks_total", mode="sync").inc(len(items))
-    tracing_on = _tracing.ACTIVE is not None
+    stamp = _chunk_stamp()
     out = []
-    for i, item in enumerate(items):
-        if tracing_on:
-            _tracing.set_ctx(chunk=i)
-        out.append(fetch(phase2(phase1(item, times=times), times=times),
-                         times=times))
+    try:
+        for i, item in enumerate(items):
+            stamp(i)
+            out.append(fetch(phase2(phase1(item, times), times), times))
+    finally:
+        stamp(None)
     return out
+
+
+def _chunk_stamp():
+    """``stamp(i)``: this thread's span context becomes the calling
+    thread's context at this call (the ``mapper.run`` span's ``call``)
+    with ``chunk=i``; ``stamp(None)`` puts the context back.  A no-op
+    where no span records."""
+    if not _tracing.recording():
+        return lambda i: None
+    base = _tracing.get_ctx() or {}
+
+    def stamp(i):
+        _tracing.set_ctx(**(base if i is None else {**base, "chunk": i}))
+    return stamp

@@ -37,19 +37,18 @@ overlap their destination (``_move_rows``).
 from __future__ import annotations
 
 import threading
-import time
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from ..core import streaming
 from ..core.device import resolve_device
-from ..core.encoding import SENTINEL, revcomp
-from ..core.pipeline import MapperConfig, _ChunkPipeline, _mark
+from ..core.encoding import SENTINEL
+from ..core.pipeline import MapperConfig, _ChunkPipeline, _copy_args
 from ..core.seeding import seed_reads_routed
 from ..obs import registry as _metrics
+from ..obs.tracing import span as _span
 
 # arena rows unpacked from 2-bit staging a step, and the rows a
 # compaction copies through a scratch buffer a step
@@ -476,9 +475,11 @@ class _RoutedChunkPipeline(_ChunkPipeline):
         self._pf_items: list = []
         self._pf_futs: list = []
         self._pf_i = 0
+        self._pf_times = None
 
-    def begin_run(self, items) -> None:
-        """Stage the first chunk's host prep on the prefetch worker."""
+    def begin_run(self, items, times=None) -> None:
+        """Stage the first chunk's host prep on the prefetch worker, whose
+        stage spans add to ``times``."""
         if not (self.prefetch and self.cfg.stream and items):
             return
         if self._ex is None:
@@ -489,6 +490,7 @@ class _RoutedChunkPipeline(_ChunkPipeline):
         self._pf_items = list(items)
         self._pf_futs = [None] * len(self._pf_items)
         self._pf_i = 0
+        self._pf_times = times
         self._pf_futs[0] = self._ex.submit(self._staged_prep,
                                            self._pf_items[0])
 
@@ -500,31 +502,21 @@ class _RoutedChunkPipeline(_ChunkPipeline):
 
     def _staged_prep(self, item):
         if self._side is None:
-            return self._prep(item, prefetch=True)
+            return self._prep(item, prefetch=True, times=self._pf_times)
         with torch.cuda.stream(self._side):
-            return self._prep(item, prefetch=True)
+            return self._prep(item, prefetch=True, times=self._pf_times)
 
     def _prep(self, item, *, prefetch: bool, times=None):
         """Host-side chunk prep: pad, strand-stack, route + seed (which
         stages any missing partitions).  Runs on the prefetch worker or
         inline on the main thread — the residency lock serializes them."""
-        sub, chunk = item
-        n_real = len(sub)
-        t0 = time.perf_counter()
-        if n_real < chunk:
-            sub = np.concatenate(
-                [sub, np.zeros((chunk - n_real, sub.shape[1]), sub.dtype)])
-        if self.cfg.both_strands:
-            sub = np.concatenate([sub, revcomp(sub)])
-        sub = np.ascontiguousarray(sub, dtype=np.uint8)
-        t0 = streaming.timed(times, "host_prep", t0)
-        seeds_np, ticket = self.router.seed(sub, prefetch=prefetch)
-        streaming.timed(times, "seed", t0)
+        sub, n_real = self.host_prep(item, times)
+        with _span("seed", times):
+            seeds_np, ticket = self.router.seed(sub, prefetch=prefetch)
         return sub, seeds_np, ticket, n_real
 
     def phase1(self, item, times=None):
-        staged = (times is None and self._pf_futs
-                  and self._pf_i < len(self._pf_items)
+        staged = (self._pf_futs and self._pf_i < len(self._pf_items)
                   and self._pf_items[self._pf_i] is item)
         if staged:
             i = self._pf_i
@@ -540,22 +532,24 @@ class _RoutedChunkPipeline(_ChunkPipeline):
         else:
             sub, seeds_np, ticket, n_real = self._prep(
                 item, prefetch=False, times=times)
-        t0 = time.perf_counter()
         dev = self.device
-        reads = torch.from_numpy(sub).to(dev)
-        seeds = {
-            "mini_pos": torch.from_numpy(seeds_np["mini_pos"]).to(dev).long(),
-            "occ_idx": torch.from_numpy(seeds_np["occ_idx"]).to(dev).long(),
-            "occ_valid": torch.from_numpy(seeds_np["occ_valid"]).to(dev),
-            "n_valid": seeds_np["n_valid"],
-            "_ticket": ticket,
-        }
-        if times is not None and reads.is_cuda:
-            torch.cuda.synchronize(dev)
-        streaming.timed(times, "h2d", t0)
-        seed_mark = (_mark(reads) if self.cfg.profile and times is None
-                     else None)
-        return reads, seeds, n_real, seed_mark
+        with _span("h2d", times) as sp:
+            host = [torch.from_numpy(sub),
+                    torch.from_numpy(seeds_np["mini_pos"]),
+                    torch.from_numpy(seeds_np["occ_idx"]),
+                    torch.from_numpy(seeds_np["occ_valid"])]
+            reads, mini_pos, occ_idx, occ_valid = (t.to(dev) for t in host)
+            seeds = {
+                "mini_pos": mini_pos.long(),
+                "occ_idx": occ_idx.long(),
+                "occ_valid": occ_valid,
+                "n_valid": seeds_np["n_valid"],
+                "_ticket": ticket,
+            }
+            self._wait(reads)
+            if sp is not None:
+                _copy_args(sp, host)
+        return reads, seeds, n_real
 
     def chunk_index(self, seeds):
         return self.router.residency.snapshot(upto=seeds.pop("_ticket"))

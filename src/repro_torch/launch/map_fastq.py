@@ -54,7 +54,6 @@ clean SAM to stdout.  ``main(argv)`` runs in-process.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import os
 import sys
 import time
@@ -114,9 +113,8 @@ def _ingest(stream):
 
 
 def _span(name):
-    from ..obs import tracing as _tracing
-    tr = _tracing.ACTIVE
-    return tr.span(name) if tr is not None else contextlib.nullcontext()
+    from ..obs.tracing import span
+    return span(name)
 
 
 def _open_sharded(args):
@@ -186,10 +184,7 @@ def _run(args) -> int:
     cfg = MapperConfig(
         read_len=rl, k=args.k, w=args.w, eth=args.eth, engine=args.engine,
         wf_backend=args.wf_backend, chunk_reads=args.chunk_reads,
-        stream=not args.no_stream, both_strands=not args.single_strand,
-        # --trace-out needs per-stage times on the streamed path: spans
-        # come from the same clock reads as stage_times_s
-        profile=args.trace_out is not None)
+        stream=not args.no_stream, both_strands=not args.single_strand)
     # before the FASTA load and index
     check_card_geometry(cfg, device, topology=args.topology)
     if sharded is not None:
@@ -485,9 +480,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "instead of hanging the run")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="export the run as Chrome trace-event JSON "
-                         "(loadable in Perfetto / chrome://tracing); "
-                         "implies per-stage profiling, so the span "
-                         "durations equal stage_times_s")
+                         "(loadable in Perfetto / chrome://tracing): each "
+                         "chunk's stages, syncs and copies as spans")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="write JSONL metrics snapshots (one per chunk "
                          "plus a final one; schema: "

@@ -9,7 +9,9 @@ bounded memory when enabled):
   (counters / gauges / fixed-log-bucket histograms), wired through the
   streaming engine, ``Mapper``, ``DeviceResidency``, ``ResilientMapper``
   and ``MappingService``;
-* ``tracing``  — chunk-lifecycle span tracing exported as
+* ``tracing``  — the span hook (``span``) at every boundary of the
+  mapper's hot path, recorded where a tracer is armed or a
+  ``torch.profiler`` records (``tracer()``, ``profiled()``), exported as
   Chrome trace-event JSON (Perfetto-loadable), sharing clock reads with
   ``stage_times_s`` so the two surfaces agree by construction;
 * ``logjson`` / ``server`` — structured JSON logging and Prometheus
@@ -25,13 +27,14 @@ from . import logjson, server, validate
 from .registry import (Counter, Gauge, Histogram, MetricsRegistry,
                        disable_metrics, enable_metrics, metrics)
 from .surfaces import metrics_snapshot, obs_surfaces
-from .tracing import (Tracer, annotate, clear_ctx, disable_tracing,
-                      enable_tracing, get_ctx, set_ctx, tracer)
+from .tracing import (SpanRecord, Tracer, clear_ctx, disable_tracing,
+                      enable_tracing, get_ctx, profiled, recording,
+                      set_ctx, span, tracer)
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "enable_metrics", "disable_metrics", "metrics",
-    "Tracer", "enable_tracing", "disable_tracing", "tracer",
-    "set_ctx", "get_ctx", "clear_ctx", "annotate",
+    "Tracer", "SpanRecord", "enable_tracing", "disable_tracing", "tracer",
+    "recording", "profiled", "span", "set_ctx", "get_ctx", "clear_ctx",
     "logjson", "server", "validate", "metrics_snapshot", "obs_surfaces",
 ]

@@ -285,9 +285,17 @@ def _json_events(err):
     return out
 
 
+# the port's counters of its chunk schedule, which the reference lacks
+PORT_COUNTERS = ("repro_device_syncs_total", "repro_h2d_bytes_total",
+                 "repro_d2h_bytes_total")
+# the port's spans of its chunk schedule, which the reference lacks
+PORT_SPANS = {"mapper.run", "host_prep", "h2d", "sync", "fetch_wait",
+              "assemble"}
+
+
 def _counts(snapshot):
     return {k: v for k, v in snapshot["counters"].items()
-            if not k.startswith("repro_stage_seconds")}
+            if not k.startswith(("repro_stage_seconds",) + PORT_COUNTERS)}
 
 
 def test_obs_flags_write_the_references_trace_metrics_and_log(
@@ -297,7 +305,9 @@ def test_obs_flags_write_the_references_trace_metrics_and_log(
     final one with the reference's metric names and counts (times aside)
     that validates against the schema, and the reference's JSON events;
     the SAM is unchanged.  The trace's per-stage durations equal the
-    stage-seconds counters."""
+    stage-seconds counters.  The port adds the chunk schedule's spans
+    (``PORT_SPANS``: its stages on the streamed path, syncs, waits) and
+    their counters, which read the trace's numbers."""
     text = _port(world, "port_obs.sam", "--trace-out",
                  str(world / "trace.json"), "--metrics-out",
                  str(world / "metrics.jsonl"), "--log-json")
@@ -310,7 +320,7 @@ def test_obs_flags_write_the_references_trace_metrics_and_log(
     def names(t):
         return sorted({e["name"] for e in t["traceEvents"]
                        if e["ph"] == "X"})
-    assert names(trace) == names(want_trace)
+    assert names(trace) == sorted(set(names(want_trace)) | PORT_SPANS)
     assert {"ingest", "sam_emit", "seed", "d2h"} <= set(names(trace))
     assert validate_jsonl(world / "metrics.jsonl", load_json(SCHEMA)) == []
     snaps, want_snaps = ([json.loads(ln) for ln in
@@ -318,12 +328,24 @@ def test_obs_flags_write_the_references_trace_metrics_and_log(
                           .splitlines()] for p in ("", "ref_"))
     assert [s["seq"] for s in snaps] == [s["seq"] for s in want_snaps]
     assert [_counts(s) for s in snaps] == [_counts(s) for s in want_snaps]
-    assert sorted(snaps[-1]["counters"]) == sorted(
-        want_snaps[-1]["counters"])
-    spans = {}
+    spans, port = {}, {}
     for e in trace["traceEvents"]:
         if e["ph"] == "X":
             spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"] / 1e6
+            a = e.get("args", {})
+            key = {"sync": ('repro_device_syncs_total'
+                            f'{{site="{a.get("site")}"}}'),
+                   "h2d": 'repro_h2d_bytes_total{memory="pageable"}',
+                   "d2h": 'repro_d2h_bytes_total{memory="pageable"}'}.get(
+                       e["name"])
+            if key is not None:
+                port[key] = port.get(key, 0) + a.get("bytes", 1)
+    assert {k: v for k, v in snaps[-1]["counters"].items()
+            if k.startswith(PORT_COUNTERS)} == port
+    port.update({f'repro_stage_seconds_total{{stage="{s}"}}': 0
+                 for s in ("host_prep", "h2d")})
+    assert sorted(snaps[-1]["counters"]) == sorted(
+        set(want_snaps[-1]["counters"]) | set(port))
     for k, v in snaps[-1]["counters"].items():
         if k.startswith("repro_stage_seconds"):
             stage = k.split('stage="')[1].rstrip('"}')

@@ -5,6 +5,7 @@ backend) on a 20 kb genome: every ``MappingResult`` field and the
 The port runs on the CPU here, where its kernel wrappers take their
 plain versions."""
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -174,12 +175,21 @@ def test_mesh_map_pairs_matches_reference(world, both_strands):
 
 
 def test_profiled_stream_records_stage_offsets(world):
+    """``profile=True`` on the streamed path: ``stage_times_s`` holds each
+    stage span's summed seconds (durations, no longer offsets from the
+    fetch's start), so the caller's stages fit inside the call's wall
+    time."""
     _, tidx, _, reads = world
-    res = Mapper(tidx, MapperConfig.from_index(tidx, profile=True,
-                                               chunk_reads=8),
-                 device="cpu").map(reads)
-    assert set(res.stats["stage_times_s"]) == {"seed", "linear", "affine",
-                                               "traceback", "d2h"}
+    m = Mapper(tidx, MapperConfig.from_index(tidx, profile=True,
+                                             chunk_reads=8), device="cpu")
+    t0 = time.perf_counter()
+    res = m.map(reads)
+    wall = time.perf_counter() - t0
+    st = res.stats["stage_times_s"]
+    assert set(st) == {"host_prep", "h2d", "seed", "linear", "affine",
+                       "traceback", "d2h"}
+    assert all(v > 0 for v in st.values())
+    assert sum(v for k, v in st.items() if k != "d2h") < wall
 
 
 def test_mapper_without_device_needs_a_gpu(world, monkeypatch):

@@ -1,9 +1,10 @@
 """``repro_torch.obs`` against ``repro.obs`` on the CPU: the registry,
 tracer, JSON log and validators give the reference's snapshot,
 Prometheus text, Chrome trace events and log lines on the same calls
-(timestamps aside); ``streaming.timed`` feeds ``stage_times_s``, the
-trace and the stage counters from the same clock reads, so a
-``stream=False`` run's span durations equal its ``stage_times_s``;
+(timestamps aside); a stage span (``tracing.span(name, times)``) feeds
+``stage_times_s``, the trace and the stage counters from the same clock
+reads, so a ``stream=False`` run's span durations equal its
+``stage_times_s``;
 ``totals_from_registry`` equals ``accumulate_stats`` and the reference's
 registry; the index build's and the residency arena's counters and spans
 carry the reference's names and values; a snapshot validates against
@@ -12,7 +13,6 @@ import io
 import json
 import os
 import threading
-import time
 
 import pytest
 import torch
@@ -28,7 +28,6 @@ from repro.obs import logjson as jlog
 from repro.obs import registry as jreg
 from repro.obs import tracing as jtrace
 from repro.obs import validate as jval
-from repro_torch.core import streaming
 from repro_torch.core.index import GenomeIndex
 from repro_torch.core.mapper import (_METRIC_RUN_FIELDS, Mapper,
                                      accumulate_stats, totals_from_registry)
@@ -141,19 +140,23 @@ def test_tracer_chrome_events_match_reference():
 
 
 def test_annotate_and_profiler_server():
-    """``annotate`` is a null context until a tracer is armed, then a
-    ``torch.profiler.record_function``; the profiler server is the
-    reference's "unavailable" answer."""
-    ctx = ttrace.annotate("seed_dispatch")
-    assert not isinstance(ctx, torch.profiler.record_function)
-    with ctx:
+    """The span hook that replaced ``annotate``: a null context until a
+    tracer is armed or a ``torch.profiler`` records; under a profiler a
+    ``torch.profiler.record_function`` of its name and a span of the
+    profile's record (``profiled()``), no tracer needed; the profiler
+    server is the reference's "unavailable" answer."""
+    with ttrace.span("seed") as sp:
+        assert sp is None
+    with torch.profiler.profile() as prof:
+        with ttrace.span("seed") as sp:
+            torch.ones(4).sum()
+    assert sp is not None and ttrace.tracer() is None
+    assert any(e.name == "seed" for e in prof.events())
+    assert [s.name for s in ttrace.profiled().spans()] == ["seed"]
+    tr = ttrace.enable_tracing()
+    with ttrace.span("seed") as sp:
         pass
-    ttrace.enable_tracing()
-    ctx = ttrace.annotate("seed_dispatch")
-    assert isinstance(ctx, torch.profiler.record_function)
-    with torch.profiler.profile() as prof, ctx:
-        torch.ones(4).sum()
-    assert any(e.name == "seed_dispatch" for e in prof.events())
+    assert sp is not None and tr.stage_totals()["seed"] > 0
     assert tserver.start_profiler_server(0) is None
 
 
@@ -228,37 +231,49 @@ def test_validators_match_reference(tmp_path):
         ["no JSONL records"]
 
 
-# ---------------------------------------------- timed() and stage times
+# ------------------------------------------ stage spans and stage times
 
 def test_timed_feeds_times_span_and_counter_from_same_clock_reads():
+    """A stage span (``span(name, times)``, which replaced ``timed``) adds
+    its seconds to ``times``, the tracer and the stage counter from the
+    same two clock reads; handed None it times nothing where nothing
+    records, and a dict still fills with nothing armed."""
     reg = treg.enable_metrics(treg.MetricsRegistry())
     tr = ttrace.enable_tracing(tracer_=ttrace.Tracer())
     times = {}
-    t0 = time.perf_counter()
-    assert streaming.timed(times, "stage_x", t0) >= t0
-    assert tr.stage_totals()["stage_x"] == times["stage_x"]
+    with ttrace.span("stage_x", times):
+        pass
+    assert tr.stage_totals()["stage_x"] == times["stage_x"] > 0
     assert reg.counter("repro_stage_seconds_total",
                        stage="stage_x").value == times["stage_x"]
-    streaming.timed(None, "stage_y", t0)   # profiling off: nothing
-    assert len(tr) == 1
+    ttrace.disable_tracing()
+    with ttrace.span("stage_y", None) as sp:   # profiling off: nothing
+        assert sp is None
+    with ttrace.span("stage_z", times):        # a dict times itself
+        pass
+    assert len(tr) == 1 and set(times) == {"stage_x", "stage_z"}
 
 
 @pytest.mark.parametrize("cfg", [dict(stream=False, engine="compacted"),
                                  dict(stream=False, engine="fused"),
                                  dict(profile=True, engine="compacted")])
 def test_trace_durations_equal_stage_times(world, cfg):
-    """A traced run's summed span durations are its ``stage_times_s``:
-    the same clock reads, so the equality is exact; the spans carry their
-    chunk, and the dispatch annotations do not enter the trace."""
+    """A traced run's summed span durations are its ``stage_times_s``, name
+    by name: the same clock reads, so the equality is exact; the stage
+    spans carry their chunk, and every span the run's ``call``."""
     _, tidx, reads = world
     tr = ttrace.enable_tracing(tracer_=ttrace.Tracer())
     res = Mapper(tidx, MapperConfig.from_index(tidx, chunk_reads=16, **cfg),
                  device="cpu").map(reads[:40])
     st = res.stats["stage_times_s"]
-    assert tr.stage_totals() == st
-    chunks = {e["args"]["chunk"] for e in tr.chrome()["traceEvents"]
-              if e["ph"] == "X"}
-    assert chunks == {0, 1, 2}
+    totals = tr.stage_totals()
+    assert {k: totals[k] for k in st} == st
+    events = [e for e in tr.chrome()["traceEvents"] if e["ph"] == "X"]
+    assert {e["args"]["chunk"] for e in events if e["name"] in st} == \
+        {0, 1, 2}
+    run = [e for e in events if e["name"] == "mapper.run"]
+    assert len(run) == 1
+    assert {e["args"]["call"] for e in events} == {run[0]["args"]["id"]}
 
 
 def test_registry_totals_match_accumulate_and_reference(world):

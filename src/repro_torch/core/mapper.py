@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
 
@@ -51,8 +52,8 @@ from .distributed import (ShardedIndex, make_distributed_mapper,
 from .encoding import revcomp
 from .index import GenomeIndex
 from .pipeline import (LazyTraceback, MapperConfig, MappingResult,
-                       _ChunkPipeline, _copy_args, _merge_stats,
-                       map_reads_padded)
+                       _CallArrays, _ChunkPipeline, _copy_args,
+                       _merge_stats, map_reads_padded)
 
 TOPOLOGIES = ("single", "mesh")
 
@@ -684,26 +685,29 @@ class Mapper:
     def _run_chunks(self, plan: MappingPlan,
                     reads: np.ndarray) -> MappingResult:
         """The compacted and fused engines: the plan's chunks through the
-        chunk pipeline, streamed or synchronous, then the results and
-        stats assembled on the host (the ``assemble`` span)."""
+        chunk pipeline, streamed or synchronous, each chunk's fetch
+        writing its rows of the call's own result arrays; then the stats
+        assembled on the host (the ``assemble`` span, whose ``bytes`` are
+        the result bytes it copies: none)."""
         n = len(reads)
         cfg = self.cfg
         pipe = self._executable(plan)
         items = [(reads[c0 : c0 + plan.chunk], plan.chunk)
                  for c0 in range(0, n, plan.chunk)]
+        into = _CallArrays(n)
+        fetch = functools.partial(pipe.fetch, into=into)
         times = {} if (cfg.profile or not cfg.stream) else None
         pipe.begin_run(items, times)
         if cfg.stream:
             fetched = streaming.stream_map(items, pipe.phase1, pipe.phase2,
-                                           pipe.fetch, times=times,
+                                           fetch, times=times,
                                            injector=self.injector,
                                            watchdog_s=self.watchdog_s)
         else:
             fetched = streaming.sync_map(items, pipe.phase1, pipe.phase2,
-                                         pipe.fetch, times=times)
-        with _tracing.span("assemble"):
-            parts = [out for out, _ in fetched]
-            raw = _merge_stats([st for _, st in fetched])
+                                         fetch, times=times)
+        with _tracing.span("assemble") as sp:
+            raw = _merge_stats(fetched)
             raw["stream"] = cfg.stream
             if cfg.both_strands:
                 raw["both_strands"] = True
@@ -711,19 +715,16 @@ class Mapper:
                 raw["stage_times_s"] = dict(times)
             if self.router is not None:
                 raw["partitions"] = self.router.drain_stats()
-
-            def cat(k):
-                if k not in parts[0]:
-                    return None
-                if len(parts) > 1:
-                    return np.concatenate([p[k] for p in parts])
-                return parts[0][k].copy()   # caller-owned, like a concat
-
-            mapped = cat("mapped")
+            arr = into.arrays
+            position = _host_positions(arr.get("position"))
+            if sp is not None:
+                sp.set(bytes=0 if position is arr.get("position")
+                       else position.nbytes)
+            mapped = arr.get("mapped")
             lazy = None
             if cfg.cigar_mode == "lazy":
-                lazy = LazyTraceback(self._dev[3], cfg, cat("_tb_reads"),
-                                     cat("_tb_occ"), cat("_tb_mpos"), mapped)
+                lazy = LazyTraceback(self._dev[3], cfg, arr["_tb_reads"],
+                                     arr["_tb_occ"], arr["_tb_mpos"], mapped)
             stats = MapperStats(
                 topology="single", engine=cfg.engine, reads=n,
                 candidates=raw["candidates_valid"],
@@ -734,13 +735,14 @@ class Mapper:
                 plan_cache_hits=self.plan_cache_hits,
                 plan_cache_misses=self.plan_cache_misses, extra=raw)
             _record_run_metrics(stats)
-            return MappingResult(position=_host_positions(cat("position")),
-                                 distance=cat("distance"),
-                                 distance2=cat("distance2"),
-                                 mapped=mapped, strand=cat("strand"),
-                                 ops=cat("ops"), op_count=cat("op_count"),
-                                 linear_dist=cat("linear_dist"),
-                                 n_candidates=cat("n_candidates"),
+            return MappingResult(position=position,
+                                 distance=arr.get("distance"),
+                                 distance2=arr.get("distance2"),
+                                 mapped=mapped, strand=arr.get("strand"),
+                                 ops=arr.get("ops"),
+                                 op_count=arr.get("op_count"),
+                                 linear_dist=arr.get("linear_dist"),
+                                 n_candidates=arr.get("n_candidates"),
                                  stats=stats, lazy_tb=lazy)
 
     def _run_padded(self, plan: MappingPlan,

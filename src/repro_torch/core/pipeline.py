@@ -27,6 +27,7 @@ unmapped reads carry -1.
 from __future__ import annotations
 
 import dataclasses
+import mmap
 import warnings
 
 import numpy as np
@@ -171,6 +172,7 @@ class MappingResult:
 
 
 _POS_BIG = torch.iinfo(torch.int64).max
+_PAGE = mmap.PAGESIZE
 
 
 def _cand_positions(positions, occ, mini_pos):
@@ -496,7 +498,8 @@ class LazyTraceback:
             torch.as_tensor(self.occ, device=dev),
             torch.as_tensor(self.mpos, device=dev),
             torch.as_tensor(self.mapped, device=dev), self.cfg)
-        return ops.cpu().numpy(), cnt.cpu().numpy()
+        # C order, as the fetched fields (the plain traceback's is F)
+        return ops.contiguous().cpu().numpy(), cnt.cpu().numpy()
 
 
 def _host_int(v, site: str) -> int:
@@ -516,12 +519,60 @@ def _copy_args(sp, host: list) -> None:
            pageable=not all(t.is_pinned() for t in host))
 
 
+class _CallArrays:
+    """A chunk-engine call's own result arrays, which each chunk's fetch
+    fills in place: one C-contiguous ``np.ndarray`` a per-read field, of
+    the call's ``n`` rows, with the device output's dtype and trailing
+    shape, allocated at the first fetch.  Fetches run one at a time in
+    chunk order (the one fetch thread takes them in submission order, the
+    synchronous schedule in turn), so each chunk's rows follow the last
+    one's.  Made anew for every call: no result shares memory with
+    another's, and a fetch abandoned by the watchdog writes only into its
+    failed call's.
+
+    The arrays' pages are fresh, and a pageable copy from the device
+    holds the stream while it faults them in.  So the fetch thread
+    touches a chunk's rows before they are copied: the next chunk's
+    right after each copy, while the device still works on it."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self.arrays: dict[str, np.ndarray] = {}
+        self.rows = 0
+
+    def place(self, out: dict, n_real: int) -> list:
+        """Rows ``[:n_real]`` of each device output in ``out`` copied into
+        the next ``n_real`` rows of its array, and the output taken out of
+        ``out``, so that the device frees it before the next chunk's rows
+        are touched; returns the host views written."""
+        if not self.arrays:
+            self.arrays = {
+                k: np.empty((self.n, *v.shape[1:]),
+                            torch.empty(0, dtype=v.dtype).numpy().dtype)
+                for k, v in out.items()}
+            self._touch(0, n_real)
+        r0 = self.rows
+        self.rows += n_real
+        dst = []
+        for k in list(out):
+            dst.append(torch.from_numpy(self.arrays[k][r0:self.rows]))
+            dst[-1].copy_(out.pop(k)[:n_real])
+        self._touch(self.rows, self.rows + n_real)
+        return dst
+
+    def _touch(self, r0: int, r1: int) -> None:
+        """Fault in the pages of rows ``[r0, r1)``: one byte a page."""
+        for a in self.arrays.values():
+            a[r0:r1].reshape(-1).view(np.uint8)[::_PAGE] = 0
+
+
 class _ChunkPipeline:
     """Phase-split per-chunk execution for ``streaming``'s schedules.
 
       phase1: host pad (+ reverse complements) -> H2D -> seeding
       phase2: capacity-count syncs -> linear/affine/traceback
-      fetch:  device -> host copies + padding trim (fetch thread)
+      fetch:  device -> the call's result rows, padding left behind
+              (fetch thread)
 
     Each stage is a span of ``obs.tracing`` (``stage_times_s``'s names);
     given a ``times`` dict, the stages add their wall seconds there.  On
@@ -685,22 +736,23 @@ class _ChunkPipeline:
             stats["reverse_best"] = reverse_best
         return out, stats, n_real
 
-    def fetch(self, state, times=None):
-        """The chunk's outputs and its count tensors (the fused engine's
-        survivors, the strand fold's ``reverse_best``) to the host, in one
-        ``d2h`` span on the fetch thread."""
+    def fetch(self, state, times=None, *, into: _CallArrays):
+        """The chunk's real rows of each output straight into its rows of
+        the call's result arrays (``into``), and its count tensors (the
+        fused engine's survivors, the strand fold's ``reverse_best``) to
+        the host, in one ``d2h`` span on the fetch thread; ``placed`` is
+        the bytes written into the result arrays.  Returns the chunk's
+        stats."""
         out, stats, n_real = state
         with _span("d2h", times) as sp:
-            full = {k: v.cpu() for k, v in out.items()}
-            out.clear()     # the chunk's device outputs go with its fetch
+            placed = into.place(out, n_real)
             counts = {k: v.cpu() for k, v in stats.items()
                       if isinstance(v, torch.Tensor)}
             if sp is not None:
-                copies = [*full.values(), *counts.values()]
-                _copy_args(sp, copies)
-            host = {k: v.numpy()[:n_real] for k, v in full.items()}
+                _copy_args(sp, [*placed, *counts.values()])
+                sp.set(placed=sum(t.nbytes for t in placed))
             stats = {**stats, **{k: int(v) for k, v in counts.items()}}
-        return host, stats
+        return stats
 
 
 def _merge_stats(parts: list[dict]) -> dict:

@@ -35,7 +35,8 @@ property ``tests/test_torch_obs.py`` locks.  Where the metrics registry
 is armed, a recorded or timed span feeds the counters from the same
 numbers: ``repro_stage_seconds_total{stage}`` (stage spans),
 ``repro_device_syncs_total{site}`` (``sync`` spans) and
-``repro_<name>_bytes_total{memory}`` (spans with a ``bytes`` argument).
+``repro_<name>_bytes_total{memory}`` (copy spans: those with a
+``pageable`` argument beside their ``bytes``).
 
 Memory is bounded by ``max_events`` — a long run drops and counts excess
 events rather than growing without limit.  This module is a leaf of the
@@ -297,7 +298,7 @@ class Span:
             if name == "sync":
                 reg.counter("repro_device_syncs_total",
                             site=args["site"]).inc()
-            if "bytes" in args:
+            if "pageable" in args:
                 reg.counter(f"repro_{name}_bytes_total",
                             memory=("pageable" if args.get("pageable")
                                     else "pinned")).inc(args["bytes"])

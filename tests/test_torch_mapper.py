@@ -48,12 +48,15 @@ def world():
     return jidx, tidx, rs, np.concatenate([rs.reads, junk])
 
 
-def map_both(world, **cfg):
+def map_both(world, session=None, **cfg):
+    """The port's result (``session``'s, or a fresh ``Mapper``'s for
+    ``cfg``) and the reference's, on the world's reads."""
     jidx, tidx, _, reads = world
     want = JMapper(jidx, JConfig.from_index(jidx, **cfg)).map(reads)
-    got = Mapper(tidx, MapperConfig.from_index(tidx, **cfg),
-                 device="cpu").map(reads)
-    return got, want
+    if session is None:
+        session = Mapper(tidx, MapperConfig.from_index(tidx, **cfg),
+                         device="cpu")
+    return session.map(reads), want
 
 
 def assert_same(got, want):
@@ -89,6 +92,47 @@ def test_compacted_engine_matches_reference(world, both_strands, cigar_mode,
                          cigar_mode=cigar_mode, chunk_reads=chunk,
                          stream=stream)
     assert_same(got, want)
+
+
+# (engine, stream, cigar_mode, chunk): each chunk's fetch writes its rows
+# straight into the call's own result arrays; a chunk of 5 cuts the 13
+# reads into 5, 5 and a partial 3
+PLACED = [(engine, stream, cigar_mode, chunk)
+          for engine in ("compacted", "fused") for stream in (True, False)
+          for cigar_mode in ("eager", "lazy") for chunk in (None, 5)]
+
+
+@pytest.mark.parametrize("engine,stream,cigar_mode,chunk", PLACED)
+def test_chunks_fetch_into_fresh_result_arrays(world, engine, stream,
+                                               cigar_mode, chunk):
+    """Every field and stat equals the reference's; every field (and the
+    lazy traceback's held arrays) is a C-contiguous array of the call's
+    own, sharing no memory with a second call's result and unchanged by
+    that call."""
+    _, tidx, _, reads = world
+    cfg = dict(engine=engine, stream=stream, cigar_mode=cigar_mode,
+               chunk_reads=chunk, both_strands=True)
+    m = Mapper(tidx, MapperConfig.from_index(tidx, **cfg), device="cpu")
+    got, want = map_both(world, session=m, **cfg)
+    assert got.stats["n_chunks"] == (1 if chunk is None else 3)
+
+    def held(res):      # before ops/op_count run the deferred traceback
+        lt = res.lazy_tb
+        assert (lt is not None) == (cigar_mode == "lazy")
+        return [] if lt is None else [lt.reads, lt.occ, lt.mpos]
+
+    first_held = held(got)
+    assert_same(got, want)
+    fields = [f for f in FIELDS if getattr(got, f) is not None]
+    first = {f: getattr(got, f).copy() for f in fields}
+    again = m.map(np.ascontiguousarray(reads[::-1]))
+    pairs = list(zip(first_held, held(again)))
+    pairs += [(getattr(got, f), getattr(again, f)) for f in fields]
+    for a, b in pairs:
+        assert isinstance(a, np.ndarray) and a.flags.c_contiguous
+        assert len(a) == len(reads) and not np.shares_memory(a, b)
+    for f in fields:
+        np.testing.assert_array_equal(getattr(got, f), first[f], err_msg=f)
 
 
 def test_mapping_is_accurate_and_cigars_decode(world):

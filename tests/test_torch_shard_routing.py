@@ -38,6 +38,7 @@ from repro_torch.index import open_index, shard_flat_index
 from repro_torch.index.residency import (DeviceResidency,
                                          arena_position_dtype)
 from repro_torch.index.sharded import Partition
+from repro_torch.obs import tracing as ttrace
 
 READ_LEN, K, W, ETH = 60, 10, 12, 4
 GEOM = dict(read_len=READ_LEN, k=K, w=W, eth=ETH)
@@ -153,7 +154,16 @@ def test_routed_both_strands_stream_and_sync(world):
     for stream in (True, False):
         cfg = MapperConfig.from_index(idx, stream=stream, **kw)
         with Mapper(idx, cfg, device="cpu", prefetch=True) as m:
-            got = m.map(reads)
+            tr = ttrace.enable_tracing(tracer_=ttrace.Tracer())
+            try:
+                got = m.map(reads)
+            finally:
+                ttrace.disable_tracing()
+            # each chunk's fetch wrote its rows of the call's own arrays
+            placed = sum(s.args["placed"] for s in tr.spans()
+                         if s.name == "d2h")
+            assert placed == sum(getattr(got, f).nbytes for f in FIELDS
+                                 if getattr(got, f) is not None)
             _same_results(want, got, f"stream={stream}")
             again = m.map(reads)
         _same_results(want, again, f"again stream={stream}")

@@ -213,6 +213,37 @@ def test_copy_bytes_are_the_arrays_copied(world, engine, both):
         sum(a["bytes"] for a in h2d)
 
 
+@pytest.mark.parametrize("engine,cigar_mode", [("compacted", "eager"),
+                                               ("fused", "lazy")])
+def test_fetch_places_the_results_and_assemble_copies_nothing(
+        world, engine, cigar_mode):
+    """Each chunk's ``d2h`` writes its real rows straight into the call's
+    result arrays: the spans' ``placed`` sums to the result arrays' bytes
+    (the lazy traceback's held arrays among them; a partial last chunk's
+    padding left behind), their ``bytes`` add only the count tensors, and
+    ``assemble`` copies no bytes."""
+    _, idx, reads = world
+    reads = reads[:2 * CHUNK + 5]
+    tr = ttrace.enable_tracing(tracer_=ttrace.Tracer())
+    res = _mapper(idx, engine=engine, both_strands=True,
+                  cigar_mode=cigar_mode).map(reads)
+    spans = tr.spans()
+    lt = res.lazy_tb
+    if lt is None:
+        fetched = [getattr(res, f) for f in RESULT_FIELDS]
+    else:       # ops and op_count come later, from the deferred traceback
+        fetched = [getattr(res, f) for f in RESULT_FIELDS
+                   if f not in ("ops", "op_count")]
+        fetched += [lt.reads, lt.occ, lt.mpos]
+    want = sum(a.nbytes for a in fetched if a is not None)
+    d2h = [s.args for s in spans if s.name == "d2h"]
+    assert len(d2h) == 3
+    assert sum(a["placed"] for a in d2h) == want
+    counts = (engine == "fused") + 1        # survivors, reverse_best
+    assert [a["bytes"] - a["placed"] for a in d2h] == [8 * counts] * 3
+    assert [s.args["bytes"] for s in spans if s.name == "assemble"] == [0]
+
+
 @pytest.mark.parametrize("engine", ["compacted", "fused"])
 @pytest.mark.parametrize("both", [False, True])
 def test_syncs_are_the_listed_sites(world, engine, both):

@@ -12,15 +12,18 @@ Layout (CSR over unique minimizer k-mer codes, sorted for lookup):
   segments   : (P, seg_len) uint8
 
 The values equal the reference builder's field for field; positions and
-offsets are int64 here (the reference narrows them to int32).
+offsets are int64 here (the reference narrows them to int32).  The whole
+build runs on its device, and the index keeps its tensors there.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
+from ..obs import tracing as _tracing
 from . import wf_backend as wfb
 from .device import resolve_device
 from .encoding import SENTINEL
@@ -51,16 +54,40 @@ def validate_geometry(*, read_len: int, k: int, w: int, eth: int) -> None:
         raise ValueError(f"eth={eth!r}: band half-width must be >= 0")
 
 
+def _host(i: int, dtype):
+    """The numpy field of ``tensors[i]``, made at first access."""
+    def get(self) -> np.ndarray:
+        return self.tensors[i].cpu().numpy().astype(dtype, copy=False)
+    return functools.cached_property(get)
+
+
 @dataclasses.dataclass(frozen=True)
 class GenomeIndex:
-    uniq_kmers: np.ndarray
-    offsets: np.ndarray
-    positions: np.ndarray
-    segments: np.ndarray
+    """The index's four arrays as torch tensors on the device that built
+    them (``tensors``): k-mer codes int64 holding uint32 values, offsets
+    and positions int64, segments uint8 — the ``Mapper``'s own layout,
+    which a session on that device takes as they are.
+
+    Host readers (sharding, the format writers, ``low_th_split``) read the
+    numpy fields ``uniq_kmers`` (uint32), ``offsets``, ``positions`` and
+    ``segments``, made at first access: a copy from the card paid by the
+    reader alone, or a view of tensors on the CPU."""
+    tensors: tuple
     read_len: int
     k: int
     w: int
     eth: int
+
+    uniq_kmers = _host(0, np.uint32)
+    offsets = _host(1, np.int64)
+    positions = _host(2, np.int64)
+    segments = _host(3, np.uint8)
+
+    def to(self, device) -> "GenomeIndex":
+        """This index with its tensors on ``device``: the same tensors
+        where they live there already, else copies."""
+        return dataclasses.replace(
+            self, tensors=tuple(t.to(device) for t in self.tensors))
 
     @property
     def seg_len(self) -> int:
@@ -75,14 +102,14 @@ class GenomeIndex:
         """Footprint accounting, mirroring the paper's 800MB -> 13.3GB
         note and ``repro.core.index.GenomeIndex.storage_bytes``: segments
         counted 2-bit packed per base (``ceil(seg_len/4)`` bytes per
-        occurrence row) plus a 1-bit-per-base sentinel mask, and the hash
-        table with its CSR offsets and positions at this index's own
-        dtypes (int64 offsets and positions here)."""
-        n_occ = len(self.positions)
+        occurrence row) plus a 1-bit-per-base sentinel mask, and the
+        hash table with its CSR offsets and positions at the host fields'
+        dtypes (uint32 codes, int64 offsets and positions)."""
+        kmers, offsets, positions, _ = self.tensors
+        n_occ = positions.numel()
         seg_bytes = n_occ * ((self.seg_len + 3) // 4
                              + (self.seg_len + 7) // 8)
-        hash_table = (self.uniq_kmers.nbytes + self.offsets.nbytes
-                      + self.positions.nbytes)
+        hash_table = 4 * kmers.numel() + 8 * (offsets.numel() + n_occ)
         return {
             "hash_table_bytes": hash_table,
             "materialized_segments_bytes": seg_bytes,
@@ -93,34 +120,36 @@ class GenomeIndex:
     @classmethod
     def from_arrays(cls, uniq_kmers, offsets, positions, segments, *,
                     read_len: int, k: int, w: int, eth: int) -> "GenomeIndex":
-        """An index from the four arrays of another builder (for instance
-        the fields of ``repro.core.index.GenomeIndex``), in this package's
-        dtypes."""
+        """An index from the four host arrays of another builder (for
+        instance the fields of ``repro.core.index.GenomeIndex``), as CPU
+        tensors in this package's dtypes."""
         validate_geometry(read_len=read_len, k=k, w=w, eth=eth)
         segments = np.ascontiguousarray(segments, dtype=np.uint8)
         if segments.ndim != 2 or segments.shape[1] != 2 * (read_len + eth) - k:
             raise ValueError(f"segments shape {segments.shape} does not "
                              f"match read_len={read_len}, eth={eth}, k={k}")
-        return cls(uniq_kmers=np.asarray(uniq_kmers, dtype=np.uint32),
-                   offsets=np.asarray(offsets, dtype=np.int64),
-                   positions=np.asarray(positions, dtype=np.int64),
-                   segments=segments, read_len=read_len, k=k, w=w, eth=eth)
+        tensors = tuple(torch.from_numpy(np.ascontiguousarray(a, dtype=dt))
+                        for a, dt in ((uniq_kmers, np.int64),
+                                      (offsets, np.int64),
+                                      (positions, np.int64),
+                                      (segments, np.uint8)))
+        return cls(tensors=tensors, read_len=read_len, k=k, w=w, eth=eth)
 
 
-def _scan_tile(ref: np.ndarray, w0: int, w1: int, k: int, w: int,
+def _scan_tile(ref, w0: int, w1: int, k: int, w: int,
                device: torch.device, backend: str):
     """Minimizers (k-mer codes, positions in ``ref``) of windows [w0, w1)
-    of ``ref``: the tile cut into rows of ``_SCAN_ROW`` windows (``L =
-    _SCAN_ROW + w + k - 2`` bases, neighbours overlapping by ``w + k -
-    2``), all rows in one call, the padded tail's windows dropped.
-    Windows are independent, so the rows give the values one row would."""
+    of ``ref`` (a numpy array or a tensor): the tile cut into rows of
+    ``_SCAN_ROW`` windows (``L = _SCAN_ROW + w + k - 2`` bases, neighbours
+    overlapping by ``w + k - 2``), all rows in one call, the padded tail's
+    windows dropped.  Windows are independent, so the rows give the
+    values one row would."""
     span = w + k - 1
     n = w1 - w0
     rows = -(-n // _SCAN_ROW)
     seq = torch.zeros(rows * _SCAN_ROW + span - 1, dtype=torch.uint8,
                       device=device)
-    seq[: n + span - 1] = torch.from_numpy(ref[w0 : w1 + span - 1]).to(
-        device)
+    seq[: n + span - 1].copy_(torch.as_tensor(ref[w0 : w1 + span - 1]))
     km, pos = wfb.minimizers(seq.unfold(0, _SCAN_ROW + span - 1, _SCAN_ROW),
                              k=k, w=w, backend=backend)
     pos = pos + (torch.arange(rows, device=device)[:, None] * _SCAN_ROW
@@ -128,31 +157,33 @@ def _scan_tile(ref: np.ndarray, w0: int, w1: int, k: int, w: int,
     return km.reshape(-1)[:n], pos.reshape(-1)[:n]
 
 
-def _occurrences(ref: np.ndarray, k: int, w: int, device: torch.device,
-                 backend: str):
-    """Distinct minimizer occurrences of ``ref``: (kmer codes, positions),
-    int64, ordered by position.
+def _occurrences(ref: torch.Tensor, k: int, w: int, backend: str):
+    """Distinct minimizer occurrences of ``ref`` (a tensor on the build's
+    device): (kmer codes, positions), int64 on that device, ordered by
+    position.
 
     The scan runs in tiles of windows.  A minimizer's position never
-    decreases as the window slides, so repeats are adjacent and each tile
-    drops them before anything reaches the host.
+    decreases as the window slides, so repeats are adjacent: each tile
+    drops them, its first window against the last position of the tile
+    before, a scalar on the device.
     """
     span = w + k - 1
     n_win = len(ref) - span + 1
     kmers, poss = [], []
-    last = -1
+    last = torch.full((1,), -1, dtype=torch.int64, device=ref.device)
     for w0 in range(0, max(n_win, 0), _SCAN_TILE):
         w1 = min(w0 + _SCAN_TILE, n_win)
-        km, pos = _scan_tile(ref, w0, w1, k, w, device, backend)
-        keep = torch.ones_like(pos, dtype=torch.bool)
-        keep[1:] = pos[1:] != pos[:-1]
-        keep[0] = bool(pos[0] != last)
-        last = int(pos[-1])
-        kmers.append(km[keep].cpu().numpy())
-        poss.append(pos[keep].cpu().numpy())
+        km, pos = _scan_tile(ref, w0, w1, k, w, ref.device, backend)
+        keep = torch.empty_like(pos, dtype=torch.bool)
+        torch.ne(pos[1:], pos[:-1], out=keep[1:])
+        torch.ne(pos[:1], last, out=keep[:1])
+        last = pos[-1:].clone()
+        kmers.append(km[keep])
+        poss.append(pos[keep])
     if not kmers:
-        return np.zeros(0, np.int64), np.zeros(0, np.int64)
-    return np.concatenate(kmers), np.concatenate(poss)
+        empty = torch.zeros(0, dtype=torch.int64, device=ref.device)
+        return empty, empty
+    return torch.cat(kmers), torch.cat(poss)
 
 
 def build_index(ref: np.ndarray, read_len: int = 150, k: int = 12,
@@ -161,43 +192,65 @@ def build_index(ref: np.ndarray, read_len: int = 150, k: int = 12,
     """Scan the reference, collect minimizer occurrences, materialize
     segments — ``repro.core.index.build_index``, same values.
 
-    The minimizer scan runs on ``device`` (the card unless asked
-    otherwise), through the minimizer kernel on ``backend="cuda"`` and
-    the plain version on ``"torch"`` (``core.wf_backend.minimizers``);
-    the CSR and the segment table are built on the host.
-    ``max_pls_per_minimizer`` caps hyper-repetitive minimizers, keeping
-    the lowest positions of each.
+    Everything runs on ``device`` (the card unless asked otherwise), and
+    the index's tensors stay there: the minimizer scan, through the
+    minimizer kernel on ``backend="cuda"`` and the plain version on
+    ``"torch"`` (``core.wf_backend.minimizers``); one stable sort of the
+    occurrences' codes, which keeps each k-mer's positions ascending; the
+    CSR, with ``max_pls_per_minimizer`` capping hyper-repetitive
+    minimizers at their lowest positions; and the segment table, gathered
+    in blocks of rows from the sentinel-padded reference straight into
+    its own tensor, allocated once the build's other transients are free.
     """
     validate_geometry(read_len=read_len, k=k, w=w, eth=eth)
+    dev = resolve_device(device)
     ref = np.ascontiguousarray(ref, dtype=np.uint8)
-    kmers, pos = _occurrences(ref, k, w, resolve_device(device), backend)
-    # (kmer, position) order, as the reference's np.unique over the pairs
-    order = np.argsort(kmers, kind="stable")
-    kmers, pos = kmers[order], pos[order]
-    uniq, starts, counts = np.unique(kmers, return_index=True,
-                                     return_counts=True)
-    rank = np.arange(len(kmers)) - np.repeat(starts, counts)
-    keep = rank < max_pls_per_minimizer
-    pos = pos[keep]
-    counts = np.minimum(counts, max_pls_per_minimizer)
-    offsets = np.zeros(len(uniq) + 1, dtype=np.int64)
-    offsets[1:] = np.cumsum(counts)
-
     pad = read_len + eth - k
     seg_len = 2 * (read_len + eth) - k
-    padded = np.full(len(ref) + 2 * pad, SENTINEL, dtype=np.uint8)
-    padded[pad : pad + len(ref)] = ref
-    # the segment of the occurrence at p is padded[p : p + seg_len]: rows
-    # of a strided view, copied a bounded block of rows at a time (fancy
-    # indexing reads the view in place; np.take would first copy all of it)
-    view = np.lib.stride_tricks.sliding_window_view(padded, seg_len)
-    segs = np.empty((len(pos), seg_len), dtype=np.uint8)
-    for a in range(0, len(pos), _GATHER_ROWS):
-        b = min(a + _GATHER_ROWS, len(pos))
-        segs[a:b] = view[pos[a:b]]
-    return GenomeIndex(uniq_kmers=uniq.astype(np.uint32), offsets=offsets,
-                       positions=pos.astype(np.int64), segments=segs,
-                       read_len=read_len, k=k, w=w, eth=eth)
+    with _tracing.span("index.build", bases=len(ref)) as sp:
+        padded = torch.full((len(ref) + 2 * pad,), SENTINEL,
+                            dtype=torch.uint8, device=dev)
+        padded[pad : pad + len(ref)].copy_(torch.from_numpy(ref))
+        with _tracing.span("index.scan"):
+            kmers, pos = _occurrences(padded[pad : pad + len(ref)], k, w,
+                                      backend)
+        with _tracing.span("index.sort"):
+            # positions ascend already: a stable sort by code gives the
+            # (kmer, position) order of the reference's np.unique
+            kmers, order = torch.sort(kmers, stable=True)
+            pos = pos[order]
+            del order
+            uniq, counts = torch.unique_consecutive(kmers,
+                                                    return_counts=True)
+            # its outputs keep storage for every occurrence: the index
+            # keeps a copy of the codes alone
+            uniq = uniq.clone()
+            del kmers
+            ends = torch.cumsum(counts, 0)
+            rank = torch.arange(len(pos), device=dev) - (
+                torch.repeat_interleave(ends - counts, counts,
+                                        output_size=len(pos)))
+            pos = pos[rank < max_pls_per_minimizer]
+            del rank, ends
+            offsets = torch.zeros(len(uniq) + 1, dtype=torch.int64,
+                                  device=dev)
+            torch.cumsum(counts.clamp_(max=max_pls_per_minimizer), 0,
+                         out=offsets[1:])
+            del counts
+        with _tracing.span("index.segments"):
+            # the segment of the occurrence at p is padded[p : p +
+            # seg_len]: rows of a strided view, copied a bounded block of
+            # rows at a time into the table
+            view = padded.unfold(0, seg_len, 1)
+            segs = torch.empty((len(pos), seg_len), dtype=torch.uint8,
+                               device=dev)
+            for a in range(0, len(pos), _GATHER_ROWS):
+                b = min(a + _GATHER_ROWS, len(pos))
+                torch.index_select(view, 0, pos[a:b], out=segs[a:b])
+        if sp:
+            sp.set(occurrences=len(pos), segment_bytes=segs.numel())
+    return GenomeIndex(tensors=(uniq, offsets, pos, segs), read_len=read_len,
+                       k=k, w=w, eth=eth)
 
 
 def minimizer_frequencies(index: GenomeIndex) -> np.ndarray:

@@ -310,12 +310,16 @@ class Mapper:
     ----------
     index : GenomeIndex, ShardedGenomeIndex or ShardedIndex
         A flat index of this package (``build_index`` or
-        ``GenomeIndex.from_arrays``), placed on the device whole; or a
+        ``GenomeIndex.from_arrays``), placed on the device whole (its
+        own tensors, with no copy, where they live there already); or a
         partitioned one (``index.open_index``, ``shard_flat_index``),
         whose chunks are routed through a device arena
         (``index.residency``) and nothing is placed up front.  On
         ``topology="mesh"`` a flat index is sharded across the mesh
-        (``core.distributed.shard_index``), partition *i* of a
+        (``core.distributed.shard_index``, on the host: the session keeps
+        a host copy, so the card holds only the shards once the caller
+        drops an index built there, or hands over ``index.to("cpu")``
+        before the shards are placed), partition *i* of a
         ``ShardedGenomeIndex`` is placed on shard *i* (no re-hashing), and
         a ``core.distributed.ShardedIndex`` is placed as it is.
     cfg : MapperConfig, optional
@@ -436,13 +440,16 @@ class Mapper:
                                        device=self.device), self.cfg)
             return
         self.index = index
-        dev = self.device
-        self._dev = tuple(torch.as_tensor(np.asarray(a, dtype=dt),
-                                          device=dev)
-                          for a, dt in ((index.uniq_kmers, np.int64),
-                                        (index.offsets, np.int64),
-                                        (index.positions, np.int64),
-                                        (index.segments, np.uint8)))
+        # the index's own tensors where they live here already ("cuda" is
+        # named as its card first); the span only where there is a copy
+        here = torch.empty(0, device=self.device).device
+        if all(t.device == here for t in index.tensors):
+            self._dev = index.tensors
+        else:
+            with _tracing.span("index.upload") as sp:
+                self._dev = tuple(t.to(self.device) for t in index.tensors)
+                if sp:
+                    sp.set(bytes=sum(t.nbytes for t in self._dev))
 
     def _place_mesh(self, index, mesh, n_shards, device) -> None:
         """The mesh branch of the constructor: the mesh (given, or the
@@ -476,6 +483,9 @@ class Mapper:
             sidx = index
             self.index = None
         else:
+            # cut on the host, where shard_index works: the session keeps
+            # no flat tensors on the card beside the shards
+            index = index.to("cpu")
             sidx = shard_index(index, S)
             self.index = index
         self.sharded_index = sidx

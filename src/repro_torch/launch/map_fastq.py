@@ -209,6 +209,10 @@ def _run(args) -> int:
         idx = build_index(ref, read_len=rl, k=args.k, w=args.w,
                           eth=args.eth, device=device,
                           backend=args.wf_backend)
+        if args.topology == "mesh":
+            # the mesh cuts its shards on the host: the flat index leaves
+            # the card before they are placed there
+            idx = idx.to("cpu")
         src = "in-memory index"
     refmap = ReferenceMap(contigs)
     budget = (int(args.index_budget_mb * (1 << 20))

@@ -45,6 +45,10 @@ def run_service(args) -> int:
     device = resolve_device(args.device)
     ref = make_reference(args.genome, seed=0, repeat_frac=0.02)
     idx = build_index(ref, device=device, backend=args.wf_backend)
+    if args.topology == "mesh":
+        # the mesh cuts its shards on the host: the flat index leaves the
+        # card before they are placed there
+        idx = idx.to("cpu")
     cfg = MapperConfig.from_index(idx, wf_backend=args.wf_backend,
                                   stream=not args.no_stream)
     mapper = Mapper(idx, cfg, topology=args.topology, n_shards=args.shards,
@@ -100,7 +104,9 @@ def run_distributed(args) -> int:
     mesh = make_genomics_mesh(args.shards, device=device)
     n_shards = mesh.n_shards
     ref = make_reference(args.genome, seed=0, repeat_frac=0.02)
-    idx = build_index(ref, device=device, backend=args.wf_backend)
+    # the mesh cuts its shards on the host: the flat index leaves the card
+    # before they are placed there
+    idx = build_index(ref, device=device, backend=args.wf_backend).to("cpu")
     cfg = MapperConfig.from_index(idx, wf_backend=args.wf_backend)
     mapper = Mapper(idx, cfg, topology="mesh", mesh=mesh,
                     send_cap=args.send_cap)

@@ -262,6 +262,32 @@ def test_shard_flat_index_matches_reference(world):
         shard_flat_index(flat, 3)
 
 
+@pytest.mark.parametrize("parts", [2, 4])
+def test_built_index_shards_match_reference(parts):
+    """The port's own flat build (on a CPU device), split by the crossbar
+    rule, stacked for the mesh (partition i on shard i) and sharded
+    straight from the flat CSR: the reference's arrays, from its own
+    build, byte for byte."""
+    from repro.core import distributed as ref_dist
+    from repro_torch.core import distributed as port_dist
+    from repro_torch.core.index import build_index
+    ref = make_reference(3000, seed=4, repeat_frac=0.02)
+    want_flat = ref_build_flat(ref, **GEOM)
+    flat = build_index(ref, **GEOM, device="cpu")
+    want, got = (ref_shard(want_flat, parts, ref=ref),
+                 shard_flat_index(flat, parts, ref=ref))
+    for pa, pb in zip(want.parts, got.parts, strict=True):
+        for f in ("kmers", "offsets", "positions", "segments"):
+            x, y = np.asarray(getattr(pa, f)), np.asarray(getattr(pb, f))
+            assert x.dtype == y.dtype and np.array_equal(x, y), f
+    for mw, mg in ((want.to_mesh_shards(), got.to_mesh_shards()),
+                   (ref_dist.shard_index(want_flat, parts),
+                    port_dist.shard_index(flat, parts))):
+        for f in ("uniq_kmers", "offsets", "positions", "segments"):
+            x, y = getattr(mw, f), getattr(mg, f)
+            assert x.dtype == y.dtype and x.tobytes() == y.tobytes(), f
+
+
 def test_origin_index_reference_codes_refused(world, tmp_path):
     idx = build_sharded_index(world / "ref.fa", tmp_path / "idx",
                               num_partitions=2, origin=ORIGIN, device="cpu",

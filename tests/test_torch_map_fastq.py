@@ -288,8 +288,10 @@ def _json_events(err):
 # the port's counters of its chunk schedule, which the reference lacks
 PORT_COUNTERS = ("repro_device_syncs_total", "repro_h2d_bytes_total",
                  "repro_d2h_bytes_total")
-# the port's spans of its chunk schedule, which the reference lacks
-PORT_SPANS = {"mapper.run", "host_prep", "h2d", "sync", "fetch_wait",
+# the port's spans of its index build and its chunk schedule, which the
+# reference lacks
+PORT_SPANS = {"index.build", "index.scan", "index.sort", "index.segments",
+              "mapper.run", "host_prep", "h2d", "sync", "fetch_wait",
               "assemble"}
 
 
@@ -305,9 +307,9 @@ def test_obs_flags_write_the_references_trace_metrics_and_log(
     final one with the reference's metric names and counts (times aside)
     that validates against the schema, and the reference's JSON events;
     the SAM is unchanged.  The trace's per-stage durations equal the
-    stage-seconds counters.  The port adds the chunk schedule's spans
-    (``PORT_SPANS``: its stages on the streamed path, syncs, waits) and
-    their counters, which read the trace's numbers."""
+    stage-seconds counters.  The port adds the index build's spans and
+    the chunk schedule's (``PORT_SPANS``: its stages on the streamed path,
+    syncs, waits) and their counters, which read the trace's numbers."""
     text = _port(world, "port_obs.sam", "--trace-out",
                  str(world / "trace.json"), "--metrics-out",
                  str(world / "metrics.jsonl"), "--log-json")

@@ -137,6 +137,157 @@ def test_build_index_scan_rows_match_reference(monkeypatch, backend):
                                       err_msg=f)
 
 
+# the port's field dtypes: the reference narrows offsets and positions to
+# int32
+PORT_DTYPES = {"uniq_kmers": np.uint32, "offsets": np.int64,
+               "positions": np.int64, "segments": np.uint8}
+SMALL = dict(read_len=60, k=10, w=12, eth=4)
+SMALL_SEG = 2 * (60 + 4) - 10
+
+
+def _edge_ref(case):
+    """(reference, build keywords, module overrides) of one edge case."""
+    if case == "cap":
+        ref = make_reference(6_000, seed=14, repeat_frac=0.5, repeat_len=120)
+        return ref, dict(max_pls_per_minimizer=1), {}
+    if case == "tile_edges":
+        ref = make_reference(2_500, seed=15, repeat_frac=0.1,
+                             repeat_len=100)
+        return ref, {}, dict(_SCAN_TILE=1, _SCAN_ROW=1)
+    if case == "one_segment":
+        return make_reference(SMALL_SEG + 1, seed=16), {}, {}
+    # "sentinel_ends": every segment reaches past an end of the reference
+    ref = make_reference(SMALL_SEG - 20, seed=17)
+    ref[30:34] = 4
+    return ref, dict(max_pls_per_minimizer=3), dict(_GATHER_ROWS=3)
+
+
+@pytest.mark.parametrize("case", ["cap", "tile_edges", "one_segment",
+                                  "sentinel_ends"])
+def test_build_index_edges_match_reference(monkeypatch, case):
+    """The build on a CPU device at its edges: a cap of one position a
+    minimizer on a repeat-rich reference; a tile and a row of one window
+    each, so that every window's dedup crosses a tile seam; a reference
+    barely longer than one segment; and one shorter than a segment, every
+    row padded with sentinels at one end or both.  Every field is the
+    reference's, in the port's dtypes."""
+    import repro_torch.core.index as tindex
+    ref, kw, patch = _edge_ref(case)
+    want = jbuild(ref, **SMALL, **kw)
+    for name, value in patch.items():
+        monkeypatch.setattr(tindex, name, value)
+    got = tbuild(ref, **SMALL, **kw, device="cpu")
+    for f, dt in PORT_DTYPES.items():
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                      err_msg=f)
+        assert getattr(got, f).dtype == dt, f
+    assert got.segments.shape == (len(want.positions), SMALL_SEG)
+    # no tensor of the index keeps a larger storage alive
+    assert [t.untyped_storage().nbytes() for t in got.tensors] == [
+        t.nbytes for t in got.tensors]
+    if case == "cap":
+        assert np.diff(got.offsets).max() == 1
+        assert len(want.positions) < len(np.unique(
+            np.asarray(jmin.minimizers(jnp.asarray(ref), k=10, w=12)[2])))
+    if case == "sentinel_ends":
+        lead = got.segments[:, 0] == tenc.SENTINEL
+        tail = got.segments[:, -1] == tenc.SENTINEL
+        assert (lead | tail).all() and (lead & tail).any()
+
+
+@pytest.mark.parametrize("source", ["built", "from_arrays"])
+def test_index_host_fields_equal_tensors(world, source):
+    """The numpy fields are made from the index's tensors at first access
+    and kept: the tensors' values in the port's dtypes; the footprint is
+    counted from the tensors alone, as from the fields."""
+    _, ji, ti = world
+    idx = ti if source == "built" else GenomeIndex.from_arrays(
+        ji.uniq_kmers, ji.offsets, ji.positions, ji.segments,
+        read_len=ji.read_len, k=ji.k, w=ji.w, eth=ji.eth)
+    tensors = dict(zip(PORT_DTYPES, idx.tensors))
+    assert [t.dtype for t in idx.tensors] == [torch.int64, torch.int64,
+                                              torch.int64, torch.uint8]
+    for f, dt in PORT_DTYPES.items():
+        host = getattr(idx, f)
+        assert host.dtype == dt and getattr(idx, f) is host, f
+        np.testing.assert_array_equal(host, tensors[f].numpy(), err_msg=f)
+    n_occ = len(idx.positions)
+    seg = n_occ * ((idx.seg_len + 3) // 4 + (idx.seg_len + 7) // 8)
+    table = (idx.uniq_kmers.nbytes + idx.offsets.nbytes
+             + idx.positions.nbytes)
+    assert idx.storage_bytes() == {
+        "hash_table_bytes": table, "materialized_segments_bytes": seg,
+        "total_bytes": table + seg, "blowup": seg / table}
+
+
+@pytest.mark.parametrize("engine", ["compacted", "fused"])
+def test_mapper_takes_built_index_as_is(world, engine):
+    """A ``Mapper`` on the build's device holds the built index's own
+    tensors, with no copy and no ``index.upload`` span, and maps a seeded
+    batch exactly as a ``Mapper`` given the same index from host arrays."""
+    from repro_torch.core.mapper import Mapper
+    from repro_torch.core.pipeline import MapperConfig
+    from repro_torch.obs import tracing as ttrace
+    ref, _, ti = world
+    reads = sample_reads(ref, 24, seed=19, both_strands=True).reads
+    cfg = MapperConfig.from_index(ti, engine=engine, chunk_reads=16,
+                                  both_strands=True, cigar_mode="eager")
+    tr = ttrace.enable_tracing(tracer_=ttrace.Tracer())
+    try:
+        m = Mapper(ti, cfg, device="cpu")
+    finally:
+        ttrace.disable_tracing()
+    assert all(a is b for a, b in zip(m._dev, ti.tensors))
+    assert "index.upload" not in {e.name for e in tr.spans()}
+    host = GenomeIndex.from_arrays(ti.uniq_kmers, ti.offsets, ti.positions,
+                                   ti.segments, read_len=ti.read_len,
+                                   k=ti.k, w=ti.w, eth=ti.eth)
+    got, want = m.map(reads), Mapper(host, cfg, device="cpu").map(reads)
+    for f in ("position", "distance", "distance2", "mapped", "strand",
+              "ops", "op_count", "linear_dist", "n_candidates"):
+        x, y = getattr(got, f), getattr(want, f)
+        assert (x is None) == (y is None), f
+        if x is not None:
+            np.testing.assert_array_equal(x, y, err_msg=f)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_index_to_copies_only_where_needed(world, device):
+    """``GenomeIndex.to`` keeps the tensors that live on the device
+    already and copies the others, shapes and dtypes kept, geometry
+    unchanged."""
+    _, _, ti = world
+    moved = ti.to(device)
+    assert (moved.read_len, moved.k, moved.w, moved.eth) == (
+        ti.read_len, ti.k, ti.w, ti.eth)
+    for a, b in zip(moved.tensors, ti.tensors):
+        assert a.device.type == device
+        assert (a is b) == (device == "cpu")
+        assert a.shape == b.shape and a.dtype == b.dtype
+
+
+def test_build_index_spans():
+    """With a tracer armed the build records ``index.build`` (its bases,
+    occurrence rows and segment bytes) over ``index.scan``,
+    ``index.sort`` and ``index.segments``."""
+    from repro_torch.obs import tracing as ttrace
+    ref = make_reference(3_000, seed=18)
+    tr = ttrace.enable_tracing(tracer_=ttrace.Tracer())
+    try:
+        idx = tbuild(ref, **SMALL, device="cpu")
+    finally:
+        ttrace.disable_tracing()
+    spans = {e.name: e for e in tr.spans()}
+    assert sorted(spans) == ["index.build", "index.scan", "index.segments",
+                             "index.sort"]
+    top = spans["index.build"]
+    assert top.parent is None and top.args == {
+        "bases": 3_000, "occurrences": len(idx.positions),
+        "segment_bytes": idx.segments.nbytes}
+    for name in ("index.scan", "index.sort", "index.segments"):
+        assert spans[name].parent == top.sid, name
+
+
 def test_build_index_rejects_bad_geometry():
     with pytest.raises(ValueError, match="k=20"):
         tbuild(np.zeros(1000, np.uint8), k=20, device="cpu")
